@@ -1,0 +1,31 @@
+from repro_torch.serving.batch_decode import (
+    BatchDecoder,
+    DecodedBatch,
+    DecodePlan,
+    StreamGroup,
+    default_decoder,
+    streams_from_containers,
+)
+from repro_torch.serving.engine import (
+    BucketScheduler,
+    PipelineExecutor,
+    SubmitBuffer,
+    resolve_device,
+)
+from repro_torch.tuning.policy import HALF_OCTAVE, P2, BucketPolicy
+
+__all__ = [
+    "BatchDecoder",
+    "DecodedBatch",
+    "DecodePlan",
+    "StreamGroup",
+    "default_decoder",
+    "streams_from_containers",
+    "BucketScheduler",
+    "PipelineExecutor",
+    "SubmitBuffer",
+    "resolve_device",
+    "BucketPolicy",
+    "P2",
+    "HALF_OCTAVE",
+]

@@ -1,0 +1,369 @@
+"""Shared serving-engine layer: device resolution, bucket scheduling and
+pipelined execution on one device.  Port of ``repro/serving/engine.py``.
+
+  * :func:`resolve_device` — the device entry points' rule: no device means
+    the card, and no card means an error, never a quiet CPU run.
+  * :class:`BucketScheduler` — grouping (first-appearance key order, members
+    in input order) and bucket-edge rounding under a
+    :class:`~repro_torch.tuning.policy.BucketPolicy`.  One device: the
+    reference's multi-device shard split waits for a later slice.
+  * :class:`PipelineExecutor` — per-bucket stage(upload) -> stage(dispatch)
+    with double buffering.  On CUDA each bucket is staged into pinned host
+    buffers and copied with ``non_blocking=True`` on a side stream; an event
+    recorded after the copies is waited on by the compute stream before the
+    bucket's kernels, so bucket k+1's upload overlaps bucket k's kernels.
+  * :func:`fetch_to_host` — the drain: every d2h copy starts (into pinned
+    buffers) before any is read.
+
+Pipelining changes *when* buckets run — never what they produce.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from collections import OrderedDict, deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import (
+    Any,
+    Callable,
+    Dict,
+    Hashable,
+    List,
+    Optional,
+    Sequence,
+    Tuple,
+)
+
+import numpy as np
+import torch
+
+from repro_torch.tuning.policy import BucketPolicy, PolicyArg
+
+__all__ = [
+    "MAX_SYMLEN_CAP",
+    "p2",
+    "symlen_bucket",
+    "resolve_device",
+    "Bucket",
+    "member_positions",
+    "BucketScheduler",
+    "SubmitBuffer",
+    "Upload",
+    "PipelineExecutor",
+    "ExecutorStats",
+    "fetch_to_host",
+]
+
+MAX_SYMLEN_CAP = 64  # a 64-bit word holds at most 64 one-bit codes
+
+
+def p2(x: int) -> int:
+    """Next power of two (>= 1) — the bucket rounding."""
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def symlen_bucket(x: int) -> int:
+    """Round the slot-loop trip count up to a multiple of 8 (cap 64)."""
+    return min(-(-max(int(x), 1) // 8) * 8, MAX_SYMLEN_CAP)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a device entry point runs on.
+
+    ``None`` means the card: ``cuda`` when one is present, and an error when
+    none is — an entry point never falls back to the CPU on its own.  The
+    CPU runs only when the caller asks for it (``device="cpu"``).
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions on the host"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Bucket:
+    """One schedulable unit of engine work: the members of one key group.
+    ``items`` are caller-side indices in input order."""
+
+    key: Hashable
+    items: Tuple[int, ...]
+
+
+def member_positions(buckets: Sequence[Bucket], count: int) -> List[int]:
+    """Per original index, its position in the buckets' flattened member
+    order — what restores caller order after a bucket-ordered drain."""
+    pos = [0] * count
+    i = 0
+    for b in buckets:
+        for item in b.items:
+            pos[item] = i
+            i += 1
+    return pos
+
+
+class BucketScheduler:
+    """Grouping and bucket rounding for the engines (one device)."""
+
+    def __init__(self, policy: PolicyArg = None):
+        self.policy = BucketPolicy.of(policy)
+
+    def round(self, x: int) -> int:
+        """Bucket-edge rounding for a padded axis under this policy."""
+        return self.policy.round(max(int(x), 1))
+
+    @staticmethod
+    def group_by(keys: Sequence[Hashable]) -> Tuple[
+        List[Hashable], Dict[Hashable, List[int]]
+    ]:
+        """Group indices by key: (first-appearance key order, key->indices
+        in input order)."""
+        order: List[Hashable] = []
+        groups: "OrderedDict[Hashable, List[int]]" = OrderedDict()
+        for i, key in enumerate(keys):
+            if key not in groups:
+                groups[key] = []
+                order.append(key)
+            groups[key].append(i)
+        return order, groups
+
+    def buckets(self, keys: Sequence[Hashable]) -> List[Bucket]:
+        order, groups = self.group_by(keys)
+        return [Bucket(key=k, items=tuple(groups[k])) for k in order]
+
+
+class SubmitBuffer:
+    """Thread-safe pending-work buffer behind the engines' ``submit`` /
+    ``flush`` surface: ``submit`` appends one item (any thread) and returns
+    its index in flush order; ``take`` atomically claims everything
+    pending."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._items: List[Any] = []
+
+    def submit(self, item: Any) -> int:
+        with self._lock:
+            self._items.append(item)
+            return len(self._items) - 1
+
+    def take(self) -> List[Any]:
+        with self._lock:
+            items, self._items = self._items, []
+            return items
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._items)
+
+
+# ---------------------------------------------------------------------------
+# The pipelined executor.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class Upload:
+    """Host arrays copied to the executor's device.  On CUDA the copies ran
+    on a side stream; :meth:`wait` orders the caller's current stream after
+    them and returns the tensors."""
+
+    tensors: List[Optional[torch.Tensor]]
+    event: Optional[torch.cuda.Event] = None
+    device: Optional[torch.device] = None
+
+    def wait(self) -> List[Optional[torch.Tensor]]:
+        if self.event is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(self.event)
+            for t in self.tensors:
+                if t is not None:
+                    # allocated on the copy stream, used on the compute one
+                    t.record_stream(cur)
+        return self.tensors
+
+
+@dataclasses.dataclass
+class ExecutorStats:
+    upload_s: float = 0.0  # host staging + h2d enqueue (worker or inline)
+    dispatch_s: float = 0.0  # main-thread dispatch time (kernels are async)
+
+
+class PipelineExecutor:
+    """Runs bucket work as stage(upload) -> stage(dispatch), double-buffered.
+
+    ``upload(item)`` does the host staging and the h2d copy of one bucket
+    (through :meth:`host_buffer` and :meth:`put`); ``dispatch(item,
+    staged)`` launches its device work.  With ``pipeline=True`` and more
+    than one bucket, one staging worker keeps up to ``prefetch`` uploads in
+    flight ahead of the main thread's dispatches.  Dispatch order is always
+    bucket order, so the pipelined path matches the serial one exactly.
+    """
+
+    def __init__(self, device, *, pipeline: bool = True, prefetch: int = 2):
+        if prefetch < 1:
+            raise ValueError(f"prefetch must be >= 1, got {prefetch}")
+        self.device = torch.device(device)
+        self.pipeline = pipeline
+        self.prefetch = prefetch
+        self.stats = ExecutorStats()
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._copy_stream = None
+        self._lock = threading.Lock()
+
+    @property
+    def cuda(self) -> bool:
+        return self.device.type == "cuda"
+
+    # -- staging helpers (called from upload) --------------------------------
+    def host_buffer(self, size: int, dtype: torch.dtype) -> torch.Tensor:
+        """A zeroed host staging buffer (pinned when the device is CUDA)."""
+        return torch.zeros(size, dtype=dtype, pin_memory=self.cuda)
+
+    def put(self, arrays: Sequence[Any]) -> Upload:
+        """Move arrays (numpy, host tensors, or tensors already on the
+        device; None passes through) to the device.  On CUDA: pinned
+        sources, ``non_blocking`` copies on the side stream, and one event
+        after them."""
+        on_device = [
+            isinstance(a, torch.Tensor) and a.device == self.device
+            for a in arrays
+        ]
+        hosts = [
+            a if a is None or here else _host_tensor(a)
+            for a, here in zip(arrays, on_device)
+        ]
+        if not self.cuda:
+            return Upload(hosts)
+        with self._lock:
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+        stream = self._copy_stream
+        out: List[Optional[torch.Tensor]] = []
+        with torch.cuda.stream(stream):
+            for h, here in zip(hosts, on_device):
+                if h is None or here:
+                    out.append(h)
+                    continue
+                if not h.is_pinned():
+                    h = h.pin_memory()
+                out.append(h.to(self.device, non_blocking=True))
+            event = torch.cuda.Event()
+            event.record(stream)
+        return Upload(out, event, self.device)
+
+    def _worker(self) -> ThreadPoolExecutor:
+        with self._lock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="fptc-stage"
+                )
+        return self._pool
+
+    def close(self) -> None:
+        """Join the staging worker (a later run starts a new one)."""
+        with self._lock:
+            pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
+
+    def run(
+        self,
+        work: Sequence[Any],
+        upload: Callable[[Any], Any],
+        dispatch: Callable[[Any, Any], Any],
+    ) -> List[Any]:
+        n = len(work)
+        if n == 0:
+            return []
+
+        def timed_upload(b: Any) -> Any:
+            t0 = time.perf_counter()
+            try:
+                if self.cuda:
+                    with torch.cuda.device(self.device):
+                        return upload(b)
+                return upload(b)
+            finally:
+                self.stats.upload_s += time.perf_counter() - t0
+
+        def timed_dispatch(b: Any, staged: Any) -> Any:
+            t0 = time.perf_counter()
+            try:
+                return dispatch(b, staged)
+            finally:
+                self.stats.dispatch_s += time.perf_counter() - t0
+
+        if not self.pipeline or n == 1:
+            return [timed_dispatch(b, timed_upload(b)) for b in work]
+
+        pool = self._worker()
+        results: List[Any] = [None] * n
+        pending: "deque[Tuple[int, Any, Any]]" = deque()
+
+        def pop_dispatch() -> None:
+            j, bj, fut = pending.popleft()
+            results[j] = timed_dispatch(bj, fut.result())
+
+        try:
+            for i, b in enumerate(work):
+                pending.append((i, b, pool.submit(timed_upload, b)))
+                if len(pending) > self.prefetch:
+                    pop_dispatch()
+            while pending:
+                pop_dispatch()
+        finally:
+            # on error, join the leftover staging futures so no upload
+            # outlives this call
+            while pending:
+                _, _, fut = pending.popleft()
+                if not fut.cancel():
+                    try:
+                        fut.result()
+                    except BaseException:
+                        pass  # the primary exception is already in flight
+        return results
+
+
+def _host_tensor(a: Any) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        if a.device.type != "cpu":
+            raise ValueError(
+                f"a {a.device} tensor is neither on the host nor on the "
+                "executor's device"
+            )
+        return a
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint64:
+        a = a.view(np.int64)  # torch holds uint64 words as int64 bits
+    return torch.from_numpy(a)
+
+
+def fetch_to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Drain device tensors: start EVERY d2h copy (into pinned buffers)
+    before reading any of them."""
+    hosts = []
+    events = []
+    for t in tensors:
+        if t.device.type == "cuda":
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(t.device))
+            events.append(ev)
+            hosts.append(h)
+        else:
+            hosts.append(t)
+    for ev in events:
+        ev.synchronize()
+    return [h.numpy() for h in hosts]
