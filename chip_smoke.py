@@ -16,13 +16,15 @@ Run from the root of a checkout; it builds the CUDA decode kernels from
      key: 1024 containers, 2**28 samples, 1 GiB of f32 output in 8 buckets;
      plus one layer's K cache of an 8B-class model (batch 8 x 8 KV heads x
      128 head dims at 4096 tokens) as fixed-rate levels u8[8192, 256, 16];
-  4. check  — every kernel against its plain PyTorch version on the card,
-     at the main path's shapes: K1's symbols and K2's levels exactly, K2's
-     and K3's floats within ``max|d| <= 1e-5 * max|plain|``;
+  4. check  — every CUDA kernel against its plain PyTorch version on the
+     card, at the main path's shapes: K1's symbols and the v3 stage's levels
+     exactly, the LUT-iDCT's and K3's floats within ``max|d| <= 1e-5 *
+     max|plain|``; then K2 as a whole (its three kernels in a row);
   5. main   — with every launch counter set to 0: ``BatchDecoder().decode
      (archive).to_host()`` and ``decode_fixed`` of the KV block, then the
-     counters (each kernel launched; K2 once per bucket), and the decoded
-     signals against the host reference ``codec.decode``;
+     counters (K2's ``symlen_decode`` and ``lut_idct`` once per bucket,
+     ``v3_unpredict`` once per v3 bucket, K3's ``idct_dequant`` once), and
+     the decoded signals against the host reference ``codec.decode``;
   6. times  — per kernel, CUDA-event ms after warm-up beside the plain
      version's ms and the card's bound for the same work.
 
@@ -52,11 +54,15 @@ ARCHIVAL = [  # (domain, dataset, v3 predictor)
     ("power", "load_power", "linear2"),
     ("meteorological", "temperature", "linear2"),
 ]
+# the CUDA kernels, each under its launch counter's name: K1's decode (also
+# K2's first stage), K2's two later stages, and K3
 SOURCES = {
     "symlen_decode": ("src/repro_torch/kernels/csrc/symlen_decode.cu",
                       "src/repro/kernels/huffman_decode.py:297"),
-    "decode_fused": ("src/repro_torch/kernels/csrc/decode_fused.cu",
+    "v3_unpredict": ("src/repro_torch/kernels/csrc/decode_fused.cu",
                      "src/repro/kernels/decode_fused.py:305"),
+    "lut_idct": ("src/repro_torch/kernels/csrc/decode_fused.cu",
+                 "src/repro/kernels/decode_fused.py:305"),
     "idct_dequant": ("src/repro_torch/kernels/csrc/idct_dequant.cu",
                      "src/repro/kernels/idct_dequant.py:104"),
 }
@@ -100,6 +106,11 @@ def bound_ms(nbytes: float, flops: float):
 
 def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def int_err(a, b) -> float:
+    """max|a - b| of two integer tensors (0 when they are equal)."""
+    return float((a.int() - b.int()).abs().max()) if a.numel() else 0.0
 
 
 def main() -> None:
@@ -208,35 +219,57 @@ def main() -> None:
             words=grp.words.cuda(), symlen=grp.symlen.cuda(),
             ms=symlen_bucket(grp.max_symlen),
         ))
-    checks = {"symlen_decode": [], "decode_fused": [], "idct_dequant": []}
+    # each CUDA kernel against its plain version on the same inputs, then K2
+    # (its three kernels in a row) against its plain version as a whole
+    checks = {"symlen_decode": [], "v3_unpredict": [], "lut_idct": [],
+              "decode_fused": [], "idct_dequant": []}
     for b in buckets:
         p, kw = b["plan"], dict(l_max=b["plan"].l_max, max_symlen=b["ms"])
+        key = str(b["grp"].plan_key)
         nsym = b["nw"] * p.e
         k1 = hd.huffman_decode_dense(b["words"], b["symlen"], p.tables,
                                      num_symbols=nsym, **kw)
         k1p = hd.huffman_decode_plain(b["words"], b["symlen"], p.tables,
                                       num_symbols=nsym, **kw)
         lv_kw = dict(num_windows=b["nw"], e=p.e, coding=p.coding, **kw)
-        lv = df.bucket_levels(b["words"], b["symlen"], p.tables, b["v3"],
-                              **lv_kw)
         lvp = df.bucket_levels_plain(b["words"], b["symlen"], p.tables,
                                      b["v3"], **lv_kw)
+        if b["v3"] is not None:
+            v3_kw = dict(num_windows=b["nw"], e=p.e, pred_id=p.coding[0],
+                         bands=p.coding[1])
+            un = df.v3_expand_unpredict_cuda(k1p, *b["v3"], **v3_kw)
+            unp = df.v3_expand_unpredict_plain(k1p, *b["v3"], **v3_kw)
+            cv = {"plan_key": key, "equal": bool(torch.equal(un, unp)),
+                  "max_abs_err": int_err(un, unp)}
+            checks["v3_unpredict"].append(cv)
+            check(cv["equal"], f"v3 levels differ from plain: {cv}")
+        li = df.lut_idct(lvp, p.lut, p.basis)
+        lip = df.lut_idct_plain(lvp, p.lut, p.basis)
+        lv = df.bucket_levels(b["words"], b["symlen"], p.tables, b["v3"],
+                              **lv_kw)
         f_kw = dict(n=p.n, **lv_kw)
         k2 = df.decode_fused(b["words"], b["symlen"], p.tables, p.lut,
                              p.basis, b["v3"], **f_kw)
         k2p = df.decode_fused_plain(b["words"], b["symlen"], p.tables, p.lut,
                                     p.basis, b["v3"], **f_kw)
         torch.cuda.synchronize()
-        c1 = {"plan_key": str(b["grp"].plan_key), "symbols": nsym,
-              "equal": bool(torch.equal(k1, k1p))}
-        c2 = {"plan_key": str(b["grp"].plan_key),
+        c1 = {"plan_key": key, "symbols": nsym,
+              "equal": bool(torch.equal(k1, k1p)),
+              "max_abs_err": int_err(k1, k1p)}
+        cl = {"plan_key": key, "max_abs_err": float((li - lip).abs().max()),
+              "rel_err": rel_err(li, lip),
+              "finite": bool(torch.isfinite(li).all())}
+        c2 = {"plan_key": key,
               "levels_equal": bool(torch.equal(lv, lvp)),
               "max_abs_err": float((k2 - k2p).abs().max()),
               "rel_err": rel_err(k2, k2p),
               "finite": bool(torch.isfinite(k2).all())}
         checks["symlen_decode"].append(c1)
+        checks["lut_idct"].append(cl)
         checks["decode_fused"].append(c2)
         check(c1["equal"], f"K1 symbols differ from plain: {c1}")
+        check(cl["finite"] and cl["rel_err"] <= REL_TOL,
+              f"LUT-iDCT differs from plain: {cl}")
         check(c2["levels_equal"] and c2["finite"]
               and c2["rel_err"] <= REL_TOL, f"K2 differs from plain: {c2}")
     kv_flat = kv_levels.reshape(-1, 16)
@@ -253,7 +286,7 @@ def main() -> None:
           f"K3 differs from plain: {c3}")
     emit({"phase": "check", "seconds": time.perf_counter() - t0,
           "tolerance": f"max|d| <= {REL_TOL} * max|plain|", **checks})
-    del k1, k1p, lv, lvp, k2, k2p, k3, k3p
+    del k1, k1p, lv, lvp, li, lip, k2, k2p, k3, k3p
 
     # -- 5. the main path ----------------------------------------------------------
     torch.cuda.synchronize()
@@ -273,9 +306,10 @@ def main() -> None:
     launches = dict(ops.LAUNCHES)
     n_buckets = len(keys)
     n_v3 = sum(1 for k in keys if tuple(k[4]) != (0, 0, False))
-    want = {"symlen_decode": n_buckets, "lut_idct": n_buckets,
-            "decode_fused": n_buckets, "v3_unpredict": n_v3,
-            "idct_dequant": 1}
+    # K2 is symlen_decode, then v3_unpredict (v3 buckets), then lut_idct:
+    # each once per bucket; K3 once for the KV block
+    want = {"symlen_decode": n_buckets, "v3_unpredict": n_v3,
+            "lut_idct": n_buckets, "idct_dequant": 1}
     check(launches == want, f"launch counts {launches} != expected {want}")
     # the distinct signals against the host reference decode; every replica
     # equal to its first copy; every v3 decode equal to its v2 twin
@@ -318,64 +352,76 @@ def main() -> None:
           "v3_equals_v2": v3_same})
 
     # -- 6. times -------------------------------------------------------------------
-    times = {}
-    k1_ms = k1p_ms = k2_ms = k2p_ms = v3_ms = lut_ms = 0.0
-    k1_bytes = k2_bytes = k2_flops = 0.0
+    # per kernel: [ms, plain ms, bytes moved, operations], summed over the
+    # buckets; K2 as a whole (its three kernels in a row) beside them
+    acc = {k: [0.0, 0.0, 0.0, 0.0] for k in
+           ("symlen_decode", "v3_unpredict", "lut_idct", "decode_fused")}
+
+    def add(name, ms, plain_ms, nbytes, ops_):
+        for i, v in enumerate((ms, plain_ms, nbytes, ops_)):
+            acc[name][i] += v
+
     for b in buckets:
         p, kw = b["plan"], dict(l_max=b["plan"].l_max, max_symlen=b["ms"])
-        nsym = b["nw"] * p.e
-        f_kw = dict(n=p.n, num_windows=b["nw"], e=p.e, coding=p.coding, **kw)
+        nsym, nw, w = b["nw"] * p.e, b["nw"], b["words"].shape[0]
+        f_kw = dict(n=p.n, num_windows=nw, e=p.e, coding=p.coding, **kw)
         args1 = (b["words"], b["symlen"], p.tables)
-        k1_ms += cuda_ms(lambda: hd.huffman_decode_dense(
-            *args1, num_symbols=nsym, **kw))
-        k1p_ms += cuda_ms(lambda: hd.huffman_decode_plain(
-            *args1, num_symbols=nsym, **kw), reps=2)
-        args2 = (*args1, p.lut, p.basis, b["v3"])
-        k2_ms += cuda_ms(lambda: df.decode_fused(*args2, **f_kw))
-        k2p_ms += cuda_ms(lambda: df.decode_fused_plain(*args2, **f_kw),
-                          reps=2)
-        # K2's stages after K1, on their own
+        add("symlen_decode",
+            cuda_ms(lambda: hd.huffman_decode_dense(
+                *args1, num_symbols=nsym, **kw)),
+            cuda_ms(lambda: hd.huffman_decode_plain(
+                *args1, num_symbols=nsym, **kw), reps=2),
+            9 * w + nsym, 0.0)
         dense = hd.huffman_decode_dense(*args1, num_symbols=nsym, **kw)
         if b["v3"] is not None:
-            v3_ms += cuda_ms(lambda: df.v3_expand_unpredict_cuda(
-                dense, *b["v3"], num_windows=b["nw"], e=p.e,
-                pred_id=p.coding[0], bands=p.coding[1]))
-        levels = df.bucket_levels(*args1, b["v3"], num_windows=b["nw"],
-                                  e=p.e, coding=p.coding, **kw)
-        lut_ms += cuda_ms(lambda: df.lut_idct(levels, p.lut, p.basis))
-        w = b["words"].shape[0]
-        k1_bytes += 9 * w + nsym
-        v3_bytes = 4 * (nsym + b["nw"]) if b["v3"] is not None else 0
-        k2_bytes += (9 * w + v3_bytes + 4 * p.e * 256 + 4 * p.e * p.n
-                     + 4 * b["nw"] * p.n)
-        k2_flops += 2.0 * b["nw"] * p.e * p.n
-    k3_ms = cuda_ms(lambda: idq.idct_dequant(kv_flat, kv_q, kv_basis))
-    k3p_ms = cuda_ms(lambda: idq.idct_dequant_plain(kv_flat, kv_q, kv_basis))
+            v3_kw = dict(num_windows=nw, e=p.e, pred_id=p.coding[0],
+                         bands=p.coding[1])
+            add("v3_unpredict",
+                cuda_ms(lambda: df.v3_expand_unpredict_cuda(
+                    dense, *b["v3"], **v3_kw)),
+                cuda_ms(lambda: df.v3_expand_unpredict_plain(
+                    dense, *b["v3"], **v3_kw), reps=2),
+                nsym + 4 * nsym + 4 * nw + nsym, 0.0)
+        levels = df.bucket_levels(*args1, b["v3"], num_windows=nw, e=p.e,
+                                  coding=p.coding, **kw)
+        lut_bytes = nsym + 4 * p.e * 256 + 4 * p.e * p.n + 4 * nw * p.n
+        add("lut_idct",
+            cuda_ms(lambda: df.lut_idct(levels, p.lut, p.basis)),
+            cuda_ms(lambda: df.lut_idct_plain(levels, p.lut, p.basis)),
+            lut_bytes, 2.0 * nw * p.e * p.n)
+        args2 = (*args1, p.lut, p.basis, b["v3"])
+        v3_bytes = 4 * (nsym + nw) if b["v3"] is not None else 0
+        add("decode_fused",
+            cuda_ms(lambda: df.decode_fused(*args2, **f_kw)),
+            cuda_ms(lambda: df.decode_fused_plain(*args2, **f_kw), reps=2),
+            9 * w + v3_bytes + lut_bytes - nsym, 2.0 * nw * p.e * p.n)
     rows = kv_flat.shape[0]
-    k3_bytes = rows * 16 + 4 * 16 * 16 + 8 * 16 + 4 * rows * 16
-    k3_flops = 2.0 * rows * 16 * 16
-    times["symlen_decode"] = (k1_ms, k1p_ms, *bound_ms(k1_bytes, 0.0))
-    times["decode_fused"] = (k2_ms, k2p_ms, *bound_ms(k2_bytes, k2_flops))
-    times["idct_dequant"] = (k3_ms, k3p_ms, *bound_ms(k3_bytes, k3_flops))
+    acc["idct_dequant"] = [
+        cuda_ms(lambda: idq.idct_dequant(kv_flat, kv_q, kv_basis)),
+        cuda_ms(lambda: idq.idct_dequant_plain(kv_flat, kv_q, kv_basis)),
+        rows * 16 + 4 * 16 * 16 + 8 * 16 + 4 * rows * 16,
+        2.0 * rows * 16 * 16,
+    ]
+    times = {k: (ms, plain, *bound_ms(nb, fl))
+             for k, (ms, plain, nb, fl) in acc.items()}
     emit({"phase": "times", "what": "ms summed over the 8 archive buckets "
-          "(K1, K2) and for the KV block (K3); CUDA events, mean of "
-          "repeats after a warm-up",
+          "(v3_unpredict over the 4 v3 buckets) and for the KV block "
+          "(idct_dequant); CUDA events, mean of repeats after a warm-up; "
+          "decode_fused is K2 as a whole: symlen_decode, v3_unpredict and "
+          "lut_idct in a row",
           **{k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
-                 "bound_by": v[3]} for k, v in times.items()},
-          "decode_fused_stages_ms": {"symlen_decode": k1_ms,
-                                     "v3_unpredict": v3_ms,
-                                     "lut_idct": lut_ms}})
+                 "bound_by": v[3]} for k, v in times.items()}})
 
     # -- 7. the kernels line, and the last line ----------------------------------
     kernels = []
-    for name, (ms, plain, bnd, by) in times.items():
-        srcfile, replaces = SOURCES[name]
-        errs_k = [c.get("max_abs_err", 0.0) for c in checks[name]]
+    for name, (srcfile, replaces) in SOURCES.items():
+        ms, plain, bnd, by = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": srcfile,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(errs_k), "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "max_abs_err": max(c["max_abs_err"] for c in checks[name]),
+            "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None,
         })
     dec.close()
     emit({"kernels": kernels})

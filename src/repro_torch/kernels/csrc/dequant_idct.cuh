@@ -14,6 +14,10 @@
 // of the FMA loop (two shared loads per FMA, one of them a broadcast).
 #pragma once
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 #include "common.cuh"
 
 namespace fptc {
@@ -120,25 +124,29 @@ inline size_t dequant_idct_smem(int e, int n, int bw, int table_floats) {
                           static_cast<size_t>(bw) * e + table_floats);
 }
 
-// Launch over `levels` u8[num_windows, e] -> out f32[num_windows, n].
+// The launch geometry for one (device, E, N): the window block, its
+// shared-memory bytes, and the most CTAs the device holds at once.
+struct DequantIdctGeometry {
+  int bw;
+  size_t smem;
+  int64_t resident;
+};
+
+// Compute the geometry on `device` (the current device), raising the
+// kernel's dynamic shared-memory limit there to the device's opt-in maximum.
 template <class Dequant>
-int launch_dequant_idct(const uint8_t* levels, int64_t num_windows, int e,
-                        int n, const float* basis, Dequant dq, float* out,
-                        cudaStream_t stream) {
-  const int table_floats = Dequant::table_floats(e);
-  if (num_windows <= 0) return 0;
-  if (e < 1 || n < 1 || e > kMaxDim || n > kMaxDim) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int device = 0;
-  cudaGetDevice(&device);
+cudaError_t dequant_idct_geometry(int device, int e, int n,
+                                  DequantIdctGeometry* g) {
   int max_smem = 0;
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         device);
+  cudaError_t err = cudaDeviceGetAttribute(
+      &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
   int sms = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
   // the largest window block (<= 256 rows) whose coefficients fit beside
   // the basis and the table
+  const int table_floats = Dequant::table_floats(e);
   int bw = 256;
   while (bw > 8 && dequant_idct_smem(e, n, bw, table_floats) >
                        static_cast<size_t>(max_smem)) {
@@ -146,19 +154,51 @@ int launch_dequant_idct(const uint8_t* levels, int64_t num_windows, int e,
   }
   const size_t smem = dequant_idct_smem(e, n, bw, table_floats);
   auto kernel = dequant_idct_kernel<Dequant>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             max_smem);
+  if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kIdctThreads, smem);
+  if (err != cudaSuccess) return err;
+  *g = {bw, smem, static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1)};
+  return cudaSuccess;
+}
+
+// Launch over `levels` u8[num_windows, e] -> out f32[num_windows, n] on the
+// current device.  The geometry is computed once per (device, E, N).
+template <class Dequant>
+int launch_dequant_idct(const uint8_t* levels, int64_t num_windows, int e,
+                        int n, const float* basis, Dequant dq, float* out,
+                        cudaStream_t stream) {
+  if (num_windows <= 0) return 0;
+  if (e < 1 || n < 1 || e > kMaxDim || n > kMaxDim) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks_needed = (num_windows + bw - 1) / bw;
-  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  const int64_t grid = blocks_needed < resident ? blocks_needed : resident;
-  kernel<<<static_cast<unsigned>(grid), kIdctThreads, smem, stream>>>(
-      levels, num_windows, e, n, bw, basis, dq, out);
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int>, DequantIdctGeometry> cache;
+  DequantIdctGeometry g;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto key = std::make_tuple(device, e, n);
+    auto it = cache.find(key);
+    if (it == cache.end()) {
+      err = dequant_idct_geometry<Dequant>(device, e, n, &g);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      cache.emplace(key, g);
+    } else {
+      g = it->second;
+    }
+  }
+  const int64_t blocks_needed = (num_windows + g.bw - 1) / g.bw;
+  const int64_t grid = blocks_needed < g.resident ? blocks_needed : g.resident;
+  dequant_idct_kernel<Dequant>
+      <<<static_cast<unsigned>(grid), kIdctThreads, g.smem, stream>>>(
+          levels, num_windows, e, n, g.bw, basis, dq, out);
   FPTC_CHECK_LAUNCH();
   return 0;
 }

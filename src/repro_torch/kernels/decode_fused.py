@@ -31,6 +31,7 @@ __all__ = [
     "bucket_levels",
     "bucket_levels_plain",
     "v3_expand_unpredict_cuda",
+    "v3_expand_unpredict_plain",
     "lut_idct",
     "lut_idct_plain",
     "decode_fused",
@@ -66,7 +67,14 @@ def bucket_levels_plain(words, symlen, tables: DeviceTables, v3: V3 = None, *,
         return syms.reshape(num_windows, e)
     idx, seg = _v3_arrays(v3, coding)
     pred_id, bands, _ = coding
-    grid = expand_coded_stream(syms, idx).reshape(num_windows, e)
+    return v3_expand_unpredict_plain(syms, idx, seg, num_windows=num_windows,
+                                     e=e, pred_id=pred_id, bands=bands)
+
+
+def v3_expand_unpredict_plain(dense, idx, seg, *, num_windows: int, e: int,
+                              pred_id: int, bands: int) -> torch.Tensor:
+    """The plain version of K2's v3 stage (runs on any device)."""
+    grid = expand_coded_stream(dense, idx).reshape(num_windows, e)
     return unpredict_levels(grid, seg, pred_id, bands)
 
 
@@ -89,10 +97,9 @@ def v3_expand_unpredict_cuda(dense, idx, seg, *, num_windows: int, e: int,
     seg = seg.contiguous()
     grid = torch.empty(num_windows * e, dtype=torch.uint8, device=dev)
     ops.launch(
-        "v3_unpredict", "fptc_v3_expand_unpredict",
+        "v3_unpredict", "fptc_v3_expand_unpredict", dev,
         dense.data_ptr(), dense.shape[0], idx.data_ptr(), seg.data_ptr(),
         num_windows, e, bands, pred_id, grid.data_ptr(),
-        ops.stream_handle(dev),
     )
     return grid.reshape(num_windows, e)
 
@@ -154,9 +161,9 @@ def lut_idct(levels, lut, basis) -> torch.Tensor:
     basis = basis.contiguous()
     out = torch.empty(w, n, dtype=torch.float32, device=dev)
     ops.launch(
-        "lut_idct", "fptc_lut_idct",
+        "lut_idct", "fptc_lut_idct", dev,
         levels.data_ptr(), w, e, n, lut.data_ptr(), basis.data_ptr(),
-        out.data_ptr(), ops.stream_handle(dev),
+        out.data_ptr(),
     )
     return out
 
@@ -192,12 +199,7 @@ def decode_fused(words, symlen, tables: DeviceTables, lut, basis,
     ops.check_i32_offsets(num_windows * e, max_symlen)
     if basis.shape != (e, n):
         raise ValueError(f"basis {tuple(basis.shape)} is not [{e}, {n}]")
-    kw = dict(l_max=l_max, max_symlen=max_symlen, num_windows=num_windows,
-              e=e, coding=coding)
-    if not ops.is_cuda(words):
-        return decode_fused_plain(words, symlen, tables, lut, basis, v3,
-                                  n=n, **kw)
-    levels = bucket_levels(words, symlen, tables, v3, **kw)
-    out = lut_idct(levels, lut, basis)
-    ops.LAUNCHES["decode_fused"] += 1
-    return out
+    levels = bucket_levels(words, symlen, tables, v3, l_max=l_max,
+                           max_symlen=max_symlen, num_windows=num_windows,
+                           e=e, coding=coding)
+    return lut_idct(levels, lut, basis)

@@ -65,13 +65,13 @@ def symlen_decode_cuda(words, symlen, tables: DeviceTables, *, l_max: int,
     block = torch.empty(max(-(-n // SCAN_BLOCK), 1), dtype=torch.int32,
                         device=dev)
     ops.launch(
-        "symlen_decode", "fptc_symlen_decode",
+        "symlen_decode", "fptc_symlen_decode", dev,
         words.data_ptr(), symlen.data_ptr(), n, local.data_ptr(),
         block.data_ptr(), tables.dec_limit.contiguous().data_ptr(),
         tables.dec_first.contiguous().data_ptr(),
         tables.dec_rank.contiguous().data_ptr(),
         tables.dec_syms.contiguous().data_ptr(), l_max, max_symlen,
-        out.data_ptr(), num_symbols, ops.stream_handle(dev),
+        out.data_ptr(), num_symbols,
     )
     return out
 

@@ -53,10 +53,9 @@ def idct_dequant(levels, quant: QuantTable, basis) -> torch.Tensor:
     basis = basis.contiguous()
     out = torch.empty(w, n, dtype=torch.float32, device=dev)
     ops.launch(
-        "idct_dequant", "fptc_idct_dequant",
+        "idct_dequant", "fptc_idct_dequant", dev,
         levels.data_ptr(), w, e, n, quant.zone.contiguous().data_ptr(),
         quant.scale.contiguous().data_ptr(), quant.mu.data_ptr(),
         quant.alpha1.data_ptr(), basis.data_ptr(), out.data_ptr(),
-        ops.stream_handle(dev),
     )
     return out

@@ -43,14 +43,13 @@ __all__ = [
 
 _I32_MAX = np.iinfo(np.int32).max
 
-# one counter per kernel wrapper: symlen_decode (K1), v3_unpredict and
-# lut_idct (K2's stages after K1), decode_fused (K2 as a whole), and
-# idct_dequant (K3)
+# one counter per CUDA kernel, counted in :func:`launch` only:
+# symlen_decode (K1, and K2's first stage), v3_unpredict and lut_idct (K2's
+# stages after K1), and idct_dequant (K3)
 LAUNCHES: Dict[str, int] = {
     "symlen_decode": 0,
     "v3_unpredict": 0,
     "lut_idct": 0,
-    "decode_fused": 0,
     "idct_dequant": 0,
 }
 
@@ -212,16 +211,18 @@ def build_log() -> str:
     return _build_log
 
 
-def stream_handle(device: torch.device) -> int:
-    """The raw handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+def launch(name: str, fn: str, device: torch.device, *args) -> None:
+    """Call the exported launcher ``fn`` on ``device`` and count one launch
+    of ``name``; raise if the launch was refused.
 
-
-def launch(name: str, fn: str, *args) -> None:
-    """Call the exported launcher ``fn`` and count one launch of ``name``;
-    raise if the launch was refused."""
+    ``device`` is made the current device for the call (the launchers read
+    its limits and launch in its context) and PyTorch's current stream on
+    it is passed as the launcher's last argument.
+    """
     lib = library()
-    rc = getattr(lib, fn)(*args)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
     if rc != 0:
         msg = lib.fptc_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
