@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's batched decode path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's batched decode and encode paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
-Run from the root of a checkout; it builds the CUDA decode kernels from
+Run from the root of a checkout; it builds the CUDA kernels from
 ``src/repro_torch/kernels/csrc`` on first use.  Phases, one JSON line each:
 
   1. device — the card (and, on its own line, ``nvidia-smi``'s name and
@@ -15,17 +16,33 @@ Run from the root of a checkout; it builds the CUDA decode kernels from
      linear2 prediction and zero planes), replicated to 128 containers per
      key: 1024 containers, 2**28 samples, 1 GiB of f32 output in 8 buckets;
      plus one layer's K cache of an 8B-class model (batch 8 x 8 KV heads x
-     128 head dims at 4096 tokens) as fixed-rate levels u8[8192, 256, 16];
+     128 head dims at 4096 tokens), encoded to fixed-rate levels
+     u8[8192, 256, 16] by ``BatchEncoder().encode_fixed`` (K5);
   4. check  — every CUDA kernel against its plain PyTorch version on the
-     card, at the main path's shapes: K1's symbols and the v3 stage's levels
+     card, at the main paths' shapes: K1's symbols and the v3 stage's levels
      exactly, the LUT-iDCT's and K3's floats within ``max|d| <= 1e-5 *
-     max|plain|``; then K2 as a whole (its three kernels in a row);
+     max|plain|``; then K2 as a whole (its three kernels in a row).  The
+     encode kernels at one archive bucket per plan key (128 rows of 2**18
+     samples) and K5 on the KV block: with an identity basis (the
+     coefficients are the inputs) ``encode_levels``' and ``dct_quant``'s
+     outputs exactly; with the DCT basis the flip rule — the kernels sum the
+     DCT in another order than the plain cuBLAS product, so a level may
+     differ by exactly 1, in at most 1e-5 of the cells, before prediction;
+     ``symlen_pack`` fed the plain grid: every output exactly;
   5. main   — with every launch counter set to 0: ``BatchDecoder().decode
      (archive).to_host()`` and ``decode_fixed`` of the KV block, then the
      counters (K2's ``symlen_decode`` and ``lut_idct`` once per bucket,
      ``v3_unpredict`` once per v3 bucket, K3's ``idct_dequant`` once), and
      the decoded signals against the host reference ``codec.decode``;
-  6. times  — per kernel, CUDA-event ms after warm-up beside the plain
+  6. encode — with every launch counter set to 0: ``BatchEncoder().encode
+     (the archive's 1024 signals, 1 GiB of f32).to_host()`` and
+     ``encode_fixed`` of the KV block, then the counters (``encode_levels``
+     and ``symlen_pack`` once per bucket, ``dct_quant`` once); the
+     containers decoded by ``BatchDecoder`` against the host decode of
+     their host-encoded twins wherever no level flipped, and exact mode
+     (``chunk_size=None``) on the 32 distinct signals byte for byte against
+     the host encoder;
+  7. times  — per kernel, CUDA-event ms after warm-up beside the plain
      version's ms and the card's bound for the same work.
 
 Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
@@ -47,6 +64,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 REL_TOL = 1e-5  # floats: max|kernel - plain| <= REL_TOL * max|plain|
+FLIP_SHARE = 1e-5  # DCT basis: at most this share of levels one level off
 
 ARCHIVAL = [  # (domain, dataset, v3 predictor)
     ("biomedical", "mitbih", "delta"),
@@ -55,7 +73,7 @@ ARCHIVAL = [  # (domain, dataset, v3 predictor)
     ("meteorological", "temperature", "linear2"),
 ]
 # the CUDA kernels, each under its launch counter's name: K1's decode (also
-# K2's first stage), K2's two later stages, and K3
+# K2's first stage), K2's two later stages, K3, K4's two stages, and K5
 SOURCES = {
     "symlen_decode": ("src/repro_torch/kernels/csrc/symlen_decode.cu",
                       "src/repro/kernels/huffman_decode.py:297"),
@@ -65,7 +83,15 @@ SOURCES = {
                  "src/repro/kernels/decode_fused.py:305"),
     "idct_dequant": ("src/repro_torch/kernels/csrc/idct_dequant.cu",
                      "src/repro/kernels/idct_dequant.py:104"),
+    "encode_levels": ("src/repro_torch/kernels/csrc/encode_fused.cu",
+                      "src/repro/kernels/encode_fused.py:283"),
+    "symlen_pack": ("src/repro_torch/kernels/csrc/encode_fused.cu",
+                    "src/repro/kernels/encode_fused.py:283"),
+    "dct_quant": ("src/repro_torch/kernels/csrc/dct_quant.cu",
+                  "src/repro/kernels/dct_quant.py:123"),
 }
+# the kernels the encode path runs (the others run on the decode path)
+ENCODE_KERNELS = ("encode_levels", "symlen_pack", "dct_quant")
 
 
 def emit(obj) -> None:
@@ -113,6 +139,27 @@ def int_err(a, b) -> float:
     return float((a.int() - b.int()).abs().max()) if a.numel() else 0.0
 
 
+def flip_stats(got, want) -> dict:
+    """The flip rule's numbers for two level tensors: differing cells, the
+    largest difference, and whether the rule holds."""
+    d = (got.int() - want.int()).abs()
+    flips = int((d > 0).sum())
+    worst = int(d.max()) if d.numel() else 0
+    return {"cells": d.numel(), "flips": flips, "max_abs_err": worst,
+            "ok": worst <= 1 and flips <= FLIP_SHARE * d.numel()}
+
+
+def outputs_equal(got, want) -> bool:
+    """Tuples of tensors (or None) equal element for element."""
+    import torch
+
+    return len(got) == len(want) and all(
+        (g is None and w is None) or (
+            g is not None and w is not None and g.dtype == w.dtype
+            and bool(torch.equal(g, w)))
+        for g, w in zip(got, want))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -145,11 +192,18 @@ def main() -> None:
     from repro_torch.core import DOMAIN_DEFAULTS, calibrate, decode, encode
     from repro_torch.core import dct, quantize
     from repro_torch.data import make_signal
+    from repro_torch.kernels import dct_quant as dq
     from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import encode_fused as ef
     from repro_torch.kernels import huffman_decode as hd
     from repro_torch.kernels import idct_dequant as idq
     from repro_torch.kernels import ops
-    from repro_torch.serving import BatchDecoder, streams_from_containers
+    from repro_torch.serving import (
+        DEFAULT_CHUNK_SIZE,
+        BatchDecoder,
+        BatchEncoder,
+        streams_from_containers,
+    )
     from repro_torch.serving.engine import symlen_bucket
 
     # -- 2. build --------------------------------------------------------------
@@ -193,8 +247,8 @@ def main() -> None:
     kv_tab = calibrate(kv.ravel(), DOMAIN_DEFAULTS["kv"], domain_id=8,
                        seed=args.seed)
     kv_gpu = torch.from_numpy(kv).cuda()
-    kv_coef = dct.forward_dct(dct.window_signal(kv_gpu, 16), 16)
-    kv_levels = quantize.quantize(kv_coef, kv_tab.quant.to("cuda"))
+    enc = BatchEncoder()
+    kv_levels = enc.encode_fixed(kv_gpu, kv_tab)  # u8[channels, 256, 16]
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "containers": len(archive), "plan_keys": len(keys),
           "samples_out": n_out, "bytes_out": 4 * n_out,
@@ -222,7 +276,8 @@ def main() -> None:
     # each CUDA kernel against its plain version on the same inputs, then K2
     # (its three kernels in a row) against its plain version as a whole
     checks = {"symlen_decode": [], "v3_unpredict": [], "lut_idct": [],
-              "decode_fused": [], "idct_dequant": []}
+              "decode_fused": [], "idct_dequant": [], "encode_levels": [],
+              "symlen_pack": [], "dct_quant": []}
     for b in buckets:
         p, kw = b["plan"], dict(l_max=b["plan"].l_max, max_symlen=b["ms"])
         key = str(b["grp"].plan_key)
@@ -284,9 +339,97 @@ def main() -> None:
     checks["idct_dequant"].append(c3)
     check(c3["finite"] and c3["rel_err"] <= REL_TOL,
           f"K3 differs from plain: {c3}")
+    # the encode kernels: one archive bucket per plan key, as the engine
+    # stages it (128 rows of 2**18 samples, chunk 1024), and K5 on the KV
+    # block.  Identity basis: exact; DCT basis: the flip rule, on levels
+    # before prediction (a v3 grid is un-predicted row by row first)
+    ebuckets = []
+    for did, (cs, sigs) in pool.items():
+        plan = enc.plan_for(tables[did])
+        rows = np.stack(sigs * replicas)
+        ebuckets.append(dict(
+            did=did, plan=plan, x=torch.from_numpy(rows).cuda(),
+            counts=torch.full((rows.shape[0],), samples // plan.n * plan.e,
+                              dtype=torch.int32, device="cuda"),
+            chunk=min(DEFAULT_CHUNK_SIZE, samples // plan.n * plan.e),
+        ))
+    for b in ebuckets:
+        p, x, counts = b["plan"], b["x"], b["counts"]
+        q = p.tables.quant
+        key = str((p.domain_id, p.n, p.e, p.l_max, p.coding))
+        # identity basis: windows of E samples, so coefficients = samples
+        wid = samples // p.e * p.e
+        xi = x[:, :wid].contiguous()
+        ci = torch.full_like(counts, wid)
+        eye = torch.eye(p.e, device="cuda")
+        id_kw = dict(n=p.e, e=p.e, coding=p.coding)
+        gi = ef.encode_levels(xi, ci, q, eye, **id_kw)
+        gip = ef.encode_levels_plain(xi, ci, q, eye, **id_kw)
+        kw = dict(n=p.n, e=p.e, coding=p.coding)
+        g = ef.encode_levels(x, counts, q, p.basis, **kw)
+        gp = ef.encode_levels_plain(x, counts, q, p.basis, **kw)
+        lp = quantize.quantize(x.reshape(x.shape[0], -1, p.n) @ p.basis, q)
+        lk = g[0]
+        if p.coding != (0, 0, False):
+            nwp = lk.shape[1]
+            seg = (torch.arange(lk.shape[0] * nwp, device="cuda")
+                   // nwp * nwp)
+            lk = quantize.unpredict_levels(
+                lk.reshape(-1, p.e), seg, p.coding[0], p.coding[1]
+            ).reshape(lk.shape)
+        fl = flip_stats(lk, lp)
+        clean = (lk == lp).reshape(lk.shape[0], -1).all(dim=1)
+        rows_equal = all(
+            (a is None and c is None) or bool(torch.equal(a[clean], c[clean]))
+            for a, c in zip(g, gp))
+        pack_kw = dict(chunk_size=b["chunk"], coding=p.coding,
+                       check_gaps=p.has_gaps)
+        pk = ef.symlen_pack(*gp[:3], counts, p.tables.codes,
+                            p.tables.lengths, **pack_kw)
+        pkp = ef.symlen_pack_plain(*gp[:3], counts, p.tables.codes,
+                                   p.tables.lengths, **pack_kw)
+        torch.cuda.synchronize()
+        ce = {"plan_key": key, "identity_equal": outputs_equal(gi, gip),
+              "flips": fl["flips"], "cells": fl["cells"],
+              "max_abs_err": fl["max_abs_err"], "flip_rule": fl["ok"],
+              "clean_rows_equal": rows_equal,
+              "clean_rows": int(clean.sum())}
+        cp = {"plan_key": key, "equal": outputs_equal(pk, pkp),
+              "chunks": int(pk[3].numel()),
+              "words": int(pk[3].sum()), "max_abs_err": 0.0
+              if outputs_equal(pk, pkp) else float("inf")}
+        checks["encode_levels"].append(ce)
+        checks["symlen_pack"].append(cp)
+        check(ce["identity_equal"], f"encode_levels (identity) differs: {ce}")
+        check(ce["flip_rule"] and rows_equal,
+              f"encode_levels breaks the flip rule: {ce}")
+        check(cp["equal"], f"symlen_pack differs from plain: {cp}")
+        del gi, gip, g, gp, lk, lp, pk, pkp
+    kv_win = kv_gpu.reshape(-1, 16)
+    kv_eq = kv_tab.device_tables("cuda").quant
+    kv_db = enc.plan_for(kv_tab).basis
+    eye16 = torch.eye(16, device="cuda")
+    k5i = dq.dct_quant(kv_win, kv_eq, e=16, basis=eye16)
+    k5ip = dq.dct_quant_plain(kv_win, kv_eq, eye16)
+    k5 = dq.dct_quant(kv_win, kv_eq, e=16, basis=kv_db, exact=True)
+    k5p = dq.dct_quant_plain(kv_win, kv_eq, kv_db)
+    torch.cuda.synchronize()
+    fl = flip_stats(k5, k5p)
+    c5 = {"shape": list(kv_win.shape), "identity_equal":
+          bool(torch.equal(k5i, k5ip)), "flips": fl["flips"],
+          "cells": fl["cells"], "max_abs_err": fl["max_abs_err"],
+          "flip_rule": fl["ok"],
+          "levels_equal_encode_fixed": bool(torch.equal(
+              k5, kv_levels.reshape(-1, 16)))}
+    checks["dct_quant"].append(c5)
+    check(c5["identity_equal"] and c5["flip_rule"]
+          and c5["levels_equal_encode_fixed"], f"K5 differs: {c5}")
     emit({"phase": "check", "seconds": time.perf_counter() - t0,
-          "tolerance": f"max|d| <= {REL_TOL} * max|plain|", **checks})
-    del k1, k1p, lv, lvp, li, lip, k2, k2p, k3, k3p
+          "tolerance": f"max|d| <= {REL_TOL} * max|plain|; levels with the "
+          f"DCT basis: |d| <= 1 in at most {FLIP_SHARE} of the cells",
+          "flips": {k: sum(c.get("flips", 0) for c in checks[k])
+                    for k in ("encode_levels", "dct_quant")}, **checks})
+    del k1, k1p, lv, lvp, li, lip, k2, k2p, k3, k3p, k5i, k5ip, k5, k5p
 
     # -- 5. the main path ----------------------------------------------------------
     torch.cuda.synchronize()
@@ -309,7 +452,8 @@ def main() -> None:
     # K2 is symlen_decode, then v3_unpredict (v3 buckets), then lut_idct:
     # each once per bucket; K3 once for the KV block
     want = {"symlen_decode": n_buckets, "v3_unpredict": n_v3,
-            "lut_idct": n_buckets, "idct_dequant": 1}
+            "lut_idct": n_buckets, "idct_dequant": 1, "encode_levels": 0,
+            "symlen_pack": 0, "dct_quant": 0}
     check(launches == want, f"launch counts {launches} != expected {want}")
     # the distinct signals against the host reference decode; every replica
     # equal to its first copy; every v3 decode equal to its v2 twin
@@ -351,11 +495,114 @@ def main() -> None:
           "launches": launches, "max_rel_err_vs_host": max(errs),
           "v3_equals_v2": v3_same})
 
-    # -- 6. times -------------------------------------------------------------------
+    # -- 6. the encode path ------------------------------------------------------
+    # the archive's 1024 signals (the replicas of the 32 distinct ones, in
+    # the archive's order) through the chunked engine, then decoded
+    signals = [pool[did][1][i] for did, i in source]
+    doms = [did for did, _ in source]
+    n_in = sum(x.size for x in signals)
+    # which windows the card quantizes one level away from the host encoder
+    # (K5 runs the same DCT + quantize arithmetic as encode_levels)
+    flipped, eflips = {}, []
+    for did, (cs, sigs) in pool.items():
+        p = enc.plan_for(tables[did])
+        for i, sig in enumerate(sigs):
+            win = dct.window_signal(torch.from_numpy(sig.copy()), p.n)
+            host_lv = quantize.quantize(dct.forward_dct(win, p.e),
+                                        tables[did].quant)
+            card_lv = dq.dct_quant(win.cuda(), p.tables.quant, e=p.e,
+                                   basis=p.basis).cpu()
+            fl = flip_stats(card_lv, host_lv)
+            eflips.append(fl["flips"])
+            check(fl["max_abs_err"] <= 1, f"encode levels of {(did, i)} "
+                  f"differ by more than one: {fl}")
+            flipped[(did, i)] = np.repeat(
+                (card_lv != host_lv).any(dim=1).numpy(), p.n)[:sig.size]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    up0, disp0 = enc.executor.stats.upload_s, enc.executor.stats.dispatch_s
+    t0 = time.perf_counter()
+    ebatch = enc.encode(signals, tables, domain_ids=doms)
+    t_encode = time.perf_counter() - t0
+    econt = ebatch.to_host()
+    ewall = time.perf_counter() - t0
+    e_upload = enc.executor.stats.upload_s - up0
+    e_dispatch = enc.executor.stats.dispatch_s - disp0
+    t1 = time.perf_counter()
+    kv_again = enc.encode_fixed(kv_gpu, kv_tab)
+    torch.cuda.synchronize()
+    kv_enc_wall = time.perf_counter() - t1
+    elaunches = dict(ops.LAUNCHES)
+    ewant = {k: 0 for k in elaunches}
+    ewant.update(encode_levels=n_buckets, symlen_pack=n_buckets, dct_quant=1)
+    check(elaunches == ewant,
+          f"encode launch counts {elaunches} != expected {ewant}")
+    check(bool(torch.equal(kv_again, kv_levels)),
+          "encode_fixed is not deterministic on the KV block")
+    del ebatch
+    # every replica's container equal to its first copy; every signal
+    # decodes like its host-encoded twin wherever no level flipped
+    out_e = dec.decode(econt, tables).to_host()
+    first_c, eerrs = {}, []
+    for c, o, key in zip(econt, out_e, source):
+        check(c.signal_length == samples and o.shape == ref[key].shape
+              and bool(np.isfinite(o).all()), f"bad encode output for {key}")
+        if key not in first_c:
+            first_c[key] = c
+            keep = ~flipped[key]
+            r = ref[key]
+            err = float(np.abs(o[keep] - r[keep]).max(initial=0.0)) / max(
+                float(np.abs(r).max()), 1e-30)
+            eerrs.append(err)
+            check(err <= REL_TOL, f"encoded {key} decodes off: rel {err}")
+        else:
+            f = first_c[key]
+            check(np.array_equal(c.words, f.words)
+                  and np.array_equal(c.symlen, f.symlen),
+                  f"replica of {key} encodes differently")
+    ebytes = sum(c.compressed_bytes for c in econt)
+    # exact mode on the 32 distinct signals: the host encoder's bytes
+    ex = BatchEncoder(chunk_size=None)
+    keys32 = list(ref)
+    t0 = time.perf_counter()
+    exc = ex.encode([pool[d][1][i] for d, i in keys32], tables,
+                    domain_ids=[d for d, _ in keys32]).to_host()
+    exact_wall = time.perf_counter() - t0
+    n_equal = n_flip = 0
+    for (d, i), c in zip(keys32, exc):
+        same = c.to_bytes() == pool[d][0][i].to_bytes()
+        has_flip = bool(flipped[(d, i)].any())
+        n_equal += same
+        n_flip += has_flip
+        check(same or has_flip, f"exact encode of {(d, i)} differs from "
+              "the host encoder without a flipped level")
+    ex.close()
+    warm_e = []
+    for _ in range(1):  # the same encode again: plans cached, allocator warm
+        t0 = time.perf_counter()
+        enc.encode(signals, tables, domain_ids=doms).to_host()
+        warm_e.append(time.perf_counter() - t0)
+    emit({"phase": "encode", "signals": len(signals), "buckets": n_buckets,
+          "bytes_in": 4 * n_in, "wall_s": ewall, "encode_call_s": t_encode,
+          "to_host_s": ewall - t_encode, "upload_s": e_upload,
+          "dispatch_s": e_dispatch, "warm_wall_s": warm_e,
+          "encoded_GB_per_s": 4 * n_in / ewall / 1e9,
+          "containers_per_s": len(signals) / ewall,
+          "compressed_bytes": ebytes,
+          "kv_encode_fixed_s": kv_enc_wall, "launches": elaunches,
+          "level_flips_32_signals": sum(eflips),
+          "max_rel_err_vs_host_unflipped": max(eerrs),
+          "exact_mode": {"signals": len(keys32), "wall_s": exact_wall,
+                         "bytes_equal_host": n_equal,
+                         "with_flips": n_flip}})
+
+    # -- 7. times -------------------------------------------------------------------
     # per kernel: [ms, plain ms, bytes moved, operations], summed over the
-    # buckets; K2 as a whole (its three kernels in a row) beside them
+    # buckets; K2 as a whole (its three kernels in a row) beside them, and
+    # K4 as a whole (encode_levels then symlen_pack)
     acc = {k: [0.0, 0.0, 0.0, 0.0] for k in
-           ("symlen_decode", "v3_unpredict", "lut_idct", "decode_fused")}
+           ("symlen_decode", "v3_unpredict", "lut_idct", "decode_fused",
+            "encode_levels", "symlen_pack", "encode_fused")}
 
     def add(name, ms, plain_ms, nbytes, ops_):
         for i, v in enumerate((ms, plain_ms, nbytes, ops_)):
@@ -402,28 +649,87 @@ def main() -> None:
         rows * 16 + 4 * 16 * 16 + 8 * 16 + 4 * rows * 16,
         2.0 * rows * 16 * 16,
     ]
+    # the encode buckets: bytes each input read once and each output
+    # written once; K4 as a whole counts the signal in and the parts out
+    exact_ms = 0.0
+    for b in ebuckets:
+        p, x, counts = b["plan"], b["x"], b["counts"]
+        k, wp = x.shape[0], x.shape[1] // p.n
+        q, codes, lens = p.tables.quant, p.tables.codes, p.tables.lengths
+        kw = dict(n=p.n, e=p.e, coding=p.coding)
+        pack_kw = dict(chunk_size=b["chunk"], coding=p.coding,
+                       check_gaps=p.has_gaps)
+        v3 = p.coding != (0, 0, False)
+        masks = (k * wp + k * p.e) if p.coding[2] else 0
+        sig_b, grid_b = 4 * x.numel(), k * wp * p.e
+        slots = k * (-(-wp * p.e // b["chunk"])) * b["chunk"]
+        parts_b = 12 * slots + 4 * slots // b["chunk"] + k
+        small_b = 4 * p.n * p.e + 8 * p.e + 8 + 4 * k + 4 * k * v3
+        fma = 2.0 * k * wp * p.n * p.e
+        add("encode_levels",
+            cuda_ms(lambda: ef.encode_levels(x, counts, q, p.basis, **kw)),
+            cuda_ms(lambda: ef.encode_levels_plain(x, counts, q, p.basis,
+                                                   **kw), reps=2),
+            sig_b + grid_b + masks + small_b, fma)
+        g = ef.encode_levels(x, counts, q, p.basis, **kw)
+        add("symlen_pack",
+            cuda_ms(lambda: ef.symlen_pack(*g[:3], counts, codes, lens,
+                                           **pack_kw)),
+            cuda_ms(lambda: ef.symlen_pack_plain(*g[:3], counts, codes, lens,
+                                                 **pack_kw), reps=1),
+            grid_b + masks + 4 * k + 12 * 256 + parts_b, 0.0)
+        fused_kw = dict(chunk_size=b["chunk"], check_gaps=p.has_gaps, **kw)
+        add("encode_fused",
+            cuda_ms(lambda: ef.encode_fused(x, counts, p.tables, p.basis,
+                                            **fused_kw)),
+            cuda_ms(lambda: ef.encode_fused_plain(x, counts, p.tables,
+                                                  p.basis, **fused_kw),
+                    reps=1),
+            sig_b + small_b + 12 * 256 + parts_b + masks, fma)
+        # exact mode (one chunk per row) on the exact run's 4-row bucket
+        g4 = [t if t is None else t[:distinct] for t in g]
+        exact_ms += cuda_ms(lambda: ef.symlen_pack(
+            *g4[:3], counts[:distinct], codes, lens,
+            chunk_size=wp * p.e, coding=p.coding, check_gaps=p.has_gaps),
+            reps=2)
+        del g, g4
+    kv_rows = kv_win.shape[0]
+    acc["dct_quant"] = [
+        cuda_ms(lambda: dq.dct_quant(kv_win, kv_eq, e=16, basis=kv_db,
+                                     exact=True)),
+        cuda_ms(lambda: dq.dct_quant_plain(kv_win, kv_eq, kv_db)),
+        4 * kv_rows * 16 + kv_rows * 16 + 4 * 16 * 16 + 8 * 16 + 8,
+        2.0 * kv_rows * 16 * 16,
+    ]
     times = {k: (ms, plain, *bound_ms(nb, fl))
              for k, (ms, plain, nb, fl) in acc.items()}
     emit({"phase": "times", "what": "ms summed over the 8 archive buckets "
-          "(v3_unpredict over the 4 v3 buckets) and for the KV block "
-          "(idct_dequant); CUDA events, mean of repeats after a warm-up; "
-          "decode_fused is K2 as a whole: symlen_decode, v3_unpredict and "
-          "lut_idct in a row",
+          "(v3_unpredict over the 4 v3 buckets; the encode kernels over the "
+          "8 encode buckets of 128 rows) and for the KV block "
+          "(idct_dequant, dct_quant); CUDA events, mean of repeats after a "
+          "warm-up; decode_fused is K2 as a whole: symlen_decode, "
+          "v3_unpredict and lut_idct in a row; encode_fused is K4 as a "
+          "whole: encode_levels then symlen_pack",
+          "symlen_pack_exact_ms": exact_ms,
+          "symlen_pack_exact_what": "exact mode (chunk = the row's symbols), "
+          f"{distinct} rows per plan key, summed over the 8 keys",
           **{k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
                  "bound_by": v[3]} for k, v in times.items()}})
 
-    # -- 7. the kernels line, and the last line ----------------------------------
+    # -- 8. the kernels line, and the last line ----------------------------------
     kernels = []
     for name, (srcfile, replaces) in SOURCES.items():
         ms, plain, bnd, by = times[name]
+        path = elaunches if name in ENCODE_KERNELS else launches
         kernels.append({
             "name": name, "route": "cuda", "source": srcfile,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": path[name],
             "max_abs_err": max(c["max_abs_err"] for c in checks[name]),
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": None,
         })
     dec.close()
+    enc.close()
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

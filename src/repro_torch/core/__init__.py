@@ -6,7 +6,12 @@ from repro_torch.core.calibration import (
     tables_from_arrays,
     tables_from_hist,
 )
-from repro_torch.core.codec import decode, decode_device, encode
+from repro_torch.core.codec import (
+    decode,
+    decode_device,
+    encode,
+    encode_device,
+)
 from repro_torch.core.config import DOMAIN_DEFAULTS, PREDICTORS, CodecConfig
 from repro_torch.core.container import Container, ContainerFormatError
 
@@ -24,4 +29,5 @@ __all__ = [
     "encode",
     "decode",
     "decode_device",
+    "encode_device",
 ]

@@ -5,9 +5,11 @@ Port of ``repro/core/codec.py``.
     encoder and the reference decode: numpy bit packing (Algorithm 1) and a
     serial LUT decode, with the transform and quantizer as CPU tensors.
     Host functions stay on the host.
-  * **Device path** (`decode_device`) — a batch of one over
-    :class:`repro_torch.serving.batch_decode.BatchDecoder`: on the card
-    unless the caller asks for the CPU.
+  * **Device path** (`encode_device` / `decode_device`) — a batch of one
+    over :class:`repro_torch.serving.batch_encode.BatchEncoder` (exact
+    mode, byte-identical to `encode`) / :class:`repro_torch.serving.
+    batch_decode.BatchDecoder`: on the card unless the caller asks for the
+    CPU.
 """
 from __future__ import annotations
 
@@ -25,7 +27,13 @@ from repro_torch.core.quantize import (
     unpredict_levels,
 )
 
-__all__ = ["encode", "decode", "decode_device", "validate_container_tables"]
+__all__ = [
+    "encode",
+    "decode",
+    "encode_device",
+    "decode_device",
+    "validate_container_tables",
+]
 
 
 def validate_container_tables(plan_key, tables: DomainTables) -> None:
@@ -84,6 +92,21 @@ def encode(signal: np.ndarray, tables: DomainTables) -> Container:
         zrow=zrow,
         zcol=zcol,
     )
+
+
+def encode_device(
+    signal: np.ndarray, tables: DomainTables, *, device=None
+) -> Container:
+    """Encode one signal on the device, byte-identical to :func:`encode`:
+    a batch of one over the batched encode engine in exact mode (one
+    packing chunk per signal).  Runs on the card unless ``device="cpu"``;
+    with no card and no device given it raises.  Encode many signals at
+    once — and get chunk-parallel packing — with
+    :class:`repro_torch.serving.batch_encode.BatchEncoder` directly."""
+    from repro_torch.serving.batch_encode import default_encoder
+
+    enc = default_encoder(None, device)
+    return enc.encode([signal], tables).to_host()[0]
 
 
 def decode(container: Container, tables: DomainTables) -> np.ndarray:

@@ -1,7 +1,6 @@
 """SymLen bitstream format (paper §4.1, Algorithm 1) — pack + parallel unpack.
 
-Port of ``repro/core/symlen.py`` (the parts the decode path needs, plus the
-host packer the host encoder uses).
+Port of ``repro/core/symlen.py``.
 
 Codewords are greedily packed MSB-first into fixed 64-bit words; a codeword
 never straddles a word boundary.  The *symlen* sidecar stores, per word, the
@@ -14,6 +13,13 @@ the native 64-bit word, held in torch as the bit pattern of an ``int64``
 so every logical right shift here masks off the sign-extended bits.
 
   * ``pack_symlen_np``   — faithful Algorithm 1, host numpy.
+  * ``pack_symlen_scan`` — the exact single-stream packer in torch.
+  * ``pack_symlen_chunked[_parts]`` — chunk-parallel greedy packing in
+                           plain torch: the plain version of the CUDA pack
+                           kernel (``repro_torch.kernels.encode_fused``).
+                           Packed words are ``(hi, lo)`` uint32 halves, as
+                           in the reference's pack contract, held as the
+                           bit patterns of ``int32`` tensors.
   * ``unpack_symlen_np`` — bit-serial LUT decode, host numpy (the oracle).
   * ``unpack_symlen``    — word-parallel decode in plain torch: the math of
                            the reference's XLA arm (slot loop + prefix-sum
@@ -34,6 +40,13 @@ from repro_torch.core.huffman import HuffmanCodebook
 __all__ = [
     "PackedStream",
     "pack_symlen_np",
+    "pack_symlen_scan",
+    "pack_symlen_chunked",
+    "pack_symlen_chunked_parts",
+    "stitch_chunk_parts",
+    "chunk_words_bound",
+    "stitch_capacity",
+    "STITCH_CAPACITY_GRID",
     "unpack_symlen_np",
     "unpack_symlen",
     "compact_padded_scatter",
@@ -114,6 +127,304 @@ def pack_symlen_np(symbols: np.ndarray, book: HuffmanCodebook) -> PackedStream:
         symlen=np.array(out_symlen, dtype=np.int32),
         num_symbols=int(symbols.size),
     )
+
+
+# ---------------------------------------------------------------------------
+# Device encoders in plain torch — the exact single-stream packer and the
+# chunk-parallel one.  uint32 values are computed in int64 tensors (torch
+# has no uint32 arithmetic) and returned as the bit patterns of int32.
+# ---------------------------------------------------------------------------
+def _precheck_symbols(symbols, lengths, num_symbols, valid=None) -> None:
+    """Host-side guard against silent corruption: every symbol that occurs
+    in the input must have a codeword (``lengths[sym] > 0``).
+
+    A zero-length symbol would emit zero bits yet still increment the
+    word's symlen count, so the stream *decodes* — to garbage.
+    ``pack_symlen_np`` raises for this; the single-stream packers reject the
+    same input.  The batched encode engine packs without it and checks a
+    per-row device-side flag at drain time instead (one sync per batch, not
+    one per call).
+    """
+    syms = torch.as_tensor(symbols).detach().cpu().reshape(-1)
+    if valid is not None:
+        syms = syms[torch.as_tensor(valid).detach().cpu().reshape(-1).bool()]
+    else:
+        syms = syms[: int(num_symbols)]
+    if syms.numel() == 0:
+        return
+    lens = torch.as_tensor(lengths).detach().cpu().reshape(-1).numpy()
+    hist = np.bincount(syms.numpy().astype(np.int64), minlength=lens.size)
+    gaps = np.nonzero((hist[: lens.size] > 0) & (lens == 0))[0]
+    if gaps.size:
+        raise ValueError(
+            f"symbol {int(gaps[0])} has no codeword (histogram gap); "
+            f"{gaps.size} distinct input symbol(s) are unencodable"
+        )
+
+
+def _shl32(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """uint32 (in int64) left shift, defined 0 for s >= 32 or s < 0."""
+    val = (x << torch.clamp(s, 0, 31)) & _U32
+    return torch.where((s >= 32) | (s < 0), torch.zeros_like(val), val)
+
+
+def _shr32(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """uint32 (in int64) logical right shift, defined 0 for s >= 32 or
+    s < 0."""
+    val = x >> torch.clamp(s, 0, 31)
+    return torch.where((s >= 32) | (s < 0), torch.zeros_like(val), val)
+
+
+def _to_i32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values (in int64) -> int32 tensor of the same bit patterns."""
+    return _as_i32(x).to(torch.int32)
+
+
+def _pack_chunk(
+    symbols: torch.Tensor,  # int[..., M]
+    valid: torch.Tensor,  # bool[..., M] — padding slots pack to nothing
+    codes: torch.Tensor,  # int64[256] (uint32 codewords)
+    lengths: torch.Tensor,  # int32[256]
+):
+    """Greedy packing of chunks ``[..., M]`` (each leading index one chunk).
+
+    Returns (hi int32[..., M], lo int32[..., M], symlen int32[..., M],
+    num_words int32[...]); a chunk's valid word prefix is ``num_words``.
+    The (code, length) lookup happens here; the packing itself is
+    :func:`_pack_chunk_emit`.
+    """
+    if symbols.shape[-1] == 0:
+        z = torch.zeros(symbols.shape, dtype=torch.int32,
+                        device=symbols.device)
+        return z, z, z, torch.zeros(symbols.shape[:-1], dtype=torch.int32,
+                                    device=symbols.device)
+    s = symbols.long()
+    # masked slots emit a zero-length, zero-valued code: a no-op
+    code = torch.where(valid, codes.long()[s], torch.zeros_like(s))
+    clen = torch.where(valid, lengths.long()[s], torch.zeros_like(s))
+    return _pack_chunk_emit(code, clen, valid)
+
+
+def _pack_chunk_emit(
+    code: torch.Tensor,  # int64[..., M] right-aligned codewords (0 if masked)
+    clen: torch.Tensor,  # int[..., M] codeword lengths (0 when masked)
+    valid: torch.Tensor,  # bool[..., M]
+):
+    """Greedy word materialization from per-symbol (code, length) pairs.
+
+    The only sequential part of greedy packing is the (bit offset, word
+    index) recurrence, an O(1) carry per symbol: a loop over the M slots,
+    each step vectorized over every chunk.  A word is flushed when the next
+    codeword does not fit (``bit_size + clen > 64``), so no codeword
+    straddles a word.  Symbol bits within a word occupy disjoint slots, so
+    each word is the segment sum of its symbols' shifted codes (equal to
+    their OR, and below 2**32 per half, so int64 sums never wrap).
+    """
+    cl = clen.long()
+    lead = cl.shape[:-1]
+    m = cl.shape[-1]
+    bit = torch.zeros(lead, dtype=torch.int64, device=cl.device)
+    w = torch.zeros(lead, dtype=torch.int64, device=cl.device)
+    word_idx = torch.empty_like(cl)
+    start = torch.empty_like(cl)
+    for j in range(m):
+        c = cl[..., j]
+        flush = bit + c > WORD_BITS
+        w = w + flush.long()
+        st = torch.where(flush, torch.zeros_like(bit), bit)
+        bit = st + c
+        word_idx[..., j] = w
+        start[..., j] = st
+    # place right-aligned `code` of length clen at bit offset `start`
+    # (MSB-first) of its word: hi takes the bits when shift >= 32
+    shift = WORD_BITS - start - cl  # in [0, 64]; 64 only for clen == 0
+    code = code.long() & _U32
+    add_hi = torch.where(
+        shift >= 32, _shl32(code, shift - 32), _shr32(code, 32 - shift)
+    )
+    add_lo = torch.where(shift >= 32, torch.zeros_like(code),
+                         _shl32(code, shift))
+    zeros = torch.zeros_like(cl)
+    out_hi = zeros.scatter_add(-1, word_idx, add_hi)
+    out_lo = zeros.scatter_add(-1, word_idx, add_lo)
+    out_sl = zeros.scatter_add(-1, word_idx, valid.long())
+    num_words = torch.where(valid, word_idx + 1, zeros).amax(dim=-1)
+    return (_to_i32(out_hi), _to_i32(out_lo), out_sl.to(torch.int32),
+            num_words.to(torch.int32))
+
+
+def pack_symlen_scan(
+    symbols: torch.Tensor,
+    codes: torch.Tensor,  # int64[256] (uint32 right-aligned codewords)
+    lengths: torch.Tensor,  # int32[256]
+):
+    """Returns (hi int32[S], lo int32[S], symlen int32[S], num_words int32):
+    hi/lo hold the uint32 halves' bit patterns.
+
+    The exact single-stream packer (Algorithm 1): output arrays are sized
+    at the worst case (one word per symbol) and ``num_words`` gives the
+    valid prefix.  The greedy recurrence is the same as one chunk of
+    :func:`pack_symlen_chunked_parts` holding the whole stream, so this is
+    that chunk (bit-identical to ``pack_symlen_np``).
+    """
+    symbols = torch.as_tensor(symbols).reshape(-1)
+    n = symbols.shape[0]
+    _precheck_symbols(symbols, lengths, n)
+    valid = torch.ones(n, dtype=torch.bool, device=symbols.device)
+    return _pack_chunk(symbols, valid, codes, lengths)
+
+
+def chunk_words_bound(chunk_size: int, l_max: int) -> int:
+    """Static upper bound on the words one chunk of ``chunk_size`` symbols
+    can pack to.
+
+    A word is flushed only when the next codeword (<= ``l_max`` bits) does
+    not fit, so every flushed word carries more than ``64 - l_max`` bits and
+    therefore at least ``floor(64 / l_max)`` symbols; only the chunk's last
+    word may hold fewer (>= 1).  Hence
+    ``words <= (chunk_size - 1) // floor(64 / l_max) + 1`` (and trivially
+    ``words <= chunk_size``).
+    """
+    if chunk_size <= 0:
+        return 0
+    s_min = max(WORD_BITS // max(int(l_max), 1), 1)
+    return min(int(chunk_size), (int(chunk_size) - 1) // s_min + 1)
+
+
+# Stitched-stream capacities quantize to this grid, so the number of
+# distinct decode bucket shapes stays O(log sizes) even when capacities are
+# exact counts.
+STITCH_CAPACITY_GRID = 256
+
+
+def stitch_capacity(words: int, *, grid: int = STITCH_CAPACITY_GRID) -> int:
+    """Round a stitched-stream word capacity up to the grid (deliberately
+    not a power of two: the bound is already ~2-3x the true word count)."""
+    return -(-max(int(words), 1) // grid) * grid
+
+
+def stitch_chunk_parts(
+    chunk_hi: torch.Tensor,  # int32[B, C]
+    chunk_lo: torch.Tensor,  # int32[B, C]
+    chunk_sl: torch.Tensor,  # int32[B, C]
+    words_per_chunk: torch.Tensor,  # int32[B]
+    *,
+    capacity: int,
+):
+    """Device-side stitch: chunk parts -> one dense decoder-shaped stream.
+
+    Chunk b's valid words (its row's first ``words_per_chunk[b]`` entries)
+    land in the output run ``[cum[b-1], cum[b])`` — a pure gather (output
+    position -> source chunk/slot).  Positions past the total word count
+    are zero words with ``symlen == 0``.  Multi-signal parts ``[K, B, C]``
+    stitch to one concatenated stream by reshaping to ``[K * B, C]``.
+
+    Returns (hi int32[capacity], lo int32[capacity], symlen
+    int32[capacity], num_words int32[]) — ``num_words`` is the live prefix
+    (a tensor on the parts' device; no sync).
+    """
+    b = chunk_hi.shape[0]
+    dev = chunk_hi.device
+    if b == 0 or capacity == 0:
+        z = torch.zeros(capacity, dtype=torch.int32, device=dev)
+        return z, z.clone(), z.clone(), torch.zeros((), dtype=torch.int32,
+                                                    device=dev)
+    wpc = words_per_chunk.long()
+    cum = torch.cumsum(wpc, 0)  # inclusive prefix sum
+    pos = torch.arange(capacity, device=dev)
+    src = torch.clamp(torch.searchsorted(cum, pos, right=True), max=b - 1)
+    slot = torch.clamp(pos - (cum[src] - wpc[src]),
+                       max=chunk_hi.shape[1] - 1)
+    live = pos < cum[-1]
+
+    def take(parts):
+        got = parts[src, slot]
+        return torch.where(live, got, torch.zeros_like(got))
+
+    return (take(chunk_hi), take(chunk_lo), take(chunk_sl),
+            cum[-1].to(torch.int32))
+
+
+def _chunked_parts(symbols, valid, codes, lengths, chunk_size: int):
+    """:func:`pack_symlen_chunked_parts` without the host precheck, over
+    streams ``[..., S]`` with a validity mask of the same shape (the
+    batched encode engine's plain arm)."""
+    s = symbols.shape[-1]
+    num_chunks = max(-(-s // chunk_size), 1)
+    cap = num_chunks * chunk_size
+    if cap != s:
+        pad = (0, cap - s)
+        symbols = torch.nn.functional.pad(symbols, pad)
+        valid = torch.nn.functional.pad(valid, pad)
+    lead = symbols.shape[:-1]
+    return _pack_chunk(
+        symbols.reshape(lead + (num_chunks, chunk_size)),
+        valid.reshape(lead + (num_chunks, chunk_size)),
+        codes, lengths,
+    )
+
+
+def pack_symlen_chunked_parts(
+    symbols: torch.Tensor,
+    codes: torch.Tensor,  # int64[256]
+    lengths: torch.Tensor,  # int32[256]
+    *,
+    chunk_size: int,
+    num_symbols=None,
+    valid=None,
+):
+    """Chunk-parallel SymLen packing, un-stitched.
+
+    Splits the stream ``[S]`` into ``B = ceil(S / chunk_size)`` chunks and
+    packs each greedily from a fresh 64-bit word.  Returns (hi int32[B, C],
+    lo int32[B, C], symlen int32[B, C], words_per_chunk int32[B]); chunk b's
+    valid words are its row's first ``words_per_chunk[b]`` entries, and the
+    dense stream is their in-order concatenation.  SymLen words decode
+    independently, so the chunked stream decodes bit-exactly; with
+    ``chunk_size = S`` it equals ``pack_symlen_np``'s.
+
+    ``num_symbols`` (a host int or a 0-dim tensor; default S) marks the
+    slots at and past it as padding.  ``valid`` (bool[S], exclusive with
+    ``num_symbols``) masks an arbitrary subset: masked slots emit nothing,
+    advance nothing and are not counted, so the stream equals the greedy
+    pack of the compacted valid subsequence (container-v3 zero planes).
+    """
+    if chunk_size <= 0:
+        raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+    symbols = torch.as_tensor(symbols).reshape(-1)
+    s = symbols.shape[0]
+    if valid is not None:
+        if num_symbols is not None:
+            raise ValueError("pass num_symbols or valid, not both")
+        valid = torch.as_tensor(valid, device=symbols.device).reshape(-1)
+        valid = valid.bool()
+        _precheck_symbols(symbols, lengths, None, valid)
+    else:
+        if num_symbols is None:
+            num_symbols = s
+        _precheck_symbols(symbols, lengths, num_symbols)
+        valid = torch.arange(s, device=symbols.device) < torch.as_tensor(
+            num_symbols, device=symbols.device)
+    return _chunked_parts(symbols, valid, codes, lengths, chunk_size)
+
+
+def pack_symlen_chunked(
+    symbols: torch.Tensor,
+    codes: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    chunk_size: int,
+    num_symbols=None,
+):
+    """Chunk-parallel SymLen packing, stitched: (hi int32[C], lo int32[C],
+    symlen int32[C], num_words int32[]) with capacity ``C = B *
+    chunk_size``; the valid prefix is ``num_words``."""
+    hi, lo, sl, wpc = pack_symlen_chunked_parts(
+        symbols, codes, lengths, chunk_size=chunk_size,
+        num_symbols=num_symbols,
+    )
+    return stitch_chunk_parts(hi, lo, sl, wpc,
+                              capacity=hi.shape[0] * chunk_size)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,282 @@
+"""K4: the bucket encode — signal rows -> SymLen chunk parts.
+
+Replaces ``repro/kernels/encode_fused.py::encode_fused``, the TPU kernel
+that runs DCT -> the exact ``quantize`` -> (container v3) ``predict_levels``
++ zero-plane masks -> a (code, length) lookup -> the chunk-parallel greedy
+SymLen pack in one ``pallas_call``.  On the H100 it is two CUDA kernels in
+a row (``csrc/encode_fused.cu``):
+
+  * ``encode_levels`` — signals -> the coded level grid u8[K, Wp, E] (and
+    under v3 the per-row ``ncoded`` and the zero-plane masks), on the DCT +
+    quantize template K5 shares (``csrc/dct_quant.cuh``);
+  * ``symlen_pack`` — grid + masks -> the chunk parts.
+
+The source's header says what bounds each on the H100 and what its design
+does about it.  Packed words come back as ``(hi, lo)`` uint32 halves held
+as the bit patterns of ``int32`` tensors.
+
+Plain versions: :func:`encode_levels_plain` and :func:`symlen_pack_plain`,
+the math of the reference's XLA arm (``serving/batch_encode.py::
+_encode_bucket_math(use_kernels=False)``), and :func:`encode_fused_plain`,
+the two in a row.  Each wrapper here takes its plain version for CPU
+tensors and launches its kernel for CUDA tensors.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import symlen
+from repro_torch.core.calibration import DeviceTables
+from repro_torch.core.quantize import QuantTable, predict_levels, quantize
+from repro_torch.kernels import ops
+from repro_torch.kernels.dct_quant import check_quant_args
+
+__all__ = [
+    "TRIVIAL",
+    "encode_levels",
+    "encode_levels_plain",
+    "symlen_pack",
+    "symlen_pack_plain",
+    "encode_fused",
+    "encode_fused_plain",
+]
+
+TRIVIAL = (0, 0, False)  # no predictor, no zero planes: the v2 stream
+
+Levels = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor],
+               Optional[torch.Tensor]]
+
+
+def _win_valid(counts, wp: int, e: int) -> torch.Tensor:
+    """bool[K, Wp]: the true (non-padding) windows of each row."""
+    win = torch.arange(wp, device=counts.device)
+    return win[None, :] < (counts.long() // e)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# Stage (a): signals -> coded grid (+ v3 masks and counts).
+# ---------------------------------------------------------------------------
+def encode_levels_plain(signals, counts, quant: QuantTable, basis, *, n: int,
+                        e: int, coding=TRIVIAL) -> Levels:
+    """The plain version of ``encode_levels`` (runs on any device).
+
+    Returns ``(grid uint8[K, Wp, E], zrow, zcol, ncoded)``: ``grid`` is the
+    quantized levels, re-coded by the v3 predictor when ``coding`` has one;
+    under a v3 coding ``ncoded`` int32[K] counts each row's coded symbols,
+    and with zero planes ``zrow`` bool[K, Wp] marks all-128 window rows
+    (every window, padding included) and ``zcol`` bool[K, E] all-128 bands
+    over the row's true windows.  v2 returns ``None`` for the last three.
+    """
+    coding = tuple(coding)
+    k = signals.shape[0]
+    levels = quantize(signals.reshape(k, -1, n) @ basis, quant)
+    if coding == TRIVIAL:
+        return levels, None, None, None
+    pred_id, bands, zplanes = coding
+    grid = predict_levels(levels, pred_id, bands)
+    if not zplanes:
+        return grid, None, None, counts.to(torch.int32)
+    win_valid = _win_valid(counts, grid.shape[1], e)
+    is_zero = grid == 128
+    zrow = is_zero.all(dim=2)
+    zcol = (is_zero | ~win_valid[:, :, None]).all(dim=1)
+    valid = (win_valid & ~zrow)[:, :, None] & ~zcol[:, None, :]
+    ncoded = valid.reshape(k, -1).sum(dim=1, dtype=torch.int32)
+    return grid, zrow, zcol, ncoded
+
+
+def encode_levels(signals, counts, quant: QuantTable, basis, *, n: int,
+                  e: int, coding=TRIVIAL) -> Levels:
+    """Signal rows f32[K, Wp * N] and true symbol counts int32[K] -> the
+    coded grid and, under v3, ``(zrow, zcol, ncoded)`` (see
+    :func:`encode_levels_plain`)."""
+    coding = tuple(coding)
+    if not ops.is_cuda(signals):
+        return encode_levels_plain(signals, counts, quant, basis, n=n, e=e,
+                                   coding=coding)
+    dev = signals.device
+    if signals.dtype != torch.float32 or signals.dim() != 2:
+        raise TypeError(
+            f"encode_levels takes f32 signal rows [K, Wp * N], got "
+            f"{signals.dtype} {tuple(signals.shape)}"
+        )
+    k, width = signals.shape
+    if width % n or width == 0:
+        raise ValueError(f"signal rows of {width} samples are not whole "
+                         f"windows of N={n}")
+    if counts.dtype != torch.int32 or counts.shape != (k,) or (
+        counts.device != dev
+    ):
+        raise TypeError(f"counts must be int32[{k}] on {dev}")
+    check_quant_args(dev, quant, basis, n, e, "encode_levels")
+    ops._check_encode_i32(width, e, n)
+    if k > 65535:
+        raise ValueError(f"encode_levels takes at most 65535 rows, got {k}")
+    wp = width // n
+    pred_id, bands, zplanes = coding
+    signals = signals.contiguous()
+    counts = counts.contiguous()
+    basis = basis.contiguous()
+    grid = torch.empty(k, wp, e, dtype=torch.uint8, device=dev)
+    zrow = zcol = ncoded = scratch = None
+    if coding != TRIVIAL:
+        ncoded = torch.empty(k, dtype=torch.int32, device=dev)
+    if zplanes:
+        zrow = torch.empty(k, wp, dtype=torch.bool, device=dev)
+        zcol = torch.empty(k, e, dtype=torch.bool, device=dev)
+        # per row: nonzero-band flags, kept windows, finished blocks
+        scratch = torch.zeros(k, e + 2, dtype=torch.int32, device=dev)
+
+    if k == 0:
+        return grid, zrow, zcol, ncoded  # nothing to launch
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    ops.launch(
+        "encode_levels", "fptc_encode_levels", dev,
+        signals.data_ptr(), counts.data_ptr(), k, wp, n, e, basis.data_ptr(),
+        quant.zone.contiguous().data_ptr(),
+        quant.scale.contiguous().data_ptr(), quant.mu.data_ptr(),
+        quant.alpha1.data_ptr(), pred_id, bands, int(bool(zplanes)),
+        grid.data_ptr(), ptr(zrow), ptr(zcol), ptr(ncoded), ptr(scratch),
+    )
+    return grid, zrow, zcol, ncoded
+
+
+# ---------------------------------------------------------------------------
+# Stage (b): grid + masks -> chunk parts.
+# ---------------------------------------------------------------------------
+def _valid_slots(grid, zrow, zcol, counts, coding) -> torch.Tensor:
+    """bool[K, Wp * E]: the grid cells that enter the stream."""
+    k, wp, e = grid.shape
+    if tuple(coding) == TRIVIAL:
+        slot = torch.arange(wp * e, device=grid.device)
+        return slot[None, :] < counts.long()[:, None]
+    win_valid = _win_valid(counts, wp, e)
+    if coding[2]:
+        valid = (win_valid & ~zrow)[:, :, None] & ~zcol[:, None, :]
+    else:
+        valid = win_valid[:, :, None].expand(k, wp, e)
+    return valid.reshape(k, -1)
+
+
+def symlen_pack_plain(grid, zrow, zcol, counts, codes, lengths, *,
+                      chunk_size: int, coding=TRIVIAL, check_gaps=True):
+    """The plain version of ``symlen_pack`` (runs on any device): per row,
+    ``pack_symlen_chunked_parts`` of the valid cells, plus the per-row
+    histogram-gap flag.  Returns ``(hi int32[K, B, C], lo int32[K, B, C],
+    symlen int32[K, B, C], words_per_chunk int32[K, B], bad bool[K])``."""
+    k = grid.shape[0]
+    flat = grid.reshape(k, -1).long()
+    valid = _valid_slots(grid, zrow, zcol, counts, coding)
+    if check_gaps:
+        bad = ((lengths.long()[flat] == 0) & valid).any(dim=1)
+    else:
+        bad = torch.zeros(k, dtype=torch.bool, device=grid.device)
+    hi, lo, sl, wpc = symlen._chunked_parts(flat, valid, codes, lengths,
+                                            chunk_size)
+    return hi, lo, sl, wpc, bad
+
+
+def symlen_pack(grid, zrow, zcol, counts, codes, lengths, *,
+                chunk_size: int, coding=TRIVIAL, check_gaps=True):
+    """Coded grid uint8[K, Wp, E] (+ the v3 zero-plane masks), true symbol
+    counts int32[K], codes int64[256] (uint32 codewords) and lengths
+    int32[256] -> the chunk parts and the gap flags (see
+    :func:`symlen_pack_plain`)."""
+    coding = tuple(coding)
+    if chunk_size <= 0:
+        raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+    if not ops.is_cuda(grid):
+        return symlen_pack_plain(grid, zrow, zcol, counts, codes, lengths,
+                                 chunk_size=chunk_size, coding=coding,
+                                 check_gaps=check_gaps)
+    dev = grid.device
+    if grid.dtype != torch.uint8 or grid.dim() != 3:
+        raise TypeError(f"symlen_pack takes a uint8 grid [K, Wp, E], got "
+                        f"{grid.dtype} {tuple(grid.shape)}")
+    k, wp, e = grid.shape
+    if counts.dtype != torch.int32 or counts.shape != (k,):
+        raise TypeError(f"counts must be int32[{k}]")
+    if codes.dtype != torch.int64 or lengths.dtype != torch.int32 or (
+        codes.shape != (256,) or lengths.shape != (256,)
+    ):
+        raise TypeError("symlen_pack takes int64 codes[256] and int32 "
+                        "lengths[256]")
+    zplanes = bool(coding[2])
+    if zplanes:
+        if zrow is None or zcol is None:
+            raise ValueError("a zero-plane coding needs zrow and zcol")
+        if zrow.shape != (k, wp) or zcol.shape != (k, e) or not all(
+            t.dtype in (torch.bool, torch.uint8) for t in (zrow, zcol)
+        ):
+            raise ValueError(f"zrow/zcol must be bool[{k}, {wp}] / "
+                             f"bool[{k}, {e}]")
+    masks = (zrow, zcol) if zplanes else ()
+    if any(t.device != dev for t in (counts, codes, lengths, *masks)):
+        raise ValueError("symlen_pack inputs must share one CUDA device")
+    sp = wp * e
+    num_chunks = max(-(-sp // chunk_size), 1)
+    grid = grid.contiguous()
+    zr = zc = None
+    if zplanes:
+        zr = zrow.contiguous().data_ptr()
+        zc = zcol.contiguous().data_ptr()
+    hi = torch.empty(k, num_chunks, chunk_size, dtype=torch.int32, device=dev)
+    lo = torch.empty_like(hi)
+    sl = torch.empty_like(hi)
+    wpc = torch.empty(k, num_chunks, dtype=torch.int32, device=dev)
+    bad = torch.zeros(k, dtype=torch.bool, device=dev)
+    if k == 0:
+        return hi, lo, sl, wpc, bad  # nothing to launch
+    ops.launch(
+        "symlen_pack", "fptc_symlen_pack", dev,
+        grid.data_ptr(), zr, zc, counts.contiguous().data_ptr(), k, wp, e,
+        num_chunks, chunk_size, int(coding != TRIVIAL),
+        codes.contiguous().data_ptr(), lengths.contiguous().data_ptr(),
+        int(bool(check_gaps)), hi.data_ptr(), lo.data_ptr(), sl.data_ptr(),
+        wpc.data_ptr(), bad.data_ptr(),
+    )
+    return hi, lo, sl, wpc, bad
+
+
+# ---------------------------------------------------------------------------
+# The whole bucket encode.
+# ---------------------------------------------------------------------------
+def _compose(levels_fn, pack_fn, signals, counts, tables: DeviceTables,
+             basis, *, n, e, chunk_size, check_gaps, coding):
+    coding = tuple(coding)
+    grid, zrow, zcol, ncoded = levels_fn(signals, counts, tables.quant, basis,
+                                         n=n, e=e, coding=coding)
+    hi, lo, sl, wpc, bad = pack_fn(
+        grid, zrow, zcol, counts, tables.codes, tables.lengths,
+        chunk_size=chunk_size, coding=coding, check_gaps=check_gaps,
+    )
+    if coding == TRIVIAL:
+        return hi, lo, sl, wpc, bad
+    return hi, lo, sl, wpc, bad, ncoded, zrow, zcol
+
+
+def encode_fused_plain(signals, counts, tables: DeviceTables, basis, *,
+                       n: int, e: int, chunk_size: int, check_gaps: bool,
+                       coding=TRIVIAL):
+    """The plain version of K4 (runs on any device)."""
+    return _compose(encode_levels_plain, symlen_pack_plain, signals, counts,
+                    tables, basis, n=n, e=e, chunk_size=chunk_size,
+                    check_gaps=check_gaps, coding=coding)
+
+
+def encode_fused(signals, counts, tables: DeviceTables, basis, *, n: int,
+                 e: int, chunk_size: int, check_gaps: bool, coding=TRIVIAL):
+    """Bucket encode: signal rows f32[K, Wp * N] (zero-padded) and true
+    symbol counts int32[K] -> ``(hi, lo, symlen [K, B, C], words_per_chunk
+    [K, B], bad bool[K])``, the reference's contract (``hi``/``lo`` as int32
+    bit patterns of the uint32 halves).  A v3 ``coding`` appends ``ncoded
+    int32[K]`` and, with zero planes, ``zrow bool[K, Wp]`` / ``zcol bool[K,
+    E]`` (``None`` without)."""
+    return _compose(encode_levels, symlen_pack, signals, counts, tables,
+                    basis, n=n, e=e, chunk_size=chunk_size,
+                    check_gaps=check_gaps, coding=coding)

@@ -1,7 +1,7 @@
 """The kernel layer's shared machinery: the CUDA library's build and load,
 the launch counters, and the int32 offset guard.
 
-Port of the dispatch layer in ``repro/kernels/ops.py``.  The decode kernels
+Port of the dispatch layer in ``repro/kernels/ops.py``.  The kernels
 are CUDA C++ for ``sm_90a`` under ``csrc/`` with a plain C interface.
 :func:`library` compiles each source with ``nvcc`` (all at once, in
 parallel), links one shared library into ``kernels/build/<hash>/`` at first
@@ -9,12 +9,13 @@ use, and loads it with ``ctypes`` — so a fresh checkout builds its kernels
 the first time a CUDA tensor reaches a wrapper.  Nothing is built or
 imported when this module is imported.
 
-Every kernel module (``huffman_decode``, ``decode_fused``, ``idct_dequant``)
-holds its wrapper and the plain PyTorch version of the same function.  A
-wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches its kernel through :func:`launch` or raises.  Each
-launch of a wrapper's kernel adds one to ``LAUNCHES[name]`` — the counters
-a run reads to show that its main path went through the kernels.
+Every kernel module (``huffman_decode``, ``decode_fused``, ``idct_dequant``,
+``dct_quant``, ``encode_fused``) holds its wrapper and the plain PyTorch
+version of the same function.  A wrapper takes the plain version only for
+tensors on the CPU; for CUDA tensors it launches its kernel through
+:func:`launch` or raises.  Each launch of a wrapper's kernel adds one to
+``LAUNCHES[name]`` — the counters a run reads to show that its main path
+went through the kernels.
 """
 from __future__ import annotations
 
@@ -45,12 +46,16 @@ _I32_MAX = np.iinfo(np.int32).max
 
 # one counter per CUDA kernel, counted in :func:`launch` only:
 # symlen_decode (K1, and K2's first stage), v3_unpredict and lut_idct (K2's
-# stages after K1), and idct_dequant (K3)
+# stages after K1), idct_dequant (K3), encode_levels and symlen_pack (K4's
+# two stages), and dct_quant (K5)
 LAUNCHES: Dict[str, int] = {
     "symlen_decode": 0,
     "v3_unpredict": 0,
     "lut_idct": 0,
     "idct_dequant": 0,
+    "encode_levels": 0,
+    "symlen_pack": 0,
+    "dct_quant": 0,
 }
 
 
@@ -72,6 +77,16 @@ def check_i32_offsets(num_symbols: int, max_symlen: int) -> None:
             f"decode bucket of {num_symbols} symbols (+{max_symlen} spill) "
             "exceeds the int32 offset range of the fused kernels — decode "
             "the archive in smaller batches"
+        )
+
+
+def _check_encode_i32(width: int, e: int, n: int) -> None:
+    """Encode-side arm of the int32 guard: per-signal symbol capacity."""
+    sp = (int(width) // int(n)) * int(e)
+    if sp > _I32_MAX:
+        raise ValueError(
+            f"encode bucket rows of {sp} symbols exceed the int32 offset "
+            "range of the fused pack kernel — encode in smaller windows"
         )
 
 
@@ -103,6 +118,11 @@ _SIGNATURES = {
     "fptc_v3_expand_unpredict": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     "fptc_lut_idct": [_P, _I, _I, _I, _P, _P, _P, _P],
     "fptc_idct_dequant": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "fptc_dct_quant": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "fptc_encode_levels": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                           _I, _I, _P, _P, _P, _P, _P, _P],
+    "fptc_symlen_pack": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+                         _P, _P, _P, _P, _P, _P],
 }
 
 _lib_lock = threading.Lock()
@@ -120,7 +140,7 @@ def _nvcc() -> str:
         return cand
     raise RuntimeError(
         "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
-        "CUDA decode kernels cannot be built on this machine"
+        "CUDA kernels cannot be built on this machine"
     )
 
 

@@ -6,6 +6,14 @@ from repro_torch.serving.batch_decode import (
     default_decoder,
     streams_from_containers,
 )
+from repro_torch.serving.batch_encode import (
+    DEFAULT_CHUNK_SIZE,
+    BatchEncoder,
+    EncodedBatch,
+    EncodedBucketParts,
+    EncodePlan,
+    default_encoder,
+)
 from repro_torch.serving.engine import (
     BucketScheduler,
     PipelineExecutor,
@@ -21,6 +29,12 @@ __all__ = [
     "StreamGroup",
     "default_decoder",
     "streams_from_containers",
+    "BatchEncoder",
+    "EncodedBatch",
+    "EncodedBucketParts",
+    "EncodePlan",
+    "default_encoder",
+    "DEFAULT_CHUNK_SIZE",
     "BucketScheduler",
     "PipelineExecutor",
     "SubmitBuffer",

@@ -13,7 +13,8 @@ pipelined execution on one device.  Port of ``repro/serving/engine.py``.
     recorded after the copies is waited on by the compute stream before the
     bucket's kernels, so bucket k+1's upload overlaps bucket k's kernels.
   * :func:`fetch_to_host` — the drain: every d2h copy starts (into pinned
-    buffers) before any is read.
+    buffers) before any is read; :func:`fetch_to_host_stitched` overlaps a
+    per-bucket host stitch with the later buckets' copies.
 
 Pipelining changes *when* buckets run — never what they produce.
 """
@@ -53,6 +54,7 @@ __all__ = [
     "PipelineExecutor",
     "ExecutorStats",
     "fetch_to_host",
+    "fetch_to_host_stitched",
 ]
 
 MAX_SYMLEN_CAP = 64  # a 64-bit word holds at most 64 one-bit codes
@@ -349,21 +351,62 @@ def _host_tensor(a: Any) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def fetch_to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
-    """Drain device tensors: start EVERY d2h copy (into pinned buffers)
-    before reading any of them."""
+def _start_d2h(tensors: Sequence[torch.Tensor]):
+    """Start the d2h copies of ``tensors`` into pinned buffers; returns the
+    host tensors and one event recorded after the copies (None when none
+    was needed)."""
     hosts = []
-    events = []
+    event = None
     for t in tensors:
         if t.device.type == "cuda":
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             h.copy_(t, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(t.device))
-            events.append(ev)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(t.device))
             hosts.append(h)
         else:
             hosts.append(t)
-    for ev in events:
-        ev.synchronize()
-    return [h.numpy() for h in hosts]
+    return hosts, event
+
+
+def fetch_to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Drain device tensors: start EVERY d2h copy (into pinned buffers)
+    before reading any of them."""
+    staged = [_start_d2h([t]) for t in tensors]
+    for _, ev in staged:
+        if ev is not None:
+            ev.synchronize()
+    return [hosts[0].numpy() for hosts, _ in staged]
+
+
+def fetch_to_host_stitched(
+    bucket_tensors: Sequence[Sequence[torch.Tensor]],
+    stitch: Callable[[int, List[np.ndarray]], Any],
+) -> List[Any]:
+    """Drain per-bucket device tensors and overlap the host-side stitch.
+
+    Every bucket's d2h copies start up front (as :func:`fetch_to_host`);
+    then the main thread waits for bucket ``k+1``'s copies while a single
+    worker runs ``stitch(k, host_arrays)`` — so the host post-processing of
+    bucket ``k`` overlaps the later copies instead of following all of
+    them.  Results come back in bucket order; a stitch exception
+    propagates to the caller.
+    """
+    staged = [_start_d2h(tensors) for tensors in bucket_tensors]
+    if not staged:
+        return []
+
+    def host(b: int) -> List[np.ndarray]:
+        hosts, ev = staged[b]
+        if ev is not None:
+            ev.synchronize()
+        return [h.numpy() for h in hosts]
+
+    if len(staged) == 1:
+        return [stitch(0, host(0))]
+    with ThreadPoolExecutor(
+        max_workers=1, thread_name_prefix="fptc-stitch"
+    ) as pool:
+        futures = [pool.submit(stitch, b, host(b))
+                   for b in range(len(staged))]
+        return [f.result() for f in futures]

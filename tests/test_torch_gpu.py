@@ -1,6 +1,6 @@
 """The CUDA kernels on the card, each against its plain PyTorch version on
-the same inputs, and the batched decode engine on the card against itself
-on the CPU.  Every test is marked ``gpu`` and skips where there is no card;
+the same inputs, and the batched decode and encode engines on the card
+against themselves on the CPU.  Every test is marked ``gpu`` and skips where there is no card;
 on the card run ``python -m pytest -m gpu tests/test_torch_*.py``.
 
 This file imports neither JAX nor the reference package, so it runs where
@@ -8,27 +8,35 @@ they are absent; its inputs come from the port's own host encoder, made
 from seeds with numpy.  Symbols and levels must be equal; floats within
 ``max|d| <= 1e-5 * max|plain|`` (the kernels sum the iDCT product in a
 fixed sequential fp32 FMA order, the plain versions in cuBLAS's order, with
-TF32 off)."""
+TF32 off).  The encode kernels' forward DCT sums in another order than the
+plain ``windows @ basis``, so a coefficient within an ulp of a quantizer
+cell boundary can land one level away: with an identity basis (the
+coefficients are the inputs) levels must be equal, and with the DCT basis
+every differing level must differ by one (the flip rule), in at most 1e-5
+of the cells (or one cell, at these small sizes).  Packing the same grid must give equal words."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import DOMAIN_DEFAULTS, calibrate, codec, dct
 from repro_torch.core.container import Container
-from repro_torch.core.huffman import build_codebook
+from repro_torch.core.huffman import build_codebook, codebook_from_lengths
 from repro_torch.core.quantize import quant_grid
 from repro_torch.core.symlen import pack_symlen_np, v3_expand_index
 from repro_torch.data import make_signal
+from repro_torch.kernels import dct_quant as dq
 from repro_torch.kernels import decode_fused as df
+from repro_torch.kernels import encode_fused as ef
 from repro_torch.kernels import huffman_decode as hd
 from repro_torch.kernels import idct_dequant as idq
 from repro_torch.kernels import ops
-from repro_torch.serving import BatchDecoder
+from repro_torch.serving import BatchDecoder, BatchEncoder
 from repro_torch.serving.engine import p2, symlen_bucket
 
 pytestmark = pytest.mark.gpu
 
 REL_TOL = 1e-5
+FLIP_SHARE = 1e-5  # flips allowed per level cell with the DCT basis
 CODINGS = [
     {},
     dict(predictor="delta", predict_bands=2, zero_planes=False),
@@ -130,7 +138,8 @@ def test_k2_kernel_matches_plain(cuda, coding):
     got = df.decode_fused(*args, lut, basis, v3, n=cfg.n, **kw)
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "symlen_decode": 1, "v3_unpredict": int(v3 is not None),
-        "lut_idct": 1, "idct_dequant": 0,
+        "lut_idct": 1, "idct_dequant": 0, "encode_levels": 0,
+        "symlen_pack": 0, "dct_quant": 0,
     }
     want = df.decode_fused_plain(*args, lut, basis, v3, n=cfg.n, **kw)
     torch.cuda.synchronize()
@@ -203,3 +212,175 @@ def test_engine_on_card_matches_cpu(cuda):
     single = codec.decode_device(archive[0], tables[archive[0].domain_id])
     assert_close(torch.from_numpy(single), torch.from_numpy(ref[0]))
     dec.close()
+
+
+# ---------------------------------------------------------------------------
+# The encode kernels: K5 (dct_quant) and K4 (encode_levels, symlen_pack).
+# ---------------------------------------------------------------------------
+def assert_flip_rule(got, want):
+    """Levels equal, or one level apart in at most FLIP_SHARE of the cells
+    (at least one flip is allowed at these small sizes)."""
+    assert got.shape == want.shape
+    d = (got.int() - want.int()).abs()
+    assert d.numel() == 0 or int(d.max()) <= 1
+    assert int((d > 0).sum()) <= max(1.0, FLIP_SHARE * d.numel())
+
+
+def _kv_windows(cuda, rows, n, seed):
+    rng = np.random.default_rng(seed)
+    x = np.cumsum(rng.standard_normal((rows, n)), axis=1) * 0.2
+    return torch.from_numpy(x.astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("domain", ["kv", "seismic"])
+def test_k5_kernel_matches_plain(cuda, domain):
+    tab = _tables(domain, "mitbih", {})
+    n, e = tab.config.n, tab.config.e
+    q = tab.device_tables(cuda).quant
+    windows = _kv_windows(cuda, 5003, n, seed=n)
+    # identity basis (both domains have n = e): the quantizer alone, exactly
+    assert n == e
+    eye = torch.eye(n, device=cuda)
+    before = ops.LAUNCHES["dct_quant"]
+    got = dq.dct_quant(windows, q, e=e, basis=eye)
+    assert ops.LAUNCHES["dct_quant"] == before + 1
+    want = dq.dct_quant_plain(windows, q, eye)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # the DCT basis: the flip rule
+    basis = dct.dct_basis(n, e, device=cuda)
+    got = dq.dct_quant(windows, q, e=e, basis=basis, exact=True)
+    assert_flip_rule(got, dq.dct_quant_plain(windows, q, basis))
+
+
+def _encode_rows(cuda, tab, lengths, seed):
+    cfg = tab.config
+    wp = p2(max(-(-n // cfg.n) for n in lengths))
+    sig = np.zeros((len(lengths), wp * cfg.n), np.float32)
+    for r, n in enumerate(lengths):
+        if n:
+            sig[r, :n] = make_signal("temperature", n, seed=seed + r)
+    counts = np.array([-(-n // cfg.n) * cfg.e for n in lengths], np.int32)
+    return (torch.from_numpy(sig).to(cuda), torch.from_numpy(counts).to(cuda))
+
+
+@pytest.mark.parametrize("coding", CODINGS, ids=lambda c: "-".join(
+    str(v) for v in c.values()) or "v2")
+def test_encode_levels_kernel_matches_plain(cuda, coding):
+    # n = e: with an identity basis every output must be equal
+    cfg = DOMAIN_DEFAULTS["meteorological"].replace(e=32, b2=32, **coding)
+    tab = calibrate(make_signal("temperature", 16384, seed=0), cfg)
+    sig, counts = _encode_rows(cuda, tab, (3000, 1500, 0, 4096, 701), 20)
+    q = tab.device_tables(cuda).quant
+    eye = torch.eye(32, device=cuda)
+    kw = dict(n=32, e=32, coding=cfg.coding)
+    before = ops.LAUNCHES["encode_levels"]
+    got = ef.encode_levels(sig, counts, q, eye, **kw)
+    assert ops.LAUNCHES["encode_levels"] == before + 1
+    want = ef.encode_levels_plain(sig, counts, q, eye, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    # the DCT basis, v2 (the grid is the levels): the flip rule
+    basis = dct.dct_basis(32, 32, device=cuda)
+    grid = ef.encode_levels(sig, counts, q, basis, n=32, e=32)[0]
+    assert_flip_rule(grid, ef.encode_levels_plain(sig, counts, q, basis,
+                                                  n=32, e=32)[0])
+
+
+@pytest.mark.parametrize("chunk", [64, 1000, None])
+@pytest.mark.parametrize("coding", CODINGS[::2], ids=lambda c: "-".join(
+    str(v) for v in c.values()) or "v2")
+def test_symlen_pack_kernel_matches_plain(cuda, coding, chunk):
+    cfg = DOMAIN_DEFAULTS["meteorological"].replace(**coding)
+    tab = calibrate(make_signal("temperature", 16384, seed=0), cfg)
+    sig, counts = _encode_rows(cuda, tab, (3000, 1500, 0, 4096, 701), 30)
+    dt = tab.device_tables(cuda)
+    basis = dct.dct_basis(cfg.n, cfg.e, device=cuda)
+    grid, zrow, zcol, _ = ef.encode_levels_plain(
+        sig, counts, dt.quant, basis, n=cfg.n, e=cfg.e, coding=cfg.coding)
+    sp = grid.shape[1] * grid.shape[2]
+    kw = dict(chunk_size=sp if chunk is None else chunk, coding=cfg.coding)
+    args = (grid, zrow, zcol, counts, dt.codes, dt.lengths)
+    before = ops.LAUNCHES["symlen_pack"]
+    got = ef.symlen_pack(*args, **kw)
+    assert ops.LAUNCHES["symlen_pack"] == before + 1
+    want = ef.symlen_pack_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    # a canonical book with gaps (absent symbols: length 0, code 0): the
+    # rows that reach them are flagged
+    lengths = tab.book.lengths.copy()
+    lengths[:100] = 0
+    book = codebook_from_lengths(lengths, cfg.l_max)
+    codes = torch.from_numpy(book.codes.astype(np.int64)).to(cuda)
+    lens = torch.from_numpy(book.lengths.astype(np.int32)).to(cuda)
+    got = ef.symlen_pack(grid, zrow, zcol, counts, codes, lens, **kw)
+    want = ef.symlen_pack_plain(grid, zrow, zcol, counts, codes, lens, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[4].any())
+
+
+def test_encode_engine_on_card_matches_cpu(cuda):
+    """The encode slice on the card: ``BatchEncoder()`` (the card by
+    default) against the same engine on the CPU, in chunked and exact mode,
+    with the launch counters showing the kernels ran.  A signal whose
+    levels the card quantizes exactly as the CPU gives equal bytes; the
+    others (flips, by the rule above) decode equal outside the flipped
+    windows."""
+    specs = [("biomedical", "mitbih"), ("power", "load_power")]
+    tables, sigs, doms = {}, [], []
+    for j, coding in enumerate(CODINGS[::2]):
+        for d, (dom, ds) in enumerate(specs):
+            did = 2 * j + d
+            tables[did] = _tables(dom, ds, coding, domain_id=did)
+            for i, n in enumerate((5000, 777)):
+                sigs.append(make_signal(ds, n, seed=300 + did * 2 + i))
+                doms.append(did)
+            # an empty, a one-sample and a sub-window signal
+            sigs += [np.zeros(0, np.float32), np.ones(1, np.float32),
+                     make_signal(ds, 33, seed=400 + did)]
+            doms += [did] * 3
+    for chunk in (1024, None):
+        ops.reset_launches()
+        enc = BatchEncoder(chunk_size=chunk)
+        assert enc.device.type == "cuda"
+        got = enc.encode(sigs, tables, domain_ids=doms).to_host()
+        buckets = enc.stats.dispatches
+        assert ops.LAUNCHES["encode_levels"] == buckets
+        assert ops.LAUNCHES["symlen_pack"] == buckets
+        want = BatchEncoder(chunk_size=chunk, device="cpu").encode(
+            sigs, tables, domain_ids=doms).to_host()
+        dec = BatchDecoder(device="cpu")
+        for g, w, s, d in zip(got, want, sigs, doms):
+            cfg = tables[d].config
+            win = torch.from_numpy(np.pad(s, (0, -len(s) % cfg.n))).reshape(
+                -1, cfg.n)
+            q = tables[d].quant
+            basis = dct.dct_basis(cfg.n, cfg.e)
+            lk = dq.dct_quant(win.to(cuda), q.to(cuda), e=cfg.e,
+                              basis=basis.to(cuda)).cpu()
+            lp = dq.dct_quant_plain(win, q, basis)
+            assert_flip_rule(lk, lp)
+            same = (lk == lp).all(dim=1).numpy()
+            if same.all():
+                assert g.to_bytes() == w.to_bytes()
+            a, b = dec.decode([g, w], tables[d]).to_host()
+            keep = np.repeat(same, cfg.n)[: len(s)]
+            np.testing.assert_array_equal(a[keep], b[keep])
+        enc.close()
+    one = codec.encode_device(sigs[0], tables[doms[0]])
+    assert one.to_bytes() == codec.encode(sigs[0], tables[doms[0]]).to_bytes()
+    # the fixed-rate encode on the card, with K5
+    kv = _tables("kv", "mitbih", {})
+    x = _kv_windows(cuda, 64, 4 * kv.config.n, seed=5).reshape(4, 16, -1)
+    before = ops.LAUNCHES["dct_quant"]
+    lv = BatchEncoder().encode_fixed(x, kv)
+    assert ops.LAUNCHES["dct_quant"] == before + 1
+    assert lv.device.type == "cuda" and lv.shape == (4, 16, 4, kv.config.e)
+    assert_flip_rule(lv.cpu(), BatchEncoder(device="cpu").encode_fixed(
+        x.cpu(), kv))

@@ -11,7 +11,12 @@ decode arms, which cannot run on this JAX (ROADMAP queue 3, R1):
     False)``;
   * K3 (``idct_dequant``): within ``1e-5 * max|ref|`` of
     ``kernels/ref.py::idct_dequant_ref`` and of the Pallas kernel in
-    interpret mode.
+    interpret mode;
+  * K5 (``dct_quant``): levels exactly equal to the Pallas kernel's
+    ``exact=True`` arm in interpret mode;
+  * K4 (``encode_fused``): every output (words, sidecars, word counts, gap
+    flags, v3 counts and masks) exactly equal to the Pallas kernel in
+    interpret mode and to the reference's ``_encode_bucket_math``.
 
 The CUDA kernels against these plain versions, on the card:
 ``tests/test_torch_gpu.py``.
@@ -39,13 +44,20 @@ from repro.core.quantize import (
 )
 from repro.data import make_signal
 from repro.kernels import ops as ref_ops
+from repro.kernels.dct_quant import dct_quant as ref_pallas_dct_quant
+from repro.kernels.encode_fused import encode_fused as ref_pallas_encode
 from repro.kernels.idct_dequant import idct_dequant as ref_pallas_idct
 from repro.kernels.ref import idct_dequant_ref
 from repro.serving.batch_decode import _decode_bucket_math
+from repro.serving.batch_encode import (
+    _encode_bucket_math as ref_encode_bucket_math,
+)
 from repro_torch.core import dct, quantize, symlen
 from repro_torch.core.calibration import tables_from_arrays
 from repro_torch.core.huffman import codebook_from_lengths
+from repro_torch.kernels import dct_quant as dq
 from repro_torch.kernels import decode_fused as df
+from repro_torch.kernels import encode_fused as ef
 from repro_torch.kernels import huffman_decode as hd
 from repro_torch.kernels import idct_dequant as idq
 from repro_torch.kernels import ops
@@ -313,8 +325,173 @@ def test_k3_plain_matches_reference_and_pallas(domain_key, dom_id):
 
 
 # ---------------------------------------------------------------------------
+# K5: the fixed-rate DCT + quantize.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("domain_key,dom_id", [("kv", 5), ("seismic", 1)])
+def test_k5_plain_matches_pallas_exact_arm(domain_key, dom_id):
+    ref_tables = golden_tables(domain_key, dom_id)
+    cfg = ref_tables.config
+    rng = np.random.default_rng(40 + dom_id)
+    # windows scaled to the table, so every zone sees levels across its range
+    windows = (rng.standard_normal((300, cfg.n)) * 3.0).astype(np.float32)
+    basis = dct.dct_basis(cfg.n, cfg.e)
+    q = ref_tables.quant
+    ref = np.asarray(ref_pallas_dct_quant(
+        jnp.asarray(windows), q.zone, q.scale, jnp.asarray(basis.numpy()),
+        q.mu, q.alpha1, e=cfg.e, interpret=True, exact=True,
+    ))
+    t = carry(ref_tables)
+    before = dict(ops.LAUNCHES)
+    got = dq.dct_quant(torch.from_numpy(windows), t.quant, e=cfg.e,
+                       basis=basis, exact=True)
+    assert ops.LAUNCHES == before  # CPU tensors take the plain version
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert len(np.unique(ref)) > 20  # the levels are not degenerate
+    # no basis given: the wrapper builds the same one
+    np.testing.assert_array_equal(
+        dq.dct_quant(torch.from_numpy(windows), t.quant, e=cfg.e).numpy(),
+        ref)
+
+
+# ---------------------------------------------------------------------------
+# K4: the bucket encode.
+# ---------------------------------------------------------------------------
+K4_CODINGS = [
+    {},
+    dict(predictor="delta", predict_bands=2, zero_planes=True),
+    dict(predictor="linear2", predict_bands=2, zero_planes=True),
+    dict(predictor="linear2", predict_bands=3, zero_planes=False),
+]
+K4_WINDOWS = 32  # Wp: every row's bucket width (N = 32 samples a window)
+
+
+def _k4_case(coding, gaps=False):
+    """A four-row meteorological bucket: three ragged signals (a partial
+    last window, and windows of zero padding) and one padding row.  With
+    ``gaps`` the codebook covers only the symbols 120..136, so off-zero
+    rows hit histogram gaps and the all-zero row does not."""
+    v2 = _k2_v2_tables()
+    ref_tables = dataclasses.replace(v2, config=v2.config.replace(**coding))
+    if gaps:
+        hist = np.zeros(256, np.int64)
+        hist[120:137] = 50
+        book = ref_huffman.build_codebook(hist, l_max=v2.config.l_max)
+        ref_tables = dataclasses.replace(ref_tables, book=book)
+    cfg = ref_tables.config
+    lengths = (1000, 701, 1024, 0)
+    sig = np.zeros((len(lengths), K4_WINDOWS * cfg.n), np.float32)
+    for r, n in enumerate(lengths[:3]):
+        sig[r, :n] = make_signal("temperature", n, seed=60 + r)
+    if gaps:
+        sig[1] = 0.0  # quantizes to the zero bin: no gap in this row
+    counts = np.array([-(-n // cfg.n) * cfg.e for n in lengths], np.int32)
+    return ref_tables, sig, counts
+
+
+def _ref_outputs(outs):
+    return [None if o is None else np.asarray(o) for o in outs]
+
+
+def assert_k4_equal(got, ref):
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        if r is None:
+            assert g is None
+            continue
+        g = g.numpy()
+        if r.dtype == np.uint32:
+            g = g.view(np.uint32)
+        assert g.shape == r.shape
+        np.testing.assert_array_equal(g, r)
+
+
+# every coding with a full book; the gap book under v2 and one v3 coding
+K4_CASES = [(c, False) for c in K4_CODINGS] + [
+    (K4_CODINGS[0], True), (K4_CODINGS[1], True)]
+
+
+@pytest.mark.parametrize("coding,gaps", K4_CASES, ids=lambda c: (
+    ("gap-book" if c else "book") if isinstance(c, bool)
+    else "-".join(str(v) for v in c.values()) or "v2"))
+def test_k4_plain_matches_pallas_and_xla_arm(coding, gaps):
+    ref_tables, sig, counts = _k4_case(coding, gaps)
+    cfg = ref_tables.config
+    dev = ref_tables.device_tables()
+    basis = dct.dct_basis(cfg.n, cfg.e)
+    kw = dict(n=cfg.n, e=cfg.e, chunk_size=64, check_gaps=gaps,
+              coding=cfg.coding)
+    xla = _ref_outputs(ref_encode_bucket_math(
+        jnp.asarray(sig), jnp.asarray(counts), dev, **kw))
+    pallas = _ref_outputs(ref_pallas_encode(
+        jnp.asarray(sig), jnp.asarray(counts), dev.codes, dev.lengths,
+        dev.quant.zone, dev.quant.scale, dev.quant.mu, dev.quant.alpha1,
+        jnp.asarray(basis.numpy()), interpret=True, **kw))
+    t = carry(ref_tables).device_tables("cpu")
+    before = dict(ops.LAUNCHES)
+    got = ef.encode_fused(torch.from_numpy(sig), torch.from_numpy(counts), t,
+                          basis, **kw)
+    assert ops.LAUNCHES == before  # CPU tensors take the plain version
+    if cfg.coding == (0, 0, False):
+        assert len(got) == 5
+    else:  # the reference's v3 contract: zrow/zcol None without zero planes
+        got = list(got)
+        pallas[6:] = [None if not cfg.zero_planes else p for p in pallas[6:]]
+    assert_k4_equal(got, xla)
+    assert_k4_equal(got, pallas)
+    bad = got[4].numpy()
+    assert bad.tolist() == ([True, False, True, False] if gaps
+                            else [False] * 4)
+    # the two stages, and their composition in the plain arm, agree
+    plain = ef.encode_fused_plain(torch.from_numpy(sig),
+                                  torch.from_numpy(counts), t, basis, **kw)
+    assert_k4_equal(list(plain), xla)
+
+
+def test_k4_exact_chunk_equals_host_packer():
+    """One chunk per row (exact mode): each row's words are
+    ``pack_symlen_np`` of its coded symbols."""
+    ref_tables, sig, counts = _k4_case(K4_CODINGS[1])
+    cfg = ref_tables.config
+    t = carry(ref_tables)
+    basis = dct.dct_basis(cfg.n, cfg.e)
+    sp = K4_WINDOWS * cfg.e
+    hi, lo, sl, wpc, bad, ncoded, zrow, zcol = ef.encode_fused(
+        torch.from_numpy(sig), torch.from_numpy(counts),
+        t.device_tables("cpu"), basis, n=cfg.n, e=cfg.e, chunk_size=sp,
+        check_gaps=False, coding=cfg.coding)
+    grid, *_ = ef.encode_levels_plain(
+        torch.from_numpy(sig), torch.from_numpy(counts), t.quant, basis,
+        n=cfg.n, e=cfg.e, coding=cfg.coding)
+    for r in range(3):
+        nw = int(counts[r]) // cfg.e
+        g = grid[r, :nw].numpy()
+        coded = g[~zrow[r, :nw].numpy()][:, ~zcol[r].numpy()].ravel()
+        assert coded.size == int(ncoded[r])
+        host = symlen.pack_symlen_np(coded, t.book)
+        w = int(wpc[r, 0])
+        np.testing.assert_array_equal(
+            symlen.u32_to_words(hi[r, 0, :w].numpy().view(np.uint32),
+                                lo[r, 0, :w].numpy().view(np.uint32)),
+            host.words)
+        np.testing.assert_array_equal(sl[r, 0, :w].numpy(), host.symlen)
+        assert not hi[r, 0, w:].any() and not sl[r, 0, w:].any()
+
+
+# ---------------------------------------------------------------------------
 # The kernel layer's guards.
 # ---------------------------------------------------------------------------
+def test_check_encode_i32_same_boundary():
+    limit = np.iinfo(np.int32).max
+    ok = ((limit // 8) * 32, 8, 32)  # width, e, n: limit // 8 * 8 symbols
+    ref_ops._check_encode_i32(*ok)
+    ops._check_encode_i32(*ok)
+    over = ((limit // 8 + 1) * 32, 8, 32)
+    for fn in (ref_ops._check_encode_i32, ops._check_encode_i32):
+        with pytest.raises(ValueError, match="int32"):
+            fn(*over)
+
+
 def test_check_i32_offsets_same_boundary():
     limit = np.iinfo(np.int32).max
     for num, ms in ((limit - 64, 64), (limit - 8, 8), (0, 64)):
