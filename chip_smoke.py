@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's batched decode and encode paths on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's batched decode, encode and transcode paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -29,6 +29,12 @@ Run from the root of a checkout; it builds the CUDA kernels from
      DCT in another order than the plain cuBLAS product, so a level may
      differ by exactly 1, in at most 1e-5 of the cells, before prediction;
      ``symlen_pack`` fed the plain grid: every output exactly;
+     K6's whole tile (``huffman_decode_tile``) on each archive bucket
+     exactly, and compacted (``compact_padded_scatter``) equal to K1's dense
+     output; ``encode_levels_gather`` on one bucket per plan key, its rows
+     gathered from that bucket's decoded windows, equal to
+     ``encode_levels`` on the materialized rows exactly, with the DCT and
+     the identity basis;
   5. main   — with every launch counter set to 0: ``BatchDecoder().decode
      (archive).to_host()`` and ``decode_fixed`` of the KV block, then the
      counters (K2's ``symlen_decode`` and ``lut_idct`` once per bucket,
@@ -42,7 +48,23 @@ Run from the root of a checkout; it builds the CUDA kernels from
      their host-encoded twins wherever no level flipped, and exact mode
      (``chunk_size=None``) on the 32 distinct signals byte for byte against
      the host encoder;
-  7. times  — per kernel, CUDA-event ms after warm-up beside the plain
+  7. staged — with every launch counter set to 0: the staged decode (K6's
+     tile, then ``compact_padded_scatter``) of every archive bucket, the
+     path on which K6 holds K1; its symbols against K1's;
+  8. transcode — with every launch counter set to 0: ``Transcoder()`` over
+     the whole archive in one call, each container to its twin coding (id
+     d <-> d + 4: v2 -> v3 and v3 -> v2 in one batch), ``transcode()``
+     under ``torch.cuda.set_sync_debug_mode("error")``; the drained bytes
+     against ``BatchEncoder().encode(BatchDecoder().decode(archive)
+     .to_host())`` on the card; the counters (``symlen_decode`` and
+     ``lut_idct`` once per decode bucket, ``v3_unpredict`` once per v3
+     source bucket, ``encode_levels_gather`` and ``symlen_pack`` once per
+     encode bucket, ``encode_levels`` never); then the 512 v2 signals
+     encoded on the card and transcoded to v3 as an ``EncodedBatch``,
+     against draining and transcoding the containers; and
+     ``codec.transcode`` of one container against the host round trip
+     ``encode(decode(c))`` where no level flipped;
+  9. times  — per kernel, CUDA-event ms after warm-up beside the plain
      version's ms and the card's bound for the same work.
 
 Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
@@ -65,6 +87,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 REL_TOL = 1e-5  # floats: max|kernel - plain| <= REL_TOL * max|plain|
 FLIP_SHARE = 1e-5  # DCT basis: at most this share of levels one level off
+# transcode vs the host round trip: levels outside the deadzone class
+# {127, 128, 129} one level off in at most this share of the cells; inside
+# it (a zero coefficient's noise sign, the linear deadzone's edge) up to 2
+# levels off, as no encoder re-quantizes those stably
+TC_FLIP_SHARE = 5e-3
+DEADZONE = (127, 128, 129)
 
 ARCHIVAL = [  # (domain, dataset, v3 predictor)
     ("biomedical", "mitbih", "delta"),
@@ -87,11 +115,19 @@ SOURCES = {
                       "src/repro/kernels/encode_fused.py:283"),
     "symlen_pack": ("src/repro_torch/kernels/csrc/encode_fused.cu",
                     "src/repro/kernels/encode_fused.py:283"),
+    "encode_levels_gather": ("src/repro_torch/kernels/csrc/encode_fused.cu",
+                             "src/repro/kernels/encode_fused.py:283"),
     "dct_quant": ("src/repro_torch/kernels/csrc/dct_quant.cu",
                   "src/repro/kernels/dct_quant.py:123"),
+    "symlen_tile": ("src/repro_torch/kernels/csrc/symlen_tile.cu",
+                    "src/repro/kernels/huffman_decode.py:359"),
 }
-# the kernels the encode path runs (the others run on the decode path)
-ENCODE_KERNELS = ("encode_levels", "symlen_pack", "dct_quant")
+# the path whose launch counts each kernel's entry reports
+PATH_OF = {"symlen_decode": "main", "v3_unpredict": "main",
+           "lut_idct": "main", "idct_dequant": "main",
+           "encode_levels": "encode", "symlen_pack": "encode",
+           "dct_quant": "encode", "encode_levels_gather": "transcode",
+           "symlen_tile": "staged"}
 
 
 def emit(obj) -> None:
@@ -149,6 +185,28 @@ def flip_stats(got, want) -> dict:
             "ok": worst <= 1 and flips <= FLIP_SHARE * d.numel()}
 
 
+def container_levels(c, tab):
+    """A container's quantized levels [num_windows, e] (v3: un-predicted),
+    by the port's host decoder."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import quantize, symlen
+
+    syms = symlen.unpack_symlen_np(
+        symlen.PackedStream(c.words, c.symlen.astype(np.int32),
+                            c.num_symbols), tab.book)
+    nw, e = c.num_windows, c.e
+    if c.coding == (0, 0, False):
+        return syms.reshape(nw, e).astype(np.int64)
+    idx, seg = symlen.v3_expand_index([(nw, c.zrow, c.zcol)], e)
+    grid = quantize.expand_coded_stream(
+        torch.from_numpy(syms), torch.from_numpy(idx)).reshape(nw, e)
+    return quantize.unpredict_levels(
+        grid, torch.from_numpy(seg), c.coding[0], c.coding[1]
+    ).numpy().astype(np.int64)
+
+
 def outputs_equal(got, want) -> bool:
     """Tuples of tensors (or None) equal element for element."""
     import torch
@@ -189,8 +247,8 @@ def main() -> None:
 
     import numpy as np
 
-    from repro_torch.core import DOMAIN_DEFAULTS, calibrate, decode, encode
-    from repro_torch.core import dct, quantize
+    from repro_torch.core import DOMAIN_DEFAULTS, calibrate, codec, decode
+    from repro_torch.core import dct, encode, quantize, symlen
     from repro_torch.data import make_signal
     from repro_torch.kernels import dct_quant as dq
     from repro_torch.kernels import decode_fused as df
@@ -202,6 +260,7 @@ def main() -> None:
         DEFAULT_CHUNK_SIZE,
         BatchDecoder,
         BatchEncoder,
+        Transcoder,
         streams_from_containers,
     )
     from repro_torch.serving.engine import symlen_bucket
@@ -277,7 +336,8 @@ def main() -> None:
     # (its three kernels in a row) against its plain version as a whole
     checks = {"symlen_decode": [], "v3_unpredict": [], "lut_idct": [],
               "decode_fused": [], "idct_dequant": [], "encode_levels": [],
-              "symlen_pack": [], "dct_quant": []}
+              "symlen_pack": [], "dct_quant": [], "symlen_tile": [],
+              "encode_levels_gather": []}
     for b in buckets:
         p, kw = b["plan"], dict(l_max=b["plan"].l_max, max_symlen=b["ms"])
         key = str(b["grp"].plan_key)
@@ -319,6 +379,21 @@ def main() -> None:
               "max_abs_err": float((k2 - k2p).abs().max()),
               "rel_err": rel_err(k2, k2p),
               "finite": bool(torch.isfinite(k2).all())}
+        # K6: the whole tile against its plain version, and compacted
+        # against K1's dense output
+        tile = hd.huffman_decode_tile(b["words"], p.tables, **kw)
+        tilep = hd.huffman_decode_tile_plain(b["words"], p.tables, **kw)
+        compact = symlen.compact_padded_scatter(tile.T, b["symlen"], nsym)
+        torch.cuda.synchronize()
+        c6 = {"plan_key": key, "slots": tile.numel(),
+              "equal": bool(torch.equal(tile, tilep)),
+              "max_abs_err": int_err(tile, tilep),
+              "compact_equals_k1": bool(torch.equal(
+                  compact.to(torch.uint8), k1))}
+        checks["symlen_tile"].append(c6)
+        check(c6["equal"] and c6["compact_equals_k1"],
+              f"K6 tile differs: {c6}")
+        del tile, tilep, compact
         checks["symlen_decode"].append(c1)
         checks["lut_idct"].append(cl)
         checks["decode_fused"].append(c2)
@@ -405,6 +480,62 @@ def main() -> None:
               f"encode_levels breaks the flip rule: {ce}")
         check(cp["equal"], f"symlen_pack differs from plain: {cp}")
         del gi, gip, g, gp, lk, lp, pk, pkp
+    # encode_levels_gather: one bucket per plan key, its rows gathered from
+    # that plan key's decoded bucket (K2's windows, flattened and padded by
+    # the bucket width, as the transcoder lays them out); each row is one
+    # member's run of 2**18 samples
+    gbuckets = []
+    for b, eb in zip(buckets, ebuckets):
+        p, ep = b["plan"], eb["plan"]
+        check(ep.domain_id == p.domain_id, "bucket order differs")
+        win = df.decode_fused(b["words"], b["symlen"], p.tables, p.lut,
+                              p.basis, b["v3"], l_max=p.l_max,
+                              max_symlen=b["ms"], num_windows=b["nw"],
+                              n=p.n, e=p.e, coding=p.coding)
+        k = len(b["grp"].members)
+        width = samples // ep.n * ep.n
+        flat = torch.cat([win.reshape(-1), torch.zeros(
+            width, device="cuda")])
+        starts = torch.arange(k, dtype=torch.int32, device="cuda") * samples
+        gbuckets.append(dict(plan=ep, flat=flat, starts=starts, width=width,
+                             lens=torch.full((k,), samples,
+                                             dtype=torch.int32,
+                                             device="cuda"),
+                             counts=eb["counts"][:k]))
+        del win
+    for g in gbuckets:
+        p = g["plan"]
+        q = p.tables.quant
+        key = str((p.domain_id, p.n, p.e, p.l_max, p.coding))
+        gx = (g["flat"], g["starts"], g["lens"])
+        rows = ef.gather_rows(*gx, g["width"])
+        kw = dict(n=p.n, e=p.e, coding=p.coding)
+        gd = ef.encode_levels_gather(*gx, g["counts"], q, p.basis,
+                                     width=g["width"], **kw)
+        dd = ef.encode_levels(rows, g["counts"], q, p.basis, **kw)
+        # identity basis: windows of E samples, so coefficients = samples
+        wid = samples // p.e * p.e
+        ci = torch.full_like(g["counts"], wid)
+        eye = torch.eye(p.e, device="cuda")
+        id_kw = dict(n=p.e, e=p.e, coding=p.coding)
+        li = torch.full_like(g["lens"], wid)
+        gi = ef.encode_levels_gather(g["flat"], g["starts"], li, ci, q, eye,
+                                     width=wid, **id_kw)
+        di = ef.encode_levels(ef.gather_rows(g["flat"], g["starts"], li,
+                                             wid), ci, q, eye, **id_kw)
+        gip = ef.encode_levels_gather_plain(g["flat"], g["starts"], li, ci,
+                                            q, eye, width=wid, **id_kw)
+        torch.cuda.synchronize()
+        cg = {"plan_key": key, "rows": int(g["starts"].numel()),
+              "dct_equal": outputs_equal(gd, dd),
+              "identity_equal": outputs_equal(gi, di),
+              "identity_equal_plain": outputs_equal(gi, gip),
+              "max_abs_err": int_err(gd[0], dd[0])}
+        checks["encode_levels_gather"].append(cg)
+        check(cg["dct_equal"] and cg["identity_equal"]
+              and cg["identity_equal_plain"],
+              f"encode_levels_gather differs from encode_levels: {cg}")
+        del rows, gd, dd, gi, di, gip
     kv_win = kv_gpu.reshape(-1, 16)
     kv_eq = kv_tab.device_tables("cuda").quant
     kv_db = enc.plan_for(kv_tab).basis
@@ -451,9 +582,9 @@ def main() -> None:
     n_v3 = sum(1 for k in keys if tuple(k[4]) != (0, 0, False))
     # K2 is symlen_decode, then v3_unpredict (v3 buckets), then lut_idct:
     # each once per bucket; K3 once for the KV block
-    want = {"symlen_decode": n_buckets, "v3_unpredict": n_v3,
-            "lut_idct": n_buckets, "idct_dequant": 1, "encode_levels": 0,
-            "symlen_pack": 0, "dct_quant": 0}
+    want = {k: 0 for k in launches}
+    want.update(symlen_decode=n_buckets, v3_unpredict=n_v3,
+                lut_idct=n_buckets, idct_dequant=1)
     check(launches == want, f"launch counts {launches} != expected {want}")
     # the distinct signals against the host reference decode; every replica
     # equal to its first copy; every v3 decode equal to its v2 twin
@@ -596,13 +727,158 @@ def main() -> None:
                          "bytes_equal_host": n_equal,
                          "with_flips": n_flip}})
 
-    # -- 7. times -------------------------------------------------------------------
+    # -- 7. the staged decode: K6's path ---------------------------------------------
+    # K6 serves no path of the engines: its path is the staged decode (tile,
+    # then compaction) that holds K1 independently, driven bucket by bucket
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    staged = []
+    for b in buckets:
+        p = b["plan"]
+        tile = hd.huffman_decode_tile(b["words"], p.tables, l_max=p.l_max,
+                                      max_symlen=b["ms"])
+        staged.append(symlen.compact_padded_scatter(
+            tile.T, b["symlen"], b["nw"] * p.e).to(torch.uint8))
+        del tile
+    torch.cuda.synchronize()
+    staged_s = time.perf_counter() - t0
+    slaunches = dict(ops.LAUNCHES)
+    swant = {k: 0 for k in slaunches}
+    swant["symlen_tile"] = n_buckets
+    check(slaunches == swant,
+          f"staged launch counts {slaunches} != expected {swant}")
+    for b, dense in zip(buckets, staged):
+        p = b["plan"]
+        k1 = hd.huffman_decode_dense(b["words"], b["symlen"], p.tables,
+                                     l_max=p.l_max, max_symlen=b["ms"],
+                                     num_symbols=b["nw"] * p.e)
+        check(bool(torch.equal(dense, k1)),
+              f"staged decode of {b['grp'].plan_key} differs from K1")
+    del staged, k1
+    emit({"phase": "staged", "buckets": n_buckets, "seconds": staged_s,
+          "launches": slaunches, "equals_k1": True})
+
+    # -- 8. the transcode path ---------------------------------------------------------
+    # every container to its twin coding: id d <-> d + 4 (v2 -> v3 and
+    # v3 -> v2 in one batch); the engines of the phases above, plans warm
+    nd = len(ARCHIVAL)
+    twin = [d + nd if d < nd else d - nd for d in doms]
+    tc = Transcoder(decoder=dec, encoder=enc)
+    rt_walls = []
+    for _ in range(2):  # the round trip through the host, first and warm
+        t0 = time.perf_counter()
+        want_tc = enc.encode(dec.decode(archive, tables).to_host(), tables,
+                             domain_ids=twin).to_host()
+        rt_walls.append(time.perf_counter() - t0)
+    tc_calls, tc_walls = [], []
+    for rep_i in range(2):  # the transcode, first call and warm
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        d0 = enc.stats.dispatches
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tbatch = tc.transcode(archive, tables, tables,
+                                  dst_domain_ids=twin)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        tc_calls.append(time.perf_counter() - t0)
+        tout = tbatch.to_host()
+        tc_walls.append(time.perf_counter() - t0)
+        if rep_i == 0:
+            tlaunches = dict(ops.LAUNCHES)
+            t_buckets = enc.stats.dispatches - d0
+        del tbatch
+        same = sum(a.to_bytes() == b.to_bytes()
+                   for a, b in zip(tout, want_tc))
+        check(same == len(archive), f"transcode differs from the round trip "
+              f"in {len(archive) - same} of {len(archive)} containers")
+    twant = {k: 0 for k in tlaunches}
+    twant.update(symlen_decode=n_buckets, lut_idct=n_buckets,
+                 v3_unpredict=n_v3, encode_levels_gather=t_buckets,
+                 symlen_pack=t_buckets)
+    check(t_buckets == n_buckets and tlaunches == twant,
+          f"transcode launch counts {tlaunches} != expected {twant}")
+    tc_bytes = sum(c.compressed_bytes for c in tout)
+    del tout, want_tc
+    # an EncodedBatch source: the 512 v2 signals encoded on the card and
+    # transcoded to v3 without a drain, against draining and transcoding
+    v2_idx = [i for i, d in enumerate(doms) if d < nd]
+    v2_sigs = [signals[i] for i in v2_idx]
+    v2_doms = [doms[i] for i in v2_idx]
+    v3_doms = [d + nd for d in v2_doms]
+    src_batch = enc.encode(v2_sigs, tables, domain_ids=v2_doms)
+    drained = enc.encode(v2_sigs, tables, domain_ids=v2_doms).to_host()
+    t0 = time.perf_counter()
+    from_batch = tc.transcode(src_batch, tables, tables,
+                              dst_domain_ids=v3_doms).to_host()
+    eb_wall = time.perf_counter() - t0
+    from_host = tc.transcode(drained, tables, tables,
+                             dst_domain_ids=v3_doms).to_host()
+    check([c.to_bytes() for c in from_batch]
+          == [c.to_bytes() for c in from_host],
+          "EncodedBatch-source transcode differs from the drained one")
+    try:
+        src_batch.to_host()
+        fail("a consumed EncodedBatch source drained")
+    except RuntimeError as err:
+        check("donated" in str(err), f"unexpected error: {err}")
+    del from_batch, from_host, drained
+    # codec.transcode of one container (exact mode) against the host round
+    # trip under the target tables: bytes equal where no level flipped
+    c_one = pool[0][0][0]
+    t0 = time.perf_counter()
+    got_one = codec.transcode(c_one, tables[0], tables[nd])
+    one_wall = time.perf_counter() - t0
+    host_one = encode(decode(c_one, tables[0]), tables[nd])
+    lv_card = container_levels(got_one, tables[nd])
+    lv_host = container_levels(host_one, tables[nd])
+    dlv = np.abs(lv_card - lv_host)
+    dz = np.isin(lv_card, DEADZONE) & np.isin(lv_host, DEADZONE)
+    one = {"cells": int(dlv.size), "flips": int((dlv > 0).sum()),
+           "deadzone_flips": int((dlv[dz] > 0).sum()),
+           "max_abs_err": int(dlv.max(initial=0)),
+           "bytes_equal": got_one.to_bytes() == host_one.to_bytes()}
+    check(one["bytes_equal"] or one["flips"] > 0,
+          f"codec.transcode differs from the host round trip without a "
+          f"flipped level: {one}")
+    check(dlv[dz].max(initial=0) <= 2 and dlv[~dz].max(initial=0) <= 1
+          and (dlv[~dz] > 0).sum() <= TC_FLIP_SHARE * dlv.size,
+          f"codec.transcode breaks the flip rule: {one}")
+    if not one["bytes_equal"]:  # equal samples outside the flipped windows
+        keep = np.repeat(~(dlv > 0).any(axis=1), c_one.n)[
+            :c_one.signal_length]
+        a = decode(got_one, tables[nd])
+        b_ = decode(host_one, tables[nd])
+        check(np.array_equal(a[keep], b_[keep]),
+              "codec.transcode decodes differently outside flipped windows")
+    emit({"phase": "transcode", "containers": len(archive),
+          "bytes_in": 4 * n_out, "buckets": n_buckets,
+          "transcode_call_s": tc_calls, "wall_s": tc_walls,
+          "to_host_s": [w - c for w, c in zip(tc_walls, tc_calls)],
+          "round_trip_wall_s": rt_walls,
+          "what": "first call, then warm; transcode() under "
+          "torch.cuda.set_sync_debug_mode('error'); the round trip is "
+          "BatchEncoder().encode(BatchDecoder().decode(archive).to_host())"
+          ".to_host() on the card",
+          "bytes_equal_round_trip": len(archive),
+          "compressed_bytes": tc_bytes, "launches": tlaunches,
+          "encoded_batch_source": {"signals": len(v2_sigs),
+                                   "wall_s": eb_wall, "bytes_equal": True,
+                                   "source_consumed": True},
+          "codec_transcode": {"wall_s": one_wall, **one,
+                              "rule": f"deadzone {DEADZONE} |d| <= 2; "
+                              f"else |d| <= 1 in <= {TC_FLIP_SHARE}"}})
+
+    # -- 9. times -------------------------------------------------------------------
     # per kernel: [ms, plain ms, bytes moved, operations], summed over the
     # buckets; K2 as a whole (its three kernels in a row) beside them, and
     # K4 as a whole (encode_levels then symlen_pack)
     acc = {k: [0.0, 0.0, 0.0, 0.0] for k in
            ("symlen_decode", "v3_unpredict", "lut_idct", "decode_fused",
-            "encode_levels", "symlen_pack", "encode_fused")}
+            "symlen_tile", "encode_levels", "encode_levels_gather",
+            "symlen_pack", "encode_fused")}
 
     def add(name, ms, plain_ms, nbytes, ops_):
         for i, v in enumerate((ms, plain_ms, nbytes, ops_)):
@@ -619,6 +895,13 @@ def main() -> None:
             cuda_ms(lambda: hd.huffman_decode_plain(
                 *args1, num_symbols=nsym, **kw), reps=2),
             9 * w + nsym, 0.0)
+        # K6: each word read once, every slot of the tile written once
+        add("symlen_tile",
+            cuda_ms(lambda: hd.huffman_decode_tile(
+                b["words"], p.tables, **kw)),
+            cuda_ms(lambda: hd.huffman_decode_tile_plain(
+                b["words"], p.tables, **kw), reps=2),
+            8 * w + 4 * b["ms"] * w, 0.0)
         dense = hd.huffman_decode_dense(*args1, num_symbols=nsym, **kw)
         if b["v3"] is not None:
             v3_kw = dict(num_windows=nw, e=p.e, pred_id=p.coding[0],
@@ -693,6 +976,25 @@ def main() -> None:
             chunk_size=wp * p.e, coding=p.coding, check_gaps=p.has_gaps),
             reps=2)
         del g, g4
+    # encode_levels_gather on the gather buckets of the check phase: the
+    # live samples of each row read once (the pad is never read), starts
+    # and lens, counts and tables, the grid and masks written once
+    for g in gbuckets:
+        p = g["plan"]
+        k, wp = int(g["starts"].numel()), g["width"] // p.n
+        gx = (g["flat"], g["starts"], g["lens"])
+        kw = dict(width=g["width"], n=p.n, e=p.e, coding=p.coding)
+        masks = (k * wp + k * p.e) if p.coding[2] else 0
+        v3 = p.coding != (0, 0, False)
+        small_b = 4 * p.n * p.e + 8 * p.e + 8 + 4 * k + 4 * k * v3
+        add("encode_levels_gather",
+            cuda_ms(lambda: ef.encode_levels_gather(
+                *gx, g["counts"], p.tables.quant, p.basis, **kw)),
+            cuda_ms(lambda: ef.encode_levels_gather_plain(
+                *gx, g["counts"], p.tables.quant, p.basis, **kw), reps=2),
+            4 * k * samples + 8 * k + small_b + k * wp * p.e + masks,
+            2.0 * k * wp * p.n * p.e)
+    del gbuckets
     kv_rows = kv_win.shape[0]
     acc["dct_quant"] = [
         cuda_ms(lambda: dq.dct_quant(kv_win, kv_eq, e=16, basis=kv_db,
@@ -704,8 +1006,10 @@ def main() -> None:
     times = {k: (ms, plain, *bound_ms(nb, fl))
              for k, (ms, plain, nb, fl) in acc.items()}
     emit({"phase": "times", "what": "ms summed over the 8 archive buckets "
-          "(v3_unpredict over the 4 v3 buckets; the encode kernels over the "
-          "8 encode buckets of 128 rows) and for the KV block "
+          "(v3_unpredict over the 4 v3 buckets; symlen_tile at each "
+          "bucket's K1 slot count; the encode kernels over the 8 encode "
+          "buckets of 128 rows, encode_levels_gather gathering them from "
+          "the decoded buckets) and for the KV block "
           "(idct_dequant, dct_quant); CUDA events, mean of repeats after a "
           "warm-up; decode_fused is K2 as a whole: symlen_decode, "
           "v3_unpredict and lut_idct in a row; encode_fused is K4 as a "
@@ -716,20 +1020,20 @@ def main() -> None:
           **{k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
                  "bound_by": v[3]} for k, v in times.items()}})
 
-    # -- 8. the kernels line, and the last line ----------------------------------
+    # -- 10. the kernels line, and the last line ---------------------------------
+    counts_of = {"main": launches, "encode": elaunches,
+                 "transcode": tlaunches, "staged": slaunches}
     kernels = []
     for name, (srcfile, replaces) in SOURCES.items():
         ms, plain, bnd, by = times[name]
-        path = elaunches if name in ENCODE_KERNELS else launches
         kernels.append({
             "name": name, "route": "cuda", "source": srcfile,
-            "replaces": replaces, "launches": path[name],
+            "replaces": replaces, "launches": counts_of[PATH_OF[name]][name],
             "max_abs_err": max(c["max_abs_err"] for c in checks[name]),
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": None,
         })
-    dec.close()
-    enc.close()
+    tc.close()
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -11,6 +11,7 @@ from repro_torch.core.codec import (
     decode_device,
     encode,
     encode_device,
+    transcode,
 )
 from repro_torch.core.config import DOMAIN_DEFAULTS, PREDICTORS, CodecConfig
 from repro_torch.core.container import Container, ContainerFormatError
@@ -30,4 +31,5 @@ __all__ = [
     "decode",
     "decode_device",
     "encode_device",
+    "transcode",
 ]

@@ -10,6 +10,8 @@ Port of ``repro/core/codec.py``.
     mode, byte-identical to `encode`) / :class:`repro_torch.serving.
     batch_decode.BatchDecoder`: on the card unless the caller asks for the
     CPU.
+  * **Transcode** (`transcode`) — a container of one through
+    :class:`repro_torch.serving.transcode.Transcoder` in exact mode.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ __all__ = [
     "decode",
     "encode_device",
     "decode_device",
+    "transcode",
     "validate_container_tables",
 ]
 
@@ -149,3 +152,28 @@ def decode_device(
 
     dec = default_decoder(device)
     return dec.decode([container], tables).to_host()[0]
+
+
+def transcode(
+    container: Container,
+    src_tables: DomainTables,
+    dst_tables: DomainTables,
+    *,
+    device=None,
+) -> Container:
+    """Re-encode one container under a new (domain, config) on the device.
+
+    Container-of-one wrapper over the transcode pipeline
+    (:mod:`repro_torch.serving.transcode`) in exact packing mode: decode
+    and re-encode compose on the device with no host round trip between
+    them, and the output equals ``decode_device`` to the host followed by
+    ``encode_device`` under ``dst_tables``.  Runs on the card unless
+    ``device="cpu"``; with no card and no device given it raises.
+    Transcode many containers at once — and get chunk-parallel packing —
+    with :class:`repro_torch.serving.transcode.Transcoder` directly.
+    """
+    from repro_torch.serving.transcode import default_transcoder
+
+    return default_transcoder(None, device).transcode_to_host(
+        [container], src_tables, dst_tables
+    )[0]

@@ -26,6 +26,8 @@ so every logical right shift here masks off the sign-extended bits.
                            compaction), and the plain version of the CUDA
                            decode kernel (``repro_torch.kernels.
                            huffman_decode``).
+  * ``decode_tile``      — every slot of every word, uncompacted: the plain
+                           version of the CUDA tile kernel (K6).
 """
 from __future__ import annotations
 
@@ -50,6 +52,8 @@ __all__ = [
     "unpack_symlen_np",
     "unpack_symlen",
     "compact_padded_scatter",
+    "decode_tile",
+    "halves_to_words",
     "words_to_u32",
     "u32_to_words",
     "zero_plane_masks",
@@ -583,25 +587,59 @@ def unpack_symlen(
     symbol total stay 0, like the XLA scatter's zero fill.  The slot tile
     is never materialized: each slot scatters as it is decoded.
     """
-    dev = words.device
-    cur = words.to(torch.int64)
     sl = symlen.to(torch.int64)
     offsets = torch.cumsum(sl, 0) - sl
-    limit = dec_limit.to(torch.int64)
-    first = dec_first.to(torch.int64)
-    rank_off = dec_rank.to(torch.int64)
-    syms = dec_syms.to(torch.int64)
-    out = torch.zeros(num_symbols, dtype=torch.uint8, device=dev)
-    prefix_mask = (1 << l_max) - 1
+    tabs = _decode_tables(dec_limit, dec_first, dec_rank, dec_syms)
+    out = torch.zeros(num_symbols, dtype=torch.uint8, device=words.device)
+    cur = words.to(torch.int64)
     for j in range(max_symlen):
-        prefix = (cur >> (WORD_BITS - l_max)) & prefix_mask
-        length = 1 + (prefix[None, :] >= limit[:, None]).sum(0)
-        length = torch.clamp(length, max=l_max)
-        diff = (prefix - first[length]) & _U32
-        rank = rank_off[length] + _as_i32(diff >> (l_max - length))
-        sym = syms[torch.clamp(rank, 0, 255)]
+        sym, cur = _decode_slot(cur, tabs, l_max)
         pos = offsets + j
         keep = (sl > j) & (pos < num_symbols)
         out[pos[keep]] = sym[keep].to(torch.uint8)
-        cur = cur << length
     return out
+
+
+def _decode_tables(dec_limit, dec_first, dec_rank, dec_syms):
+    """The canonical decode tables as int64 (limit, first, rank, symbols)."""
+    return tuple(t.to(torch.int64)
+                 for t in (dec_limit, dec_first, dec_rank, dec_syms))
+
+
+def _decode_slot(cur: torch.Tensor, tabs, l_max: int):
+    """Decode the symbol at the top of every word ``cur`` (int64 bit
+    patterns) and consume its codeword: steps 1-5 of
+    :func:`unpack_symlen`, with the length clamp and the rank clip, so
+    every bit pattern decodes to a defined symbol.  Returns ``(symbol
+    int64[W], the shifted words)``."""
+    limit, first, rank_off, syms = tabs
+    prefix = (cur >> (WORD_BITS - l_max)) & ((1 << l_max) - 1)
+    length = 1 + (prefix[None, :] >= limit[:, None]).sum(0)
+    length = torch.clamp(length, max=l_max)
+    diff = (prefix - first[length]) & _U32
+    rank = rank_off[length] + _as_i32(diff >> (l_max - length))
+    return syms[torch.clamp(rank, 0, 255)], cur << length
+
+
+def decode_tile(words, dec_limit, dec_first, dec_rank, dec_syms, *,
+                l_max: int, max_symlen: int) -> torch.Tensor:
+    """Decode ``max_symlen`` slots of every word, whatever its symlen: the
+    slot-major tile int32[max_symlen, W] of the reference's
+    ``kernels/ref.py::huffman_decode_padded_ref`` (transposed), slots past a
+    word's symlen included.  Compact it with
+    :func:`compact_padded_scatter` (``tile.T``)."""
+    tabs = _decode_tables(dec_limit, dec_first, dec_rank, dec_syms)
+    out = torch.empty(max_symlen, words.shape[0], dtype=torch.int32,
+                      device=words.device)
+    cur = words.to(torch.int64)
+    for j in range(max_symlen):
+        sym, cur = _decode_slot(cur, tabs, l_max)
+        out[j] = sym.to(torch.int32)
+    return out
+
+
+def halves_to_words(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """uint32 (hi, lo) halves held as int32 bit patterns -> the uint64
+    words' bit patterns as int64, on the halves' device (the torch twin of
+    :func:`u32_to_words`; no host copy)."""
+    return (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & _U32)

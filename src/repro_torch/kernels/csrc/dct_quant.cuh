@@ -108,6 +108,22 @@ __device__ __forceinline__ void stage_windows(float* s_x,
   }
 }
 
+// stage_windows for a row that is a run of a flat sample tensor: `row`
+// points at the run's first sample and the run holds `len` samples, so
+// sample p of the row (p from `first`) is row[p] for p < len and an exact
+// zero past it — the gather the transcoder's GatherStage describes.  Only
+// the run is read: no sample past row[len - 1].
+__device__ __forceinline__ void stage_windows_gather(
+    float* s_x, const float* __restrict__ row, int64_t len, int64_t first,
+    int rows, int n) {
+  const int total = rows * n;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int w = i / n;
+    const int64_t p = first + i;
+    s_x[w * (n + 1) + (i - w * n)] = p < len ? row[p] : 0.0f;
+  }
+}
+
 // DCT + quantize of a staged window block: calls store(w, k, level) for
 // every (w, k) of the block, threads striding over the rows x E outputs.
 template <class Store>

@@ -19,6 +19,14 @@
 //     / E): each CTA ORs its nonzero bands and adds its kept windows into a
 //     per-row scratch with atomics, and the row's last CTA to finish writes
 //     zcol and ncoded = (true windows not in zrow) x (bands not in zcol).
+//     encode_levels_gather is the same kernel with its rows read through
+//     (flat, starts, lens) — the transcoder's decoded samples — in place of
+//     a materialized f32[K, Wp * N] matrix: the staging masks each row at
+//     its true length (a decoded signal's window tail is re-decoded data,
+//     not zeros), so the signal matrix never makes a round trip through
+//     device memory, as the TPU package fuses that gather into the same jit
+//     as its pallas_call (batch_encode.py:371).  Its levels equal
+//     encode_levels' on the gathered matrix bit for bit.
 // (b) symlen_pack: grid + masks -> hi/lo u32[K, B, C], symlen i32[K, B, C],
 //     words-per-chunk i32[K, B], bad u8[K].  One thread per chunk looks up
 //     (code, length) in 256-entry tables in shared memory — this replaces
@@ -61,8 +69,14 @@ struct Coding {
   int zplanes;  // zero-plane suppression
 };
 
+// kGather: row r's samples are the run [starts[r], starts[r] + lens[r]) of
+// the flat tensor `signals`, exact zero past lens[r]; otherwise row r is
+// signals[r * wp * n, (r + 1) * wp * n).
+template <bool kGather>
 __global__ void __launch_bounds__(kLevelThreads)
     encode_levels_kernel(const float* __restrict__ signals,
+                         const int32_t* __restrict__ starts,
+                         const int32_t* __restrict__ lens,
                          const int32_t* __restrict__ counts, int64_t wp,
                          int n, int e, int bw, const float* __restrict__ basis,
                          fptc::QuantArgs q, Coding coding,
@@ -94,8 +108,13 @@ __global__ void __launch_bounds__(kLevelThreads)
   for (int i = threadIdx.x; i < 2 * e; i += blockDim.x) s_lv[i] = 128;
   for (int i = threadIdx.x; i < e; i += blockDim.x) s_nz[i] = 0;
   if (threadIdx.x == 0) *s_keep = 0;
-  fptc::stage_windows(s_x, signals + (row * wp + w0 - halo) * n, rows + halo,
-                      n);
+  if constexpr (kGather) {
+    fptc::stage_windows_gather(s_x, signals + starts[row], lens[row],
+                               (w0 - halo) * n, rows + halo, n);
+  } else {
+    fptc::stage_windows(s_x, signals + (row * wp + w0 - halo) * n,
+                        rows + halo, n);
+  }
   __syncthreads();
   // s_lv row 2 + j holds window w0 + j (j from -halo)
   uint8_t* s_lv0 = s_lv + (2 - halo) * e;
@@ -266,6 +285,52 @@ size_t encode_levels_smem(int n, int e, int bw) {
          sizeof(int) * (e + 1) + static_cast<size_t>(2 * bw + 2) * e;
 }
 
+template <bool kGather>
+int launch_encode_levels(const void* signals, const void* starts,
+                         const void* lens, const void* counts, int64_t k,
+                         int64_t wp, int64_t n, int64_t e, const void* basis,
+                         const void* zone, const void* scale, const void* mu,
+                         const void* alpha1, int64_t pred_id, int64_t bands,
+                         int64_t zplanes, void* grid, void* zrow, void* zcol,
+                         void* ncoded, void* scratch, void* stream) {
+  if (k <= 0 || wp <= 0) return 0;
+  if (n < 1 || e < 1 || e > n || n > fptc::kDctMaxDim || k > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (kGather && (starts == nullptr || lens == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (zplanes && (zrow == nullptr || zcol == nullptr || ncoded == nullptr ||
+                  scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int bw = 128;
+  const size_t smem = encode_levels_smem(static_cast<int>(n),
+                                         static_cast<int>(e), bw);
+  cudaError_t err = fptc::allow_smem(
+      reinterpret_cast<const void*>(encode_levels_kernel<kGather>), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fptc::QuantArgs q{static_cast<const int32_t*>(zone),
+                    static_cast<const float*>(scale),
+                    static_cast<const float*>(mu),
+                    static_cast<const float*>(alpha1)};
+  Coding coding{static_cast<int>(pred_id), static_cast<int>(bands),
+                static_cast<int>(zplanes)};
+  const dim3 blocks(static_cast<unsigned>((wp + bw - 1) / bw),
+                    static_cast<unsigned>(k));
+  encode_levels_kernel<kGather><<<blocks, kLevelThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(signals), static_cast<const int32_t*>(starts),
+      static_cast<const int32_t*>(lens), static_cast<const int32_t*>(counts),
+      wp, static_cast<int>(n), static_cast<int>(e), bw,
+      static_cast<const float*>(basis), q, coding,
+      static_cast<uint8_t*>(grid), static_cast<uint8_t*>(zrow),
+      static_cast<uint8_t*>(zcol), static_cast<int32_t*>(ncoded),
+      static_cast<int32_t*>(scratch));
+  FPTC_CHECK_LAUNCH();
+  return 0;
+}
+
 }  // namespace
 
 // signals f32[k, wp * n], counts i32[k], basis f32[n, e], zone i32[e],
@@ -281,38 +346,25 @@ FPTC_EXPORT int fptc_encode_levels(const void* signals, const void* counts,
                                    int64_t bands, int64_t zplanes, void* grid,
                                    void* zrow, void* zcol, void* ncoded,
                                    void* scratch, void* stream) {
-  if (k <= 0 || wp <= 0) return 0;
-  if (n < 1 || e < 1 || e > n || n > fptc::kDctMaxDim || k > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (zplanes && (zrow == nullptr || zcol == nullptr || ncoded == nullptr ||
-                  scratch == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int bw = 128;
-  const size_t smem = encode_levels_smem(static_cast<int>(n),
-                                         static_cast<int>(e), bw);
-  cudaError_t err = fptc::allow_smem(
-      reinterpret_cast<const void*>(encode_levels_kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fptc::QuantArgs q{static_cast<const int32_t*>(zone),
-                    static_cast<const float*>(scale),
-                    static_cast<const float*>(mu),
-                    static_cast<const float*>(alpha1)};
-  Coding coding{static_cast<int>(pred_id), static_cast<int>(bands),
-                static_cast<int>(zplanes)};
-  const dim3 blocks(static_cast<unsigned>((wp + bw - 1) / bw),
-                    static_cast<unsigned>(k));
-  encode_levels_kernel<<<blocks, kLevelThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(signals), static_cast<const int32_t*>(counts),
-      wp, static_cast<int>(n), static_cast<int>(e), bw,
-      static_cast<const float*>(basis), q, coding,
-      static_cast<uint8_t*>(grid), static_cast<uint8_t*>(zrow),
-      static_cast<uint8_t*>(zcol), static_cast<int32_t*>(ncoded),
-      static_cast<int32_t*>(scratch));
-  FPTC_CHECK_LAUNCH();
-  return 0;
+  return launch_encode_levels<false>(
+      signals, nullptr, nullptr, counts, k, wp, n, e, basis, zone, scale, mu,
+      alpha1, pred_id, bands, zplanes, grid, zrow, zcol, ncoded, scratch,
+      stream);
+}
+
+// encode_levels with its rows gathered from a flat sample tensor: row r is
+// flat[starts[r], starts[r] + lens[r]) (starts, lens i32[k]) followed by
+// exact zeros up to wp * n samples; the rest as fptc_encode_levels.  The
+// levels equal fptc_encode_levels' on the materialized rows bit for bit.
+FPTC_EXPORT int fptc_encode_levels_gather(
+    const void* flat, const void* starts, const void* lens, const void* counts,
+    int64_t k, int64_t wp, int64_t n, int64_t e, const void* basis,
+    const void* zone, const void* scale, const void* mu, const void* alpha1,
+    int64_t pred_id, int64_t bands, int64_t zplanes, void* grid, void* zrow,
+    void* zcol, void* ncoded, void* scratch, void* stream) {
+  return launch_encode_levels<true>(
+      flat, starts, lens, counts, k, wp, n, e, basis, zone, scale, mu, alpha1,
+      pred_id, bands, zplanes, grid, zrow, zcol, ncoded, scratch, stream);
 }
 
 // grid u8[k, wp, e], zrow u8[k, wp] / zcol u8[k, e] (null without zero

@@ -22,17 +22,15 @@
 //    memory in place of the one-hot [BW, 256] MXU lookup;
 //  * each thread stores only its own symlen[w] symbols, so the overlapping
 //    row spill and re-zero of the TPU store is not needed.
-// The arithmetic is the reference XLA arm's (core/symlen.py::unpack_symlen):
-// length = min(1 + #(prefix >= limit[l]), l_max), rank = rank_offset[len] +
-// (uint32(prefix - first[len]) >> (l_max - len)) as int32, clipped to
-// [0, 255] — so even garbage bits decode to the same symbol in both.
-#include "common.cuh"
+// The per-symbol step (symlen_step.cuh, shared with K6's symlen_tile.cu) is
+// the reference XLA arm's arithmetic (core/symlen.py::unpack_symlen), clamp
+// and clip included — so even garbage bits decode to the same symbol in both.
+#include "symlen_step.cuh"
 
 namespace {
 
 constexpr int kScanBlock = 1024;  // words per block of the offset scan
 constexpr int kDecodeBlock = 256;
-constexpr int kMaxLmax = 16;
 
 __global__ void symlen_scan_local(const uint8_t* __restrict__ symlen,
                                   int64_t num_words,
@@ -69,18 +67,9 @@ __global__ void symlen_decode_words(
     const int32_t* __restrict__ dec_first, const int32_t* __restrict__ dec_rank,
     const int32_t* __restrict__ dec_syms, int l_max, int max_symlen,
     uint8_t* __restrict__ out, int64_t num_symbols) {
-  __shared__ uint32_t s_limit[kMaxLmax];
-  __shared__ uint32_t s_first[kMaxLmax + 1];
-  __shared__ int32_t s_rank[kMaxLmax + 1];
-  __shared__ uint8_t s_syms[256];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    s_syms[i] = static_cast<uint8_t>(dec_syms[i]);
-    if (i < l_max) s_limit[i] = static_cast<uint32_t>(dec_limit[i]);
-    if (i <= l_max) {
-      s_first[i] = static_cast<uint32_t>(dec_first[i]);
-      s_rank[i] = dec_rank[i];
-    }
-  }
+  __shared__ fptc::SymlenTables s_tab;
+  fptc::load_symlen_tables(&s_tab, dec_limit, dec_first, dec_rank, dec_syms,
+                           l_max);
   __syncthreads();
 
   const int64_t w = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -90,18 +79,10 @@ __global__ void symlen_decode_words(
   const int64_t off =
       static_cast<int64_t>(local[w]) + block_base[w / kScanBlock];
   uint64_t cur = words[w];
-  const int top = 64 - l_max;
   for (int j = 0; j < count; ++j) {
-    const uint32_t prefix = static_cast<uint32_t>(cur >> top);
-    int len = 1;
-    for (int l = 0; l < l_max; ++l) len += prefix >= s_limit[l];
-    len = min(len, l_max);
-    const uint32_t diff = prefix - s_first[len];
-    int32_t rank = s_rank[len] + static_cast<int32_t>(diff >> (l_max - len));
-    rank = min(max(rank, 0), 255);
+    const uint8_t sym = fptc::decode_step(cur, s_tab, l_max);
     const int64_t pos = off + j;
-    if (pos < num_symbols) out[pos] = s_syms[rank];
-    cur <<= len;
+    if (pos < num_symbols) out[pos] = sym;
   }
 }
 
@@ -115,7 +96,7 @@ FPTC_EXPORT int fptc_symlen_decode(
     const void* dec_rank, const void* dec_syms, int64_t l_max,
     int64_t max_symlen, void* out, int64_t num_symbols, void* stream) {
   if (num_words <= 0 || num_symbols <= 0) return 0;
-  if (l_max < 1 || l_max > kMaxLmax) return static_cast<int>(cudaErrorInvalidValue);
+  if (l_max < 1 || l_max > fptc::kMaxLmax) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t scan_blocks = (num_words + kScanBlock - 1) / kScanBlock;
   symlen_scan_local<<<static_cast<unsigned>(scan_blocks), kScanBlock, 0, s>>>(

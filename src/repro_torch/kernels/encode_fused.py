@@ -11,14 +11,18 @@ a row (``csrc/encode_fused.cu``):
     quantize template K5 shares (``csrc/dct_quant.cuh``);
   * ``symlen_pack`` — grid + masks -> the chunk parts.
 
-The source's header says what bounds each on the H100 and what its design
-does about it.  Packed words come back as ``(hi, lo)`` uint32 halves held
+``encode_levels_gather`` is ``encode_levels`` reading its rows through a
+``(flat, starts, lens)`` gather — the transcoder's decoded samples — in
+place of a materialized ``f32[K, Wp * N]`` matrix; its levels equal
+``encode_levels`` on the gathered matrix bit for bit.  The source's header
+says what bounds each on the H100 and what its design does about it.  Packed words come back as ``(hi, lo)`` uint32 halves held
 as the bit patterns of ``int32`` tensors.
 
 Plain versions: :func:`encode_levels_plain` and :func:`symlen_pack_plain`,
 the math of the reference's XLA arm (``serving/batch_encode.py::
-_encode_bucket_math(use_kernels=False)``), and :func:`encode_fused_plain`,
-the two in a row.  Each wrapper here takes its plain version for CPU
+_encode_bucket_math(use_kernels=False)``), :func:`encode_fused_plain`, the
+two in a row, and :func:`encode_levels_gather_plain`, the first after
+:func:`gather_rows` (the reference's ``_gather_rows_math``).  Each wrapper here takes its plain version for CPU
 tensors and launches its kernel for CUDA tensors.
 """
 from __future__ import annotations
@@ -41,6 +45,10 @@ __all__ = [
     "symlen_pack_plain",
     "encode_fused",
     "encode_fused_plain",
+    "gather_rows",
+    "encode_levels_gather",
+    "encode_levels_gather_plain",
+    "encode_fused_gather",
 ]
 
 TRIVIAL = (0, 0, False)  # no predictor, no zero planes: the v2 stream
@@ -96,13 +104,23 @@ def encode_levels(signals, counts, quant: QuantTable, basis, *, n: int,
     if not ops.is_cuda(signals):
         return encode_levels_plain(signals, counts, quant, basis, n=n, e=e,
                                    coding=coding)
-    dev = signals.device
     if signals.dtype != torch.float32 or signals.dim() != 2:
         raise TypeError(
             f"encode_levels takes f32 signal rows [K, Wp * N], got "
             f"{signals.dtype} {tuple(signals.shape)}"
         )
     k, width = signals.shape
+    return _launch_levels("encode_levels", (signals.contiguous(),), k, width,
+                          counts, quant, basis, n=n, e=e, coding=coding)
+
+
+def _launch_levels(name: str, rows, k: int, width: int, counts,
+                   quant: QuantTable, basis, *, n: int, e: int,
+                   coding) -> Levels:
+    """Check the arguments ``encode_levels`` and ``encode_levels_gather``
+    share, allocate the outputs, and launch ``name``'s kernel on ``rows``
+    (the signal matrix, or the flat tensor with its starts and lens)."""
+    dev = rows[0].device
     if width % n or width == 0:
         raise ValueError(f"signal rows of {width} samples are not whole "
                          f"windows of N={n}")
@@ -110,13 +128,12 @@ def encode_levels(signals, counts, quant: QuantTable, basis, *, n: int,
         counts.device != dev
     ):
         raise TypeError(f"counts must be int32[{k}] on {dev}")
-    check_quant_args(dev, quant, basis, n, e, "encode_levels")
+    check_quant_args(dev, quant, basis, n, e, name)
     ops._check_encode_i32(width, e, n)
     if k > 65535:
-        raise ValueError(f"encode_levels takes at most 65535 rows, got {k}")
+        raise ValueError(f"{name} takes at most 65535 rows, got {k}")
     wp = width // n
     pred_id, bands, zplanes = coding
-    signals = signals.contiguous()
     counts = counts.contiguous()
     basis = basis.contiguous()
     grid = torch.empty(k, wp, e, dtype=torch.uint8, device=dev)
@@ -136,14 +153,75 @@ def encode_levels(signals, counts, quant: QuantTable, basis, *, n: int,
         return None if t is None else t.data_ptr()
 
     ops.launch(
-        "encode_levels", "fptc_encode_levels", dev,
-        signals.data_ptr(), counts.data_ptr(), k, wp, n, e, basis.data_ptr(),
+        name, f"fptc_{name}", dev,
+        *(t.data_ptr() for t in rows), counts.data_ptr(), k, wp, n, e,
+        basis.data_ptr(),
         quant.zone.contiguous().data_ptr(),
         quant.scale.contiguous().data_ptr(), quant.mu.data_ptr(),
         quant.alpha1.data_ptr(), pred_id, bands, int(bool(zplanes)),
         grid.data_ptr(), ptr(zrow), ptr(zcol), ptr(ncoded), ptr(scratch),
     )
     return grid, zrow, zcol, ncoded
+
+
+# ---------------------------------------------------------------------------
+# Stage (a), gathered: rows as runs of a flat sample tensor.
+# ---------------------------------------------------------------------------
+def gather_rows(flat, starts, lens, width: int) -> torch.Tensor:
+    """Stage one encode bucket's signal matrix ``f32[K, width]`` from a flat
+    sample tensor (the reference's ``_gather_rows_math``).
+
+    Row ``r`` takes samples ``[starts[r], starts[r] + lens[r])`` of ``flat``
+    and is exact zero past ``lens[r]`` — the layout ``BatchEncoder.encode``
+    stages on the host (a decoded signal's own window tail is re-decoded
+    data, not zeros, so the mask is what keeps device staging equal to the
+    host path).  ``flat`` must carry at least ``width`` samples past every
+    start (the transcoder pads it once by the widest bucket): this plain
+    version reads the whole ``width`` before masking, as the reference's
+    ``dynamic_slice`` does.
+    """
+    pos = torch.arange(width, device=flat.device)
+    x = flat[starts.long()[:, None] + pos[None, :]]  # IndexError if short
+    return torch.where(pos[None, :] < lens.long()[:, None], x,
+                       torch.zeros((), dtype=flat.dtype, device=flat.device))
+
+
+def encode_levels_gather_plain(flat, starts, lens, counts, quant: QuantTable,
+                               basis, *, width: int, n: int, e: int,
+                               coding=TRIVIAL) -> Levels:
+    """The plain version of ``encode_levels_gather`` (runs on any device):
+    :func:`encode_levels_plain` of :func:`gather_rows`."""
+    return encode_levels_plain(gather_rows(flat, starts, lens, width), counts,
+                               quant, basis, n=n, e=e, coding=coding)
+
+
+def encode_levels_gather(flat, starts, lens, counts, quant: QuantTable,
+                         basis, *, width: int, n: int, e: int,
+                         coding=TRIVIAL) -> Levels:
+    """:func:`encode_levels` of the rows :func:`gather_rows` describes —
+    flat f32[T], starts int32[K], lens int32[K] — without materializing
+    them: the kernel stages each window block straight from ``flat``, and
+    reads no sample past a row's ``lens``."""
+    coding = tuple(coding)
+    if not ops.is_cuda(flat):
+        return encode_levels_gather_plain(flat, starts, lens, counts, quant,
+                                          basis, width=width, n=n, e=e,
+                                          coding=coding)
+    dev = flat.device
+    if flat.dtype != torch.float32 or flat.dim() != 1:
+        raise TypeError(f"encode_levels_gather takes a flat f32 tensor, got "
+                        f"{flat.dtype} {tuple(flat.shape)}")
+    k = starts.shape[0] if starts.dim() == 1 else -1
+    if any(t.dtype != torch.int32 or t.shape != (k,) or t.device != dev
+           for t in (starts, lens)):
+        raise TypeError(f"starts and lens must be int32[K] on {dev}, got "
+                        f"{starts.dtype} {tuple(starts.shape)} and "
+                        f"{lens.dtype} {tuple(lens.shape)}")
+    return _launch_levels("encode_levels_gather",
+                          (flat.contiguous(), starts.contiguous(),
+                           lens.contiguous()),
+                          k, width, counts, quant, basis, n=n, e=e,
+                          coding=coding)
 
 
 # ---------------------------------------------------------------------------
@@ -280,3 +358,18 @@ def encode_fused(signals, counts, tables: DeviceTables, basis, *, n: int,
     return _compose(encode_levels, symlen_pack, signals, counts, tables,
                     basis, n=n, e=e, chunk_size=chunk_size,
                     check_gaps=check_gaps, coding=coding)
+
+
+def encode_fused_gather(flat, starts, lens, counts, tables: DeviceTables,
+                        basis, *, width: int, n: int, e: int,
+                        chunk_size: int, check_gaps: bool, coding=TRIVIAL):
+    """Bucket encode of gathered rows (see :func:`gather_rows`):
+    ``encode_levels_gather`` then ``symlen_pack`` on the card, the same
+    outputs as :func:`encode_fused` on the gathered matrix."""
+    def levels(_, counts, quant, basis, *, n, e, coding):
+        return encode_levels_gather(flat, starts, lens, counts, quant, basis,
+                                    width=width, n=n, e=e, coding=coding)
+
+    return _compose(levels, symlen_pack, None, counts, tables, basis, n=n,
+                    e=e, chunk_size=chunk_size, check_gaps=check_gaps,
+                    coding=coding)

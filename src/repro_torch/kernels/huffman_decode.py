@@ -1,4 +1,5 @@
-"""K1: word-parallel SymLen Huffman decode + compaction.
+"""K1: word-parallel SymLen Huffman decode + compaction; K6: the slot-major
+decode tile.
 
 CUDA kernel: ``csrc/symlen_decode.cu`` (``fptc_symlen_decode``), which
 replaces ``repro/kernels/huffman_decode.py::huffman_decode_dense``.  The
@@ -10,16 +11,34 @@ thread per native 64-bit word, and the canonical tables in shared memory.
 Plain version: :func:`repro_torch.core.symlen.unpack_symlen`, the math of
 the reference's XLA arm.  :func:`huffman_decode_dense` takes it for CPU
 tensors and launches the kernel for CUDA tensors.
+
+K6, ``csrc/symlen_tile.cu`` (``fptc_symlen_tile``), replaces
+``repro/kernels/huffman_decode.py::huffman_decode_tile``: every slot of
+every word decoded into a slot-major int32 tile ``[max_symlen, W]``, no
+compaction.  It lies on no serving path of either package; it is the staged
+decode (tile, then ``core.symlen.compact_padded_scatter``) that holds K1
+independently.  Both kernels run the one per-symbol step of
+``csrc/symlen_step.cuh``.  Plain version: :func:`huffman_decode_tile_plain`
+(``core.symlen.decode_tile``), the twin of the reference's
+``kernels/ref.py::huffman_decode_padded_ref``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.calibration import DeviceTables
-from repro_torch.core.symlen import unpack_symlen
+from repro_torch.core.symlen import decode_tile, unpack_symlen
 from repro_torch.kernels import ops
 
-__all__ = ["huffman_decode_dense", "huffman_decode_plain", "symlen_decode_cuda"]
+__all__ = [
+    "huffman_decode_dense",
+    "huffman_decode_plain",
+    "symlen_decode_cuda",
+    "huffman_decode_tile",
+    "huffman_decode_tile_plain",
+    "huffman_decode_padded",
+    "symlen_tile_cuda",
+]
 
 SCAN_BLOCK = 1024  # words per block of the kernel's offset scan
 
@@ -34,29 +53,40 @@ def huffman_decode_plain(words, symlen, tables: DeviceTables, *, l_max: int,
     )
 
 
+def _check_decode_args(name: str, words, tables: DeviceTables,
+                       l_max: int) -> None:
+    """The checks K1 and K6 share: int64 words [W] and int32 tables for
+    ``l_max``, on the words' CUDA device."""
+    dev = words.device
+    if words.dtype != torch.int64 or words.ndim != 1:
+        raise TypeError(f"{name} takes int64 words [W], got {words.dtype} "
+                        f"{tuple(words.shape)}")
+    if not 1 <= l_max <= 16 or tables.dec_limit.shape[0] != l_max:
+        raise ValueError(f"tables do not match l_max={l_max}")
+    parts = (tables.dec_limit, tables.dec_first, tables.dec_rank,
+             tables.dec_syms)
+    if any(t.device != dev for t in parts):
+        raise ValueError(f"{name} inputs must share one CUDA device")
+    if any(t.dtype != torch.int32 for t in parts):
+        raise TypeError(f"{name} decode tables must be int32")
+
+
 def symlen_decode_cuda(words, symlen, tables: DeviceTables, *, l_max: int,
                        max_symlen: int, num_symbols: int) -> torch.Tensor:
     """Launch K1 on CUDA tensors: words int64[W] (uint64 bit patterns),
     symlen uint8[W] -> dense uint8[num_symbols]."""
     dev = words.device
-    if words.dtype != torch.int64 or symlen.dtype != torch.uint8:
+    _check_decode_args("symlen_decode", words, tables, l_max)
+    if symlen.dtype != torch.uint8:
         raise TypeError(
             f"symlen_decode takes int64 words and uint8 symlen, got "
             f"{words.dtype} and {symlen.dtype}"
         )
-    if words.ndim != 1 or symlen.shape != words.shape:
+    if symlen.shape != words.shape or symlen.device != dev:
         raise ValueError(
-            f"words {tuple(words.shape)} and symlen {tuple(symlen.shape)} "
-            "must be matching 1-D arrays"
+            f"symlen {tuple(symlen.shape)} on {symlen.device} does not match "
+            f"words {tuple(words.shape)} on {dev}"
         )
-    if not 1 <= l_max <= 16 or tables.dec_limit.shape[0] != l_max:
-        raise ValueError(f"tables do not match l_max={l_max}")
-    parts = (symlen, tables.dec_limit, tables.dec_first, tables.dec_rank,
-             tables.dec_syms)
-    if any(t.device != dev for t in parts):
-        raise ValueError("symlen_decode inputs must share one CUDA device")
-    if any(t.dtype != torch.int32 for t in parts[1:]):
-        raise TypeError("symlen_decode decode tables must be int32")
     words = words.contiguous()
     symlen = symlen.contiguous()
     n = words.shape[0]
@@ -88,3 +118,62 @@ def huffman_decode_dense(words, symlen, tables: DeviceTables, *, l_max: int,
     if ops.is_cuda(words):
         return symlen_decode_cuda(words, symlen, tables, **kw)
     return huffman_decode_plain(words, symlen, tables, **kw)
+
+
+# ---------------------------------------------------------------------------
+# K6: the slot-major tile.
+# ---------------------------------------------------------------------------
+def huffman_decode_tile_plain(words, tables: DeviceTables, *, l_max: int,
+                              max_symlen: int) -> torch.Tensor:
+    """The plain version of K6 (runs on any device)."""
+    return decode_tile(
+        words, tables.dec_limit, tables.dec_first, tables.dec_rank,
+        tables.dec_syms, l_max=l_max, max_symlen=max_symlen,
+    )
+
+
+def symlen_tile_cuda(words, tables: DeviceTables, *, l_max: int,
+                     max_symlen: int) -> torch.Tensor:
+    """Launch K6 on CUDA tensors: words int64[W] (uint64 bit patterns) ->
+    int32[max_symlen, W]."""
+    dev = words.device
+    _check_decode_args("symlen_tile", words, tables, l_max)
+    words = words.contiguous()
+    n = words.shape[0]
+    out = torch.empty(max_symlen, n, dtype=torch.int32, device=dev)
+    if n == 0 or max_symlen == 0:
+        return out  # nothing to launch
+    ops.launch(
+        "symlen_tile", "fptc_symlen_tile", dev,
+        words.data_ptr(), n, tables.dec_limit.contiguous().data_ptr(),
+        tables.dec_first.contiguous().data_ptr(),
+        tables.dec_rank.contiguous().data_ptr(),
+        tables.dec_syms.contiguous().data_ptr(), l_max, max_symlen,
+        out.data_ptr(),
+    )
+    return out
+
+
+def huffman_decode_tile(words, tables: DeviceTables, *, l_max: int,
+                        max_symlen: int) -> torch.Tensor:
+    """Decode every slot of every word: words int64[W] (the uint64 words'
+    bit patterns) -> the slot-major tile int32[max_symlen, W].
+
+    Slot ``j`` of word ``w`` is ``tile[j, w]``; slots past a word's symlen
+    and padding words decode whatever bits are left (the contract of the
+    reference's tile, which its tests compare whole).  ``max_symlen`` is at
+    most 64, the symbols a 64-bit word can hold.
+    """
+    if not 0 <= max_symlen <= 64:
+        raise ValueError(f"max_symlen must be in [0, 64], got {max_symlen}")
+    kw = dict(l_max=l_max, max_symlen=max_symlen)
+    if ops.is_cuda(words):
+        return symlen_tile_cuda(words, tables, **kw)
+    return huffman_decode_tile_plain(words, tables, **kw)
+
+
+def huffman_decode_padded(words, tables: DeviceTables, *, l_max: int,
+                          max_symlen: int) -> torch.Tensor:
+    """Word-major view of :func:`huffman_decode_tile`: [W, max_symlen]."""
+    return huffman_decode_tile(words, tables, l_max=l_max,
+                               max_symlen=max_symlen).T

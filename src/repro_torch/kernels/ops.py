@@ -47,15 +47,18 @@ _I32_MAX = np.iinfo(np.int32).max
 # one counter per CUDA kernel, counted in :func:`launch` only:
 # symlen_decode (K1, and K2's first stage), v3_unpredict and lut_idct (K2's
 # stages after K1), idct_dequant (K3), encode_levels and symlen_pack (K4's
-# two stages), and dct_quant (K5)
+# two stages), encode_levels_gather (K4's first stage reading its rows
+# through a GatherStage), dct_quant (K5) and symlen_tile (K6)
 LAUNCHES: Dict[str, int] = {
     "symlen_decode": 0,
     "v3_unpredict": 0,
     "lut_idct": 0,
     "idct_dequant": 0,
     "encode_levels": 0,
+    "encode_levels_gather": 0,
     "symlen_pack": 0,
     "dct_quant": 0,
+    "symlen_tile": 0,
 }
 
 
@@ -121,8 +124,11 @@ _SIGNATURES = {
     "fptc_dct_quant": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "fptc_encode_levels": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                            _I, _I, _P, _P, _P, _P, _P, _P],
+    "fptc_encode_levels_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                                  _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "fptc_symlen_pack": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
                          _P, _P, _P, _P, _P, _P],
+    "fptc_symlen_tile": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
 }
 
 _lib_lock = threading.Lock()

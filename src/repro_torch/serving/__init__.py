@@ -16,9 +16,21 @@ from repro_torch.serving.batch_encode import (
 )
 from repro_torch.serving.engine import (
     BucketScheduler,
+    GatherStage,
     PipelineExecutor,
     SubmitBuffer,
     resolve_device,
+)
+from repro_torch.serving.quarantine import (
+    PoisonedContainerError,
+    validate_container,
+    validate_or_poison,
+)
+from repro_torch.serving.transcode import (
+    TranscodePlan,
+    Transcoder,
+    TranscoderStats,
+    default_transcoder,
 )
 from repro_torch.tuning.policy import HALF_OCTAVE, P2, BucketPolicy
 
@@ -35,7 +47,15 @@ __all__ = [
     "EncodePlan",
     "default_encoder",
     "DEFAULT_CHUNK_SIZE",
+    "Transcoder",
+    "TranscoderStats",
+    "TranscodePlan",
+    "default_transcoder",
+    "PoisonedContainerError",
+    "validate_container",
+    "validate_or_poison",
     "BucketScheduler",
+    "GatherStage",
     "PipelineExecutor",
     "SubmitBuffer",
     "resolve_device",

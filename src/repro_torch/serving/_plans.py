@@ -1,14 +1,17 @@
 """Shared LRU plan cache for the serving engines (port of
 ``repro/serving/_plans.py``).
 
-The decode engine memoizes device-resident per-(domain, config) state —
-decode plans (tables, iDCT basis, dequant LUT) — keyed by (tables
-identity, plan_key, device).  Keying by ``id(tables)`` is safe only because
-each plan keeps its source :class:`DomainTables` alive (the ``source``
-field), so an id can never be reused while its cache entry exists.
+The engines memoize device-resident per-(domain, config) state — decode
+plans (tables, iDCT basis, dequant LUT), encode plans (tables, DCT basis)
+and the transcoder's (source, target) pairings of the two — keyed by
+(tables identity, plan_key, device).  Keying by ``id(tables)`` is safe only
+because each plan keeps its source :class:`DomainTables` alive (the
+``source`` field; a :class:`TranscodePlan` through its two sub-plans), so
+an id can never be reused while its cache entry exists.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 from collections import OrderedDict
 from typing import Any, Callable, Tuple, TypeVar
@@ -32,6 +35,24 @@ def normalize_plan_key(key) -> PlanKey:
     if len(key) != 5:
         raise ValueError(f"malformed plan key {key!r}")
     return key[:4] + (tuple(key[4]),)
+
+
+@dataclasses.dataclass(frozen=True)
+class TranscodePlan:
+    """Device-resident state for one (source, target) transcode pairing.
+
+    Pairs the source's :class:`~repro_torch.serving.batch_decode.DecodePlan`
+    and the target's :class:`~repro_torch.serving.batch_encode.EncodePlan`
+    under one cache key, so a transcode route resolves both halves in one
+    LRU lookup.  The sub-plans come from (and stay shared with) the
+    decoder's and encoder's own caches, so a transcoder never duplicates
+    device buffers the engines already hold.
+    """
+
+    decode: object  # DecodePlan for the source (domain, config)
+    encode: object  # EncodePlan for the target (domain, config)
+    src_key: PlanKey
+    dst_key: PlanKey
 
 
 class PlanCache:
@@ -60,7 +81,12 @@ class PlanCache:
         self.coalesced = 0  # gets served by waiting on another thread's build
 
     def get(self, tables, key, device: Any = None) -> Plan:
-        cache_key = (id(tables), key, str(device))
+        """The plan for ``(tables, key, device)``, built on a miss.
+        ``tables`` may be one object or a tuple of them (the transcode
+        pairing); identity keying covers every element."""
+        ident = (tuple(id(t) for t in tables) if isinstance(tables, tuple)
+                 else id(tables))
+        cache_key = (ident, key, str(device))
         waited = False
         while True:
             with self._lock:

@@ -17,8 +17,9 @@ Port of ``repro/serving/batch_decode.py``.
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel wrapper takes its plain version.
 The reference's ``use_kernels`` switch is gone: the tensors' device picks
-the arm.  Quarantine (the serving front-end's poison isolation) waits for
-the front-end slice of the port.
+the arm.  ``decode(..., quarantine=True)`` is the serving contract
+(:mod:`repro_torch.serving.quarantine`): a poisoned container is excluded
+from its bucket and its typed error rides the batch.
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ from repro_torch.serving.engine import (
     fetch_to_host,
     member_positions,
     p2,
+    putter,
     resolve_device,
     symlen_bucket,
 )
@@ -103,10 +105,11 @@ def _build_decode_plan(tables: DomainTables, key, device) -> DecodePlan:
     # the LUT is computed once on the host and uploaded, so every device
     # dequantizes from the same float values
     lut, _ = quant_grid(tables.quant)
+    put = putter(device)
     return DecodePlan(
         tables=tables.device_tables(device),
-        basis=dct.idct_basis(n, e, device=device),
-        lut=lut.to(device),
+        basis=put(dct.idct_basis(n, e)),
+        lut=put(lut),
         n=n,
         e=e,
         l_max=l_max,
@@ -178,11 +181,19 @@ class DecodedBatch:
     d2h copy starts before any is read, then the windows are sliced back to
     per-container signals (input order preserved).  A second ``to_host()``
     raises.
+
+    A quarantined decode carries a ``poisoned`` record per excluded
+    container: its slice is None, ``to_host()`` returns the typed
+    :class:`~repro_torch.serving.quarantine.PoisonedContainerError` at that
+    position, and ``device_signal(i)`` raises it.
     """
 
-    def __init__(self, groups: List[torch.Tensor], slices: List[_Slice]):
+    def __init__(self, groups: List[torch.Tensor],
+                 slices: List[Optional[_Slice]], *,
+                 poisoned: Optional[Dict[int, Exception]] = None):
         self._groups = groups  # per group: f32[num_windows_p, N]
         self._slices = slices
+        self._poisoned: Dict[int, Exception] = dict(poisoned or {})
         self._drained = False
 
     def __len__(self) -> int:
@@ -198,18 +209,24 @@ class DecodedBatch:
         if self._drained:
             raise RuntimeError("DecodedBatch was drained by to_host()")
         s = self._slices[i]
+        if s is None:
+            raise self._poisoned[i]
         rows = self._groups[s.group][s.win_off:s.win_off + s.num_windows]
         return rows.reshape(-1)[: s.signal_length]
 
-    def to_host(self) -> List[np.ndarray]:
-        """Drain the batch: per container, its float32 samples."""
+    def to_host(self) -> List[Any]:
+        """Drain the batch: per container, its float32 samples (or, at a
+        quarantined position, its typed error)."""
         if self._drained:
             raise RuntimeError("DecodedBatch.to_host() may be called once")
         self._drained = True
         host = fetch_to_host(self._groups)
         self._groups = []  # release the device buffers
-        out: List[np.ndarray] = []
-        for s in self._slices:
+        out: List[Any] = []
+        for i, s in enumerate(self._slices):
+            if s is None:
+                out.append(self._poisoned[i])
+                continue
             rows = host[s.group][s.win_off:s.win_off + s.num_windows]
             out.append(rows.reshape(-1)[: s.signal_length].copy())
         return out
@@ -324,6 +341,7 @@ def streams_from_containers(
 @dataclasses.dataclass
 class BatchDecoderStats:
     dispatches: int = 0  # bucket decodes launched
+    quarantined: int = 0  # containers poisoned out of quarantine=True batches
     plan_hits: int = 0
     plan_misses: int = 0
     # per-dispatch padding/occupancy records (bounded history)
@@ -379,10 +397,12 @@ class BatchDecoder:
         """Containers submitted since the last flush."""
         return len(self._pending)
 
-    def flush(self, tables: TablesArg) -> DecodedBatch:
+    def flush(self, tables: TablesArg, *,
+              quarantine: bool = False) -> DecodedBatch:
         """Decode everything submitted since the last flush as one batch
         (submission order).  An empty flush is a no-op empty batch."""
-        return self.decode(self._pending.take(), tables)
+        return self.decode(self._pending.take(), tables,
+                           quarantine=quarantine)
 
     # -- plan management ------------------------------------------------------
     @staticmethod
@@ -441,14 +461,41 @@ class BatchDecoder:
 
     # -- the batched decode -----------------------------------------------------
     def decode(
-        self, containers: Sequence[Container], tables: TablesArg
+        self, containers: Sequence[Any], tables: TablesArg, *,
+        quarantine: bool = False,
     ) -> DecodedBatch:
         """Decode a (possibly mixed-domain, mixed-length) batch of
         containers.  Returns a :class:`DecodedBatch`; nothing is synced to
-        the host here."""
+        the host here.
+
+        ``quarantine=True`` is the serving contract: items may be raw bytes
+        or parsed :class:`Container` objects, each is wire-format and deep
+        validated against ``tables`` before staging, and a poisoned item is
+        excluded from its bucket instead of raising batch-wide — the clean
+        ones decode exactly as in a clean batch and the poisoned slot's
+        :class:`~repro_torch.serving.quarantine.PoisonedContainerError`
+        rides the batch.  Without quarantine every item must be a
+        :class:`Container` and any fault raises (the offline contract).
+        """
         containers = list(containers)
+        total = len(containers)
+        poisoned: Dict[int, Exception] = {}
+        clean_pos = list(range(total))
+        if quarantine:
+            from repro_torch.serving.quarantine import validate_or_poison
+
+            clean_pos, clean = [], []
+            for i, item in enumerate(containers):
+                c, err = validate_or_poison(item, i, tables)
+                if err is not None:
+                    poisoned[i] = err
+                else:
+                    clean_pos.append(i)
+                    clean.append(c)
+            self.stats.quarantined += len(poisoned)
+            containers = clean
         if not containers:
-            return DecodedBatch([], [])
+            return DecodedBatch([], [None] * total, poisoned=poisoned)
         if isinstance(tables, DomainTables):
             # a single DomainTables means "decode everything with these" —
             # only coherent for a single-domain batch
@@ -474,8 +521,10 @@ class BatchDecoder:
         batch = self.decode_streams(lazy, tables)
         # decode_streams orders slices by (group, member); restore the
         # caller's container order
-        slices = [batch._slices[member_pos[i]] for i in range(len(containers))]
-        return DecodedBatch(batch._groups, slices)
+        slices: List[Optional[_Slice]] = [None] * total
+        for j, i in enumerate(clean_pos):
+            slices[i] = batch._slices[member_pos[j]]
+        return DecodedBatch(batch._groups, slices, poisoned=poisoned)
 
     def decode_streams(
         self,

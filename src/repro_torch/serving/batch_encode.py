@@ -21,12 +21,15 @@ stays ``core.codec.encode``, sequential by design):
     per-row histogram-gap flags are checked too.
 
 Each bucket is one K4 encode (``kernels.encode_fused``: ``encode_levels``
-then ``symlen_pack``) on the card; the fixed-rate mode is one K5
-(``kernels.dct_quant``).  The engine runs on the card unless the caller
+then ``symlen_pack``) on the card; a bucket staged as a
+:class:`~repro_torch.serving.engine.GatherStage` (the transcoder's path)
+reads its rows straight out of a flat device tensor
+(``encode_levels_gather`` then ``symlen_pack``); the fixed-rate mode is one
+K5 (``kernels.dct_quant``).  The engine runs on the card unless the caller
 asks for the CPU (``device="cpu"``), where every kernel wrapper takes its
-plain version; there is no ``use_kernels`` switch.  Device-resident
-staging (the reference's ``GatherStage``) comes with the transcode port,
-the serving quarantine with the front-end's.
+plain version; there is no ``use_kernels`` switch.  ``quarantine=True``
+demotes the device-side histogram-gap flag from batch-fatal to a typed
+per-signal outcome at the drain.
 """
 from __future__ import annotations
 
@@ -51,7 +54,8 @@ from repro_torch.core import dct, symlen
 from repro_torch.core.calibration import DeviceTables, DomainTables
 from repro_torch.core.container import Container
 from repro_torch.kernels.dct_quant import dct_quant
-from repro_torch.kernels.encode_fused import encode_fused
+from repro_torch.kernels.encode_fused import encode_fused, encode_fused_gather
+from repro_torch.kernels.encode_fused import gather_rows as _gather_rows_math
 from repro_torch.serving._plans import (
     TRIVIAL_CODING,
     PlanCache,
@@ -60,11 +64,13 @@ from repro_torch.serving._plans import (
 from repro_torch.serving.engine import (
     Bucket,
     BucketScheduler,
+    GatherStage,
     PipelineExecutor,
     SubmitBuffer,
     Upload,
     fetch_to_host,
     fetch_to_host_stitched,
+    putter,
     resolve_device,
 )
 from repro_torch.tuning.policy import PolicyArg
@@ -118,7 +124,7 @@ def _build_encode_plan(tables: DomainTables, key, device) -> EncodePlan:
     domain_id, n, e, l_max, coding = normalize_plan_key(key)
     return EncodePlan(
         tables=tables.device_tables(device),
-        basis=dct.dct_basis(n, e, device=device),
+        basis=putter(device)(dct.dct_basis(n, e)),
         n=n,
         e=e,
         l_max=l_max,
@@ -159,6 +165,32 @@ def _encode_bucket_math(
     return encode_fused(
         signals, counts, tables, basis, n=n, e=e, chunk_size=chunk_size,
         check_gaps=check_gaps, coding=coding,
+    )
+
+
+def _encode_bucket_gather_math(
+    flat: torch.Tensor,  # f32[T + width] (flattened decoded windows)
+    starts: torch.Tensor,  # int32[K] first-sample offset per row
+    lens: torch.Tensor,  # int32[K] true sample count per row
+    counts: torch.Tensor,
+    tables: DeviceTables,
+    basis: torch.Tensor,
+    *,
+    width: int,
+    n: int,
+    e: int,
+    chunk_size: int,
+    check_gaps: bool,
+    coding: Tuple[int, int, bool] = TRIVIAL_CODING,
+):
+    """:func:`_encode_bucket_math` of the rows ``_gather_rows_math(flat,
+    starts, lens, width)`` describes (row ``r`` is ``flat[starts[r]:
+    starts[r] + lens[r]]``, exact zero past ``lens[r]``).  On the card the
+    gather runs inside the bucket encode (``encode_levels_gather``): the
+    signal matrix is never materialized."""
+    return encode_fused_gather(
+        flat, starts, lens, counts, tables, basis, width=width, n=n, e=e,
+        chunk_size=chunk_size, check_gaps=check_gaps, coding=coding,
     )
 
 
@@ -221,54 +253,137 @@ class EncodedBucketParts:
     zrow: Optional[torch.Tensor] = None  # bool[K, Wp] (v3 zero planes)
     zcol: Optional[torch.Tensor] = None  # bool[K, e] (v3 zero planes)
 
+    @property
+    def chunk_size(self) -> int:
+        return int(self.hi.shape[2])
+
+
+def _gap_error(key) -> ValueError:
+    return ValueError(
+        f"encode batch for plan_key (domain_id, n, e, l_max, coding)={key} "
+        "produced symbol(s) with no codeword (histogram gap in the Huffman "
+        "book) — the stream would decode to garbage; recalibrate with "
+        "Laplace smoothing or a complete codebook"
+    )
+
 
 class EncodedBatch:
     """Result of :meth:`BatchEncoder.encode` — device-resident streams.
 
-    ``to_host()`` performs the only host sync: a histogram-gap check runs
-    first, then every bucket's d2h copies start before any is read and the
-    per-signal :class:`Container`\\ s are stitched (input order preserved).
-    A batch drains **once**: a second ``to_host()`` raises.
+    ``to_host()`` performs the only host sync: the histogram-gap flags are
+    checked first, then every bucket's d2h copies start before any is read
+    and the per-signal :class:`Container`\\ s are stitched (input order
+    preserved).
+
+    A batch drains **once**.  A second ``to_host()`` — or any drain after
+    the device buffers were handed to a :class:`~repro_torch.serving.
+    transcode.Transcoder` — raises instead of silently re-syncing.
+    Device-resident consumers read :meth:`device_parts` /
+    :meth:`signal_slices` instead of draining.  ``pending_flags`` are
+    histogram-gap flags inherited from upstream device stages (a
+    transcode's source batch), checked at the drain like the batch's own.
+    A quarantined batch (``poisoned`` records, ``quarantine=True``) returns
+    a typed per-signal error at each poisoned position.
     """
 
-    def __init__(self, buckets: List[EncodedBucketParts],
-                 slices: List[_Slice]):
+    def __init__(
+        self,
+        buckets: List[EncodedBucketParts],
+        slices: List[Optional[_Slice]],
+        pending_flags: Sequence[Tuple[tuple, torch.Tensor]] = (),
+        *,
+        poisoned: Optional[Dict[int, Exception]] = None,
+        quarantine: bool = False,
+    ):
         self._buckets = buckets
         self._slices = slices
-        self._drained = False
+        self._pending_flags = list(pending_flags)
+        # signals excluded before encoding (slice None at their index)
+        self._poisoned: Dict[int, Exception] = dict(poisoned or {})
+        self._quarantine = bool(quarantine)
+        self._consumed: Optional[str] = None
 
     def __len__(self) -> int:
         return len(self._slices)
 
-    def to_host(self) -> List[Container]:
+    def device_parts(self) -> List[EncodedBucketParts]:
+        """The per-bucket chunk parts as device tensors — no host sync."""
+        self._check_live("read device parts of")
+        return list(self._buckets)
+
+    def signal_slices(self) -> List[Optional[_Slice]]:
+        """Per-signal (input order) location and header fields: which
+        bucket/row holds signal i's chunk parts, plus its container header
+        fields (num_windows, signal_length, n, e, l_max, domain_id,
+        coding)."""
+        return list(self._slices)
+
+    def _check_live(self, verb: str) -> None:
+        if self._consumed is not None:
+            raise RuntimeError(
+                f"cannot {verb} this EncodedBatch: {self._consumed}"
+            )
+
+    def _mark_consumed(self, reason: str) -> None:
+        """Hand the batch to a device-resident consumer: later reads and
+        drains raise with ``reason``, and the batch drops its references to
+        the device buffers."""
+        self._check_live("consume")
+        self._consumed = reason
+        self._buckets = []
+
+    def to_host(self) -> List[Any]:
         """Drain the batch into containers: all d2h copies in flight
         together, then a host stitch of each signal's chunk word runs
         (chunk b of a row contributes its first ``wpc[row, b]`` words),
-        bucket k's stitch overlapping bucket k+1's copies.  A histogram
-        gap in any row raises ``ValueError`` for the whole batch and leaves
-        it drainable (a retry raises the same error)."""
-        if self._drained:
-            raise RuntimeError(
-                "this EncodedBatch was already drained by to_host() — hold "
-                "on to the returned containers instead of draining twice"
-            )
-        flags = fetch_to_host([p.unencodable for p in self._buckets])
-        for p, bad in zip(self._buckets, flags):
+        bucket k's stitch overlapping bucket k+1's copies.
+
+        A histogram gap raises ``ValueError`` for the whole batch and
+        leaves it drainable (a retry raises the same error) — except under
+        quarantine, where a flagged row becomes a
+        :class:`~repro_torch.serving.quarantine.PoisonedContainerError` at
+        its position and every other row drains as in a clean run.
+        Upstream flags have no row-to-signal mapping here, so they stay
+        batch-fatal even under quarantine."""
+        self._check_live("drain")
+        flags = fetch_to_host([f for _, f in self._pending_flags]
+                              + [p.unencodable for p in self._buckets])
+        npend = len(self._pending_flags)
+        for (key, _), bad in zip(self._pending_flags, flags[:npend]):
             if bool(np.any(bad)):
-                raise ValueError(
-                    f"encode batch for plan_key "
-                    f"(domain_id, n, e, l_max, coding)={p.plan_key} produced "
-                    "symbol(s) with no codeword (histogram gap in the "
-                    "Huffman book) — the stream would decode to garbage; "
-                    "recalibrate with Laplace smoothing or a complete "
-                    "codebook"
-                )
+                raise _gap_error(key)
+        bucket_bad = flags[npend:]
+        poisoned: Dict[int, Exception] = dict(self._poisoned)
+        if self._quarantine:
+            from repro_torch.serving.quarantine import (
+                FAULT_HISTOGRAM_GAP,
+                PoisonedContainerError,
+            )
+
+            for i, s in enumerate(self._slices):
+                if s is None or i in poisoned:
+                    continue
+                if bool(bucket_bad[s.bucket][s.row]):
+                    poisoned[i] = PoisonedContainerError(
+                        "signal quantizes to symbol(s) with no codeword "
+                        "(histogram gap in the Huffman book) under "
+                        f"plan_key (domain_id, n, e, l_max, coding)="
+                        f"{self._buckets[s.bucket].plan_key} — recalibrate "
+                        "with Laplace smoothing or a complete codebook",
+                        index=i,
+                        fault=FAULT_HISTOGRAM_GAP,
+                    )
+        else:
+            for p, bad in zip(self._buckets, bucket_bad):
+                if bool(np.any(bad)):
+                    raise _gap_error(p.plan_key)
 
         per_bucket: List[List[Tuple[int, _Slice]]] = [
             [] for _ in self._buckets
         ]
         for i, s in enumerate(self._slices):
-            per_bucket[s.bucket].append((i, s))
+            if s is not None and i not in poisoned:
+                per_bucket[s.bucket].append((i, s))
 
         def stitch_bucket(b: int, host: List[np.ndarray]):
             hi, lo, sl, wpc = host[:4]
@@ -322,9 +437,14 @@ class EncodedBatch:
         results = fetch_to_host_stitched(
             [drain_tensors(p) for p in self._buckets], stitch_bucket,
         )
-        self._drained = True
+        self._consumed = (
+            "it was already drained by to_host() — hold on to the returned "
+            "containers instead of draining twice"
+        )
         self._buckets = []  # release the device buffers
         out: List[Any] = [None] * len(self._slices)
+        for i, err in poisoned.items():
+            out[i] = err
         for stitched in results:
             for i, c in stitched:
                 out[i] = c
@@ -408,7 +528,8 @@ class BatchEncoder:
         """Signals submitted since the last flush."""
         return len(self._pending)
 
-    def flush(self, tables: TablesArg) -> EncodedBatch:
+    def flush(self, tables: TablesArg, *,
+              quarantine: bool = False) -> EncodedBatch:
         """Encode everything submitted since the last flush as one batch
         (submission order).  An empty flush is a no-op empty batch."""
         items = self._pending.take()
@@ -427,7 +548,8 @@ class BatchEncoder:
             ]
         else:
             domain_ids = doms
-        return self.encode(signals, tables, domain_ids=domain_ids)
+        return self.encode(signals, tables, domain_ids=domain_ids,
+                           quarantine=quarantine)
 
     # -- plan management ------------------------------------------------------
     @staticmethod
@@ -478,13 +600,15 @@ class BatchEncoder:
         tables: TablesArg,
         *,
         domain_ids: Optional[Sequence[int]] = None,
+        quarantine: bool = False,
     ) -> EncodedBatch:
         """Encode a (possibly mixed-domain, mixed-length) batch of signals.
 
         ``domain_ids`` assigns each signal its domain when ``tables`` is a
         mapping; with a single :class:`DomainTables` every signal uses it.
         Returns an :class:`EncodedBatch`; nothing is synced to the host
-        here.
+        here.  ``quarantine=True`` demotes the device-side histogram-gap
+        flag from batch-fatal to a typed per-signal outcome at the drain.
         """
         signals = [np.asarray(s, dtype=np.float32).ravel() for s in signals]
 
@@ -497,7 +621,7 @@ class BatchEncoder:
 
         return self.encode_staged(
             [int(s.shape[0]) for s in signals], tables,
-            domain_ids=domain_ids, stage=stage,
+            domain_ids=domain_ids, stage=stage, quarantine=quarantine,
         )
 
     def encode_staged(
@@ -507,6 +631,8 @@ class BatchEncoder:
         *,
         stage: StageFn,
         domain_ids: Optional[Sequence[int]] = None,
+        pending_flags: Sequence[Tuple[tuple, torch.Tensor]] = (),
+        quarantine: bool = False,
     ) -> EncodedBatch:
         """The bucketing/dispatch core of :meth:`encode`, with the signal
         *staging* pluggable.
@@ -515,15 +641,20 @@ class BatchEncoder:
         signal matrix ``f32[kp, wp * n]`` — row ``r`` holds signal
         ``idxs[r]``'s samples followed by exact zeros, rows past
         ``len(idxs)`` all-zero — as a numpy array, a host tensor or a
-        tensor already on ``device``.  Under pipelining it runs on the
-        executor's staging worker, one bucket ahead of dispatch.
-        Grouping, padding, chunk-size selection, the bucket encode and the
-        slice metadata are this one code path.
+        tensor already on ``device``; **or** a :class:`GatherStage`
+        describing the rows as runs of a flat tensor on ``device``, gathered
+        inside the bucket encode (the transcoder's path).  Under pipelining
+        it runs on the executor's staging worker, one bucket ahead of
+        dispatch.  Grouping, padding, chunk-size selection, the bucket
+        encode and the slice metadata are this one code path, which is what
+        makes device-staged encodes byte-identical to host-staged ones.
+        ``pending_flags`` (plan key, device flag) ride the batch to its
+        drain (a transcode's inherited histogram-gap flags).
         """
         self.stats.batches += 1
         self.stats.signals += len(lengths)
         if not lengths:
-            return EncodedBatch([], [])
+            return EncodedBatch([], [], pending_flags, quarantine=quarantine)
         if domain_ids is None:
             if not isinstance(tables, DomainTables):
                 raise ValueError(
@@ -582,27 +713,48 @@ class BatchEncoder:
             # plan prefetch: the staging worker pays the tables/basis upload
             self._plans.get(per_tab[bucket.key], plan_key, self.device)
             x = stage(idxs, kp, wp, n, self.device)
-            return kp, self.executor.put([x, counts])
+            if isinstance(x, GatherStage):
+                return kp, x, self.executor.put([x.starts, x.lens, counts])
+            return kp, None, self.executor.put([x, counts])
 
         def dispatch(bucket: Bucket, staged) -> EncodedBucketParts:
-            kp, up = staged
-            x, counts = up.wait()
+            kp, gather, up = staged
             plan_key, wp = bucket.key
             plan = self._plans.get(per_tab[bucket.key], plan_key, self.device)
             n, e = plan.n, plan.e
-            if tuple(x.shape) != (kp, wp * n) or x.dtype != torch.float32:
-                raise ValueError(
-                    f"stage returned {x.dtype} {tuple(x.shape)}, expected "
-                    f"float32 {(kp, wp * n)}"
-                )
             coding = plan.coding
             sp = wp * e
             chunk = sp if self.chunk_size is None else min(self.chunk_size,
                                                             sp)
-            out = _encode_bucket_math(
-                x, counts, plan.tables, plan.basis, n=n, e=e,
-                chunk_size=chunk, check_gaps=plan.has_gaps, coding=coding,
-            )
+            kw = dict(n=n, e=e, chunk_size=chunk, check_gaps=plan.has_gaps,
+                      coding=coding)
+            if gather is not None:
+                starts, lens, counts = up.wait()
+                flat = gather.flat
+                if gather.last_use:  # the stage's reference goes with it
+                    gather.flat = None
+                if flat is None or flat.device != self.device or (
+                    flat.dtype != torch.float32 or flat.dim() != 1
+                ) or tuple(starts.shape) != (kp,):
+                    raise ValueError(
+                        "GatherStage needs a flat float32 tensor on "
+                        f"{self.device} and {kp} starts/lens"
+                    )
+                out = _encode_bucket_gather_math(
+                    flat, starts.to(torch.int32), lens.to(torch.int32),
+                    counts, plan.tables, plan.basis, width=wp * n, **kw,
+                )
+            else:
+                x, counts = up.wait()
+                if tuple(x.shape) != (kp, wp * n) or (
+                    x.dtype != torch.float32
+                ):
+                    raise ValueError(
+                        f"stage returned {x.dtype} {tuple(x.shape)}, "
+                        f"expected float32 {(kp, wp * n)}"
+                    )
+                out = _encode_bucket_math(x, counts, plan.tables, plan.basis,
+                                          **kw)
             if coding == TRIVIAL_CODING:
                 hi, lo, sl, wpc, bad = out
                 ncoded = zrow = zcol = None
@@ -627,7 +779,8 @@ class BatchEncoder:
         out_buckets = self.executor.run(buckets, upload, dispatch)
         self.stats.plan_hits = self._plans.hits
         self.stats.plan_misses = self._plans.misses
-        return EncodedBatch(out_buckets, slices)
+        return EncodedBatch(out_buckets, slices, pending_flags,
+                            quarantine=quarantine)
 
     def encode_to_host(
         self,

@@ -15,6 +15,11 @@ pipelined execution on one device.  Port of ``repro/serving/engine.py``.
   * :func:`fetch_to_host` — the drain: every d2h copy starts (into pinned
     buffers) before any is read; :func:`fetch_to_host_stitched` overlaps a
     per-bucket host stitch with the later buckets' copies.
+  * :class:`GatherStage` — the staging contract for device-resident encode
+    staging: a bucket's rows as runs of a flat device tensor, gathered
+    inside the bucket's encode (the transcoder's path).
+  * :func:`putter` — the one placement idiom: host data to an explicit
+    device without a host sync.
 
 Pipelining changes *when* buckets run — never what they produce.
 """
@@ -55,6 +60,8 @@ __all__ = [
     "ExecutorStats",
     "fetch_to_host",
     "fetch_to_host_stitched",
+    "GatherStage",
+    "putter",
 ]
 
 MAX_SYMLEN_CAP = 64  # a 64-bit word holds at most 64 one-bit codes
@@ -93,6 +100,47 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def putter(device) -> Callable[[Any], torch.Tensor]:
+    """The engines' placement idiom for one explicit device: a numpy array
+    or host tensor goes to ``device`` (on CUDA through pinned memory, a
+    ``non_blocking`` copy on the current stream, so placing never waits on
+    the device); a tensor already there passes through."""
+    dev = torch.device(device)
+
+    def put(x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor) and x.device == dev:
+            return x
+        host = _host_tensor(x)
+        if dev.type != "cuda":
+            return host
+        if not host.is_pinned():
+            host = host.pin_memory()
+        return host.to(dev, non_blocking=True)
+
+    return put
+
+
+@dataclasses.dataclass
+class GatherStage:
+    """Stage an encode bucket by gathering its rows inside the bucket's
+    encode (``encode_levels_gather`` on the card).
+
+    Row ``r`` covers samples ``[starts[r], starts[r] + lens[r])`` of the
+    flat device tensor ``flat`` and is exact zero past ``lens[r]``; rows
+    past the real signals have ``lens == 0``.  ``flat`` carries at least
+    the bucket width of trailing zeros past every start (the plain gather
+    reads that far).  ``last_use`` marks the bucket as ``flat``'s last
+    reader: the encoder drops the stage's reference once that bucket is
+    launched, so the buffer returns to the allocator without waiting for
+    the batch — PyTorch's stand-in for the reference's buffer donation.
+    """
+
+    flat: Optional[torch.Tensor]  # f32[T + width] on the device
+    starts: Any  # int32[K]
+    lens: Any  # int32[K]
+    last_use: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

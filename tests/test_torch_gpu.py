@@ -1,6 +1,6 @@
 """The CUDA kernels on the card, each against its plain PyTorch version on
-the same inputs, and the batched decode and encode engines on the card
-against themselves on the CPU.  Every test is marked ``gpu`` and skips where there is no card;
+the same inputs, and the batched decode and encode engines and the
+transcoder on the card against themselves on the CPU.  Every test is marked ``gpu`` and skips where there is no card;
 on the card run ``python -m pytest -m gpu tests/test_torch_*.py``.
 
 This file imports neither JAX nor the reference package, so it runs where
@@ -22,7 +22,11 @@ from repro_torch.core import DOMAIN_DEFAULTS, calibrate, codec, dct
 from repro_torch.core.container import Container
 from repro_torch.core.huffman import build_codebook, codebook_from_lengths
 from repro_torch.core.quantize import quant_grid
-from repro_torch.core.symlen import pack_symlen_np, v3_expand_index
+from repro_torch.core.symlen import (
+    compact_padded_scatter,
+    pack_symlen_np,
+    v3_expand_index,
+)
 from repro_torch.data import make_signal
 from repro_torch.kernels import dct_quant as dq
 from repro_torch.kernels import decode_fused as df
@@ -30,7 +34,7 @@ from repro_torch.kernels import encode_fused as ef
 from repro_torch.kernels import huffman_decode as hd
 from repro_torch.kernels import idct_dequant as idq
 from repro_torch.kernels import ops
-from repro_torch.serving import BatchDecoder, BatchEncoder
+from repro_torch.serving import BatchDecoder, BatchEncoder, Transcoder
 from repro_torch.serving.engine import p2, symlen_bucket
 
 pytestmark = pytest.mark.gpu
@@ -104,6 +108,102 @@ def test_k1_kernel_matches_plain(cuda, l_max):
     assert not got[syms.size:].any()
 
 
+@pytest.mark.parametrize("l_max", [8, 12, 16])
+def test_k6_kernel_matches_plain(cuda, l_max):
+    """The whole tile (slots past each word's symlen and zero padding words
+    included) equals the plain version; compacted, K1's dense output."""
+    rng = np.random.default_rng(100 + l_max)
+    hist = (2.0 ** rng.uniform(0, 20, 256)).astype(np.int64) + 1
+    book = build_codebook(hist, l_max=l_max)
+    syms = rng.choice(256, size=30001, p=hist / hist.sum()).astype(np.uint8)
+    stream = pack_symlen_np(syms, book)
+    wp = p2(stream.num_words) + 77
+    words = np.zeros(wp, np.uint64)
+    words[:stream.num_words] = stream.words
+    sl = np.zeros(wp, np.uint8)
+    sl[:stream.num_words] = stream.symlen
+    from repro_torch.core.calibration import DomainTables
+    from repro_torch.core.config import CodecConfig
+    from repro_torch.core.quantize import quant_table_from_arrays
+
+    tables = DomainTables(
+        config=CodecConfig(n=8, e=8, b1=0, b2=8, l_max=l_max),
+        quant=quant_table_from_arrays(np.zeros(8), np.ones(8), 50.0, 0.0),
+        book=book,
+    ).device_tables(cuda)
+    w = torch.from_numpy(words.view(np.int64)).to(cuda)
+    s = torch.from_numpy(sl).to(cuda)
+    for ms in (stream.max_symlen, 64):
+        before = ops.LAUNCHES["symlen_tile"]
+        got = hd.huffman_decode_tile(w, tables, l_max=l_max, max_symlen=ms)
+        assert ops.LAUNCHES["symlen_tile"] == before + 1
+        want = hd.huffman_decode_tile_plain(w, tables, l_max=l_max,
+                                            max_symlen=ms)
+        torch.cuda.synchronize()
+        assert got.shape == (ms, wp) and torch.equal(got, want)
+        dense = compact_padded_scatter(got.T, s, syms.size + 41)
+        k1 = hd.huffman_decode_dense(w, s, tables, l_max=l_max,
+                                     max_symlen=symlen_bucket(ms),
+                                     num_symbols=syms.size + 41)
+        assert torch.equal(dense.to(torch.uint8), k1)
+        np.testing.assert_array_equal(k1[:syms.size].cpu().numpy(), syms)
+
+
+@pytest.mark.parametrize("coding", CODINGS, ids=lambda c: "-".join(
+    str(v) for v in c.values()) or "v2")
+def test_encode_levels_gather_kernel_matches_plain(cuda, coding):
+    """Rows read through (flat, starts, lens) give the levels
+    ``encode_levels`` gives on the materialized rows, bit for bit — the
+    same arithmetic on the same staged samples — with the DCT basis and
+    with the identity basis; and with the identity basis the plain
+    version's too."""
+    cfg = DOMAIN_DEFAULTS["meteorological"].replace(e=32, b2=32, **coding)
+    tab = calibrate(make_signal("temperature", 16384, seed=0), cfg)
+    lengths = (3000, 1500, 0, 4096, 701)
+    wp = p2(max(-(-m // 32) for m in lengths))
+    rng = np.random.default_rng(7)
+    runs, starts = [], []
+    off = 0
+    for r, m in enumerate(lengths):
+        run = np.concatenate([make_signal("temperature", m, seed=40 + r)
+                              if m else np.zeros(0, np.float32),
+                              rng.standard_normal(-m % 32 + 5)])
+        runs.append(run.astype(np.float32))
+        starts.append(off)
+        off += run.size
+    flat = np.concatenate(runs + [np.zeros(wp * 32, np.float32)])
+    st = torch.tensor(starts + [0], dtype=torch.int32, device=cuda)
+    ln = torch.tensor(list(lengths) + [0], dtype=torch.int32, device=cuda)
+    counts = torch.tensor([-(-m // 32) * 32 for m in lengths] + [0],
+                          dtype=torch.int32, device=cuda)
+    flat_t = torch.from_numpy(flat).to(cuda)
+    x = ef.gather_rows(flat_t, st, ln, wp * 32)
+    q = tab.device_tables(cuda).quant
+    for basis in (torch.eye(32, device=cuda),
+                  dct.dct_basis(32, 32, device=cuda)):
+        kw = dict(n=32, e=32, coding=cfg.coding)
+        before = dict(ops.LAUNCHES)
+        got = ef.encode_levels_gather(flat_t, st, ln, counts, q, basis,
+                                      width=wp * 32, **kw)
+        assert ops.LAUNCHES["encode_levels_gather"] == (
+            before["encode_levels_gather"] + 1)
+        assert ops.LAUNCHES["encode_levels"] == before["encode_levels"]
+        want = ef.encode_levels(x, counts, q, basis, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            assert g is None or (g.dtype == w.dtype and torch.equal(g, w))
+    eye = torch.eye(32, device=cuda)
+    got = ef.encode_levels_gather(flat_t, st, ln, counts, q, eye,
+                                  width=wp * 32, n=32, e=32,
+                                  coding=cfg.coding)
+    want = ef.encode_levels_gather_plain(flat_t, st, ln, counts, q, eye,
+                                         width=wp * 32, n=32, e=32,
+                                         coding=cfg.coding)
+    for g, w in zip(got, want):
+        assert g is None or torch.equal(g, w)
+
+
 @pytest.mark.parametrize("coding", CODINGS, ids=lambda c: "-".join(
     str(v) for v in c.values()) or "v2")
 def test_k2_kernel_matches_plain(cuda, coding):
@@ -139,7 +239,8 @@ def test_k2_kernel_matches_plain(cuda, coding):
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "symlen_decode": 1, "v3_unpredict": int(v3 is not None),
         "lut_idct": 1, "idct_dequant": 0, "encode_levels": 0,
-        "symlen_pack": 0, "dct_quant": 0,
+        "encode_levels_gather": 0, "symlen_pack": 0, "dct_quant": 0,
+        "symlen_tile": 0,
     }
     want = df.decode_fused_plain(*args, lut, basis, v3, n=cfg.n, **kw)
     torch.cuda.synchronize()
@@ -384,3 +485,60 @@ def test_encode_engine_on_card_matches_cpu(cuda):
     assert lv.device.type == "cuda" and lv.shape == (4, 16, 4, kv.config.e)
     assert_flip_rule(lv.cpu(), BatchEncoder(device="cpu").encode_fixed(
         x.cpu(), kv))
+
+
+# ---------------------------------------------------------------------------
+# The transcoder on the card.
+# ---------------------------------------------------------------------------
+def test_transcode_on_card_matches_round_trip(cuda):
+    """A mixed v2/v3 archive transcoded on the card, each domain to its twin
+    coding: byte for byte the card's own round trip (decode to the host,
+    then encode), with no host sync inside ``transcode()``
+    (``torch.cuda.set_sync_debug_mode("error")``), the gather kernel and no
+    dense ``encode_levels`` on the encode side; then an EncodedBatch source
+    (v2 -> v3, consumed)."""
+    specs = [("biomedical", "mitbih"), ("power", "load_power")]
+    tables, archive, dst_ids = {}, [], []
+    for j, coding in enumerate(CODINGS[:3:2]):  # v2 and v3 (delta)
+        for d, (dom, ds) in enumerate(specs):
+            did = 2 * j + d
+            tables[did] = _tables(dom, ds, coding, domain_id=did)
+    for did in range(2):
+        for i, n in enumerate((5000, 777, 33)):
+            sig = make_signal(specs[did][1], n, seed=500 + 2 * did + i)
+            for src in (did, did + 2):
+                archive.append(codec.encode(sig, tables[src]))
+                dst_ids.append(src + 2 if src < 2 else src - 2)
+    dec, enc = BatchDecoder(), BatchEncoder()
+    tc = Transcoder(decoder=dec, encoder=enc)
+    want = enc.encode(dec.decode(archive, tables).to_host(), tables,
+                      domain_ids=dst_ids).to_host()
+    tc.transcode(archive, tables, tables, dst_domain_ids=dst_ids).to_host()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    buckets = enc.stats.dispatches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch = tc.transcode(archive, tables, tables, dst_domain_ids=dst_ids)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = batch.to_host()
+    assert [g.to_bytes() for g in got] == [w.to_bytes() for w in want]
+    assert ops.LAUNCHES["encode_levels"] == 0
+    buckets = enc.stats.dispatches - buckets
+    assert buckets >= len(tables)
+    assert ops.LAUNCHES["encode_levels_gather"] == buckets
+    assert ops.LAUNCHES["symlen_pack"] == ops.LAUNCHES["encode_levels_gather"]
+    assert ops.LAUNCHES["symlen_decode"] == len(tables)
+    # an EncodedBatch source: v2 -> v3 without a drain
+    sigs = [make_signal("load_power", n, seed=600 + i)
+            for i, n in enumerate((4096, 1000))]
+    src = enc.encode(sigs, tables[1])
+    drained = enc.encode(sigs, tables[1]).to_host()
+    out = tc.transcode(src, tables[1], tables[3]).to_host()
+    assert [o.to_bytes() for o in out] == [
+        o.to_bytes() for o in tc.transcode(drained, tables[1],
+                                           tables[3]).to_host()]
+    with pytest.raises(RuntimeError, match="donated"):
+        src.to_host()
+    tc.close()

@@ -16,7 +16,14 @@ decode arms, which cannot run on this JAX (ROADMAP queue 3, R1):
     ``exact=True`` arm in interpret mode;
   * K4 (``encode_fused``): every output (words, sidecars, word counts, gap
     flags, v3 counts and masks) exactly equal to the Pallas kernel in
-    interpret mode and to the reference's ``_encode_bucket_math``.
+    interpret mode and to the reference's ``_encode_bucket_math``; its
+    gather arm (``encode_levels_gather``, the transcoder's) exactly equal
+    to the reference's ``_encode_bucket_gather_math``, and the gather
+    itself to ``_gather_rows_math``;
+  * K6 (``huffman_decode_tile``): the whole slot-major tile — slots past a
+    word's symlen and padding words included — exactly equal to the
+    reference's Pallas tile kernel in interpret mode (the one Pallas decode
+    arm this JAX still runs), and compacted, to ``unpack_symlen``.
 
 The CUDA kernels against these plain versions, on the card:
 ``tests/test_torch_gpu.py``.
@@ -49,9 +56,16 @@ from repro.kernels.encode_fused import encode_fused as ref_pallas_encode
 from repro.kernels.idct_dequant import idct_dequant as ref_pallas_idct
 from repro.kernels.ref import idct_dequant_ref
 from repro.serving.batch_decode import _decode_bucket_math
+from repro.kernels.huffman_decode import (
+    huffman_decode_tile as ref_pallas_tile,
+)
+from repro.serving.batch_encode import (
+    _encode_bucket_gather_math as ref_encode_bucket_gather_math,
+)
 from repro.serving.batch_encode import (
     _encode_bucket_math as ref_encode_bucket_math,
 )
+from repro.serving.batch_encode import _gather_rows_math as ref_gather_rows
 from repro_torch.core import dct, quantize, symlen
 from repro_torch.core.calibration import tables_from_arrays
 from repro_torch.core.huffman import codebook_from_lengths
@@ -61,6 +75,11 @@ from repro_torch.kernels import encode_fused as ef
 from repro_torch.kernels import huffman_decode as hd
 from repro_torch.kernels import idct_dequant as idq
 from repro_torch.kernels import ops
+from repro_torch.serving.batch_encode import (
+    _encode_bucket_gather_math,
+    _encode_bucket_math,
+    _gather_rows_math,
+)
 from repro_torch.serving.engine import p2, symlen_bucket
 
 REL_TOL = 1e-5
@@ -364,6 +383,7 @@ K4_CODINGS = [
     dict(predictor="linear2", predict_bands=3, zero_planes=False),
 ]
 K4_WINDOWS = 32  # Wp: every row's bucket width (N = 32 samples a window)
+K4_LENGTHS = (1000, 701, 1024, 0)  # the rows' true samples (the last pads)
 
 
 def _k4_case(coding, gaps=False):
@@ -379,7 +399,7 @@ def _k4_case(coding, gaps=False):
         book = ref_huffman.build_codebook(hist, l_max=v2.config.l_max)
         ref_tables = dataclasses.replace(ref_tables, book=book)
     cfg = ref_tables.config
-    lengths = (1000, 701, 1024, 0)
+    lengths = K4_LENGTHS
     sig = np.zeros((len(lengths), K4_WINDOWS * cfg.n), np.float32)
     for r, n in enumerate(lengths[:3]):
         sig[r, :n] = make_signal("temperature", n, seed=60 + r)
@@ -476,6 +496,177 @@ def test_k4_exact_chunk_equals_host_packer():
             host.words)
         np.testing.assert_array_equal(sl[r, 0, :w].numpy(), host.symlen)
         assert not hi[r, 0, w:].any() and not sl[r, 0, w:].any()
+
+
+# ---------------------------------------------------------------------------
+# K6: the slot-major decode tile.
+# ---------------------------------------------------------------------------
+def _ref_tile(hi, lo, book, *, max_symlen, block_words):
+    """The reference's Pallas tile kernel in interpret mode."""
+    return np.asarray(ref_pallas_tile(
+        jnp.asarray(hi), jnp.asarray(lo),
+        jnp.asarray(book.limit_shifted[1:], jnp.uint32),
+        jnp.asarray(book.first_code_shifted, jnp.uint32),
+        jnp.asarray(book.rank_offset, jnp.int32),
+        jnp.asarray(book.sorted_symbols, jnp.int32),
+        l_max=book.l_max, max_symlen=max_symlen, block_words=block_words,
+        interpret=True,
+    ))
+
+
+def _check_tile(words, sl, syms, book, *, max_symlen, block_words):
+    hi, lo = ref_symlen.words_to_u32(words)
+    want = _ref_tile(hi, lo, book, max_symlen=max_symlen,
+                     block_words=block_words)
+    tables = carry_book(book).device_tables("cpu")
+    w = torch.from_numpy(words.view(np.int64))
+    before = dict(ops.LAUNCHES)
+    tile = hd.huffman_decode_tile(w, tables, l_max=book.l_max,
+                                  max_symlen=max_symlen)
+    assert ops.LAUNCHES == before  # CPU tensors take the plain version
+    assert tile.dtype == torch.int32 and tile.shape == (max_symlen,
+                                                        words.size)
+    np.testing.assert_array_equal(tile.numpy(), want)  # the WHOLE tile
+    np.testing.assert_array_equal(
+        hd.huffman_decode_padded(w, tables, l_max=book.l_max,
+                                 max_symlen=max_symlen).numpy(), want.T)
+    # compacted: the dense stream of unpack_symlen, and the symbols
+    sl_t = torch.from_numpy(sl.astype(np.int32))
+    dense = symlen.compact_padded_scatter(tile.T, sl_t, syms.size)
+    np.testing.assert_array_equal(dense.numpy().astype(np.uint8), syms)
+    np.testing.assert_array_equal(
+        dense.numpy().astype(np.uint8),
+        hd.huffman_decode_dense(w, torch.from_numpy(sl.astype(np.uint8)),
+                                tables, l_max=book.l_max,
+                                max_symlen=max_symlen,
+                                num_symbols=syms.size).numpy())
+
+
+@pytest.mark.parametrize("l_max", [8, 12])
+@pytest.mark.parametrize("n_syms", [100, 4096, 7000])
+def test_k6_plain_matches_pallas_tile(l_max, n_syms):
+    """The cases of ``tests/test_kernels.py``'s tile test, plus zero padding
+    words past the stream (their slots decode too)."""
+    rng = np.random.default_rng(l_max * 1000 + n_syms)
+    syms = np.clip(rng.zipf(1.4, n_syms), 0, 255).astype(np.uint8)
+    freqs = np.bincount(syms, minlength=256).astype(np.int64) + 1
+    book = ref_huffman.build_codebook(freqs, l_max=l_max)
+    stream = ref_symlen.pack_symlen_np(syms, book)
+    words = np.concatenate([stream.words, np.zeros(37, np.uint64)])
+    sl = np.concatenate([stream.symlen, np.zeros(37, np.uint8)])
+    _check_tile(words, sl, syms, book, max_symlen=stream.max_symlen,
+                block_words=128)
+
+
+@pytest.mark.parametrize("seed,num_symbols,chunk,l_max", [
+    (10, 2000, 64, 12),
+    (11, 63, 7, 8),
+    (12, 4096, 1024, 16),
+    (13, 1, 1, 9),
+    (14, 500, 501, 10),
+])
+def test_k6_plain_matches_pallas_tile_on_chunked_streams(seed, num_symbols,
+                                                         chunk, l_max):
+    """The pinned pack cases of ``tests/test_properties.py``: a chunked
+    stream (the reference's XLA packer) decoded by the tile, whole."""
+    rng = np.random.default_rng(seed)
+    raw = rng.zipf(1.3, max(num_symbols, 1))[:num_symbols]
+    syms = np.clip(raw, 0, 255).astype(np.uint8)
+    freqs = np.bincount(syms, minlength=256).astype(np.int64) + 1
+    book = ref_huffman.build_codebook(freqs, l_max=l_max)
+    hi, lo, sl, nw = ref_symlen.pack_symlen_chunked(
+        jnp.asarray(syms), jnp.asarray(book.codes, jnp.uint32),
+        jnp.asarray(book.lengths, jnp.int32), chunk_size=chunk)
+    nw = int(nw)
+    words = ref_symlen.u32_to_words(np.asarray(hi[:nw]), np.asarray(lo[:nw]))
+    sl = np.asarray(sl[:nw])
+    _check_tile(words, sl, syms, book, max_symlen=max(int(sl.max()), 1),
+                block_words=64)
+
+
+def test_k6_guards():
+    book = _k1_case(8)[0]
+    tables = carry_book(book).device_tables("cpu")
+    w = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="max_symlen"):
+        hd.huffman_decode_tile(w, tables, l_max=8, max_symlen=65)
+    assert hd.huffman_decode_tile(w, tables, l_max=8,
+                                  max_symlen=0).shape == (0, 4)
+    with pytest.raises(ValueError, match="device"):
+        hd.huffman_decode_tile(w.to("meta"), tables, l_max=8, max_symlen=8)
+
+
+# ---------------------------------------------------------------------------
+# K4's gather arm: rows as runs of a flat sample tensor.
+# ---------------------------------------------------------------------------
+def _gather_case(sig, n, width, seed=0):
+    """K4 bucket rows laid out as runs of a flat tensor, as the transcoder
+    flattens decoded windows: row r's run is its true samples followed by
+    foreign data up to its window boundary (not zeros), the flat tensor is
+    padded by ``width``, and (starts, lens) describe the rows — the padding
+    row is (0, 0)."""
+    rng = np.random.default_rng(seed)
+    lens = K4_LENGTHS
+    runs = []
+    for r, m in enumerate(lens):
+        run = sig[r, :-(-m // n) * n].copy()
+        run[m:] = rng.standard_normal(run.size - m)
+        runs.append(run)
+    starts = np.cumsum([0] + [r.size for r in runs[:-1]])
+    flat = np.concatenate(runs + [np.zeros(width, np.float32)])
+    st = np.where(np.array(lens) > 0, starts, 0).astype(np.int32)
+    return flat.astype(np.float32), st, np.array(lens, np.int32)
+
+
+def test_gather_rows_matches_reference():
+    ref_tables, sig, counts = _k4_case(K4_CODINGS[0])
+    cfg = ref_tables.config
+    width = K4_WINDOWS * cfg.n
+    flat, st, ln = _gather_case(sig, cfg.n, width)
+    want = np.asarray(ref_gather_rows(jnp.asarray(flat), jnp.asarray(st),
+                                      jnp.asarray(ln), width))
+    got = _gather_rows_math(torch.from_numpy(flat), torch.from_numpy(st),
+                            torch.from_numpy(ln), width)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # past lens the row is exact zero, though the flat tensor is not
+    assert not got[1, 701:].any() and not got[3].any()
+    assert flat[st[1] + 701:st[1] + 710].any()
+
+
+@pytest.mark.parametrize("coding", K4_CODINGS[:2], ids=["v2", "v3"])
+def test_k4_gather_arm_matches_reference(coding):
+    """On the K4 case's rows, the gathered bucket encode equals the
+    reference's gather arm, and the port's own dense arm on the gathered
+    matrix."""
+    ref_tables, sig, counts = _k4_case(coding)
+    cfg = ref_tables.config
+    width = K4_WINDOWS * cfg.n
+    flat, st, ln = _gather_case(sig, cfg.n, width)
+    kw = dict(n=cfg.n, e=cfg.e, chunk_size=64, check_gaps=False,
+              coding=cfg.coding)
+    want = _ref_outputs(ref_encode_bucket_gather_math(
+        jnp.asarray(flat), jnp.asarray(st), jnp.asarray(ln),
+        jnp.asarray(counts), ref_tables.device_tables(), width=width, **kw))
+    t = carry(ref_tables).device_tables("cpu")
+    basis = dct.dct_basis(cfg.n, cfg.e)
+    args = (torch.from_numpy(flat), torch.from_numpy(st),
+            torch.from_numpy(ln))
+    got = list(_encode_bucket_gather_math(*args, torch.from_numpy(counts), t,
+                                          basis, width=width, **kw))
+    dense = list(_encode_bucket_math(_gather_rows_math(*args, width),
+                                     torch.from_numpy(counts), t, basis,
+                                     **kw))
+    if cfg.coding != (0, 0, False) and not cfg.zero_planes:
+        want[6:] = [None, None]
+    assert_k4_equal(got, want)
+    for g, d in zip(got, dense):
+        assert (g is None and d is None) or torch.equal(g, d)
+    levels = ef.encode_levels_gather(*args, torch.from_numpy(counts),
+                                     t.quant, basis, width=width, n=cfg.n,
+                                     e=cfg.e, coding=cfg.coding)
+    assert torch.equal(levels[0], ef.encode_levels_plain(
+        _gather_rows_math(*args, width), torch.from_numpy(counts), t.quant,
+        basis, n=cfg.n, e=cfg.e, coding=cfg.coding)[0])
 
 
 # ---------------------------------------------------------------------------
