@@ -21,7 +21,10 @@ Run from the root of a checkout; it builds the CUDA kernels from
   4. check  — every CUDA kernel against its plain PyTorch version on the
      card, at the main paths' shapes: K1's symbols and the v3 stage's levels
      exactly, the LUT-iDCT's and K3's floats within ``max|d| <= 1e-5 *
-     max|plain|``; then K2 as a whole (its three kernels in a row).  The
+     max|plain|``; then K2 as a whole (its three kernels in a row); the
+     v3 stage also on one full-size synthetic bucket per archive v3 width
+     (2**20 windows, linear2, 2 and all bands predicted) whose segments
+     stress its tiled scan (``adversarial_v3``), exactly.  The
      encode kernels at one archive bucket per plan key (128 rows of 2**18
      samples) and K5 on the KV block: with an identity basis (the
      coefficients are the inputs) ``encode_levels``' and ``dct_quant``'s
@@ -199,6 +202,41 @@ def container_levels(c, tab):
     return quantize.unpredict_levels(
         grid, torch.from_numpy(seg), c.coding[0], c.coding[1]
     ).numpy().astype(np.int64)
+
+
+def adversarial_v3(num_windows: int, e: int, tile: int, seed: int):
+    """A synthetic v3 bucket for K2's v3 stage: (dense u8, idx i32[W * e],
+    seg i32[W]) with every segment layout that stresses a tiled scan — 4
+    tiles of single-window segments, one segment across 64 tiles, 16 tiles
+    each with heads on, one before and one after every tile's first window,
+    then random lengths (1 window to 3 tiles, every 4th 8192 windows, the
+    archive's signal), and 1000 trailing padding windows; about 15% of the
+    live cells suppressed (idx -1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pad = 1000
+    live = num_windows - pad
+    head = np.zeros(num_windows, dtype=bool)
+    head[:4 * tile] = True  # singles
+    head[4 * tile] = True  # one segment over tiles 4-67
+    for i, shift in enumerate((0, -1, 1)):  # heads on / before / after
+        lo = (68 + 16 * i) * tile
+        head[lo] = True
+        head[lo + tile + shift:lo + 16 * tile:tile] = True
+    lens = rng.integers(1, 3 * tile, size=live // tile + 1)
+    lens[::4] = 8192
+    starts = 116 * tile + np.cumsum(np.concatenate([[0], lens]))
+    head[starts[starts < live]] = True
+    head[live:] = True  # padding: single-window segments
+    seg = np.maximum.accumulate(
+        np.where(head, np.arange(num_windows), 0)).astype(np.int32)
+    coded = rng.random((num_windows, e)) >= 0.15
+    coded[live:] = False
+    flat = coded.ravel()
+    idx = np.where(flat, np.cumsum(flat) - 1, -1).astype(np.int32)
+    dense = rng.integers(0, 256, size=int(flat.sum()), dtype=np.uint8)
+    return dense, idx, seg
 
 
 def outputs_equal(got, want) -> bool:
@@ -396,6 +434,21 @@ def main() -> None:
               f"LUT-iDCT differs from plain: {cl}")
         check(c2["levels_equal"] and c2["finite"]
               and c2["rel_err"] <= REL_TOL, f"K2 differs from plain: {c2}")
+    # the v3 stage on one full-size synthetic bucket per archive v3 width:
+    # 2**20 windows, linear2, the archive's 2 predicted bands and all e
+    for e in sorted({k[2] for k in keys if tuple(k[4]) != (0, 0, False)}):
+        adv = [torch.from_numpy(a).cuda() for a in adversarial_v3(
+            1 << 20, e, df.v3_tile_windows(e), seed=args.seed + e)]
+        for bands in (2, e):
+            v3_kw = dict(num_windows=1 << 20, e=e, pred_id=2, bands=bands)
+            un = df.v3_expand_unpredict_cuda(*adv, **v3_kw)
+            unp = df.v3_expand_unpredict_plain(*adv, **v3_kw)
+            cv = {"plan_key": f"adversarial e={e} linear2 bands={bands}",
+                  "equal": bool(torch.equal(un, unp)),
+                  "max_abs_err": int_err(un, unp)}
+            checks["v3_unpredict"].append(cv)
+            check(cv["equal"], f"v3 levels differ from plain: {cv}")
+        del adv, un, unp
     kv_flat = kv_levels.reshape(-1, 16)
     kv_q = kv_tab.device_tables("cuda").quant
     kv_basis = dct.idct_basis(16, 16, device="cuda")

@@ -32,6 +32,7 @@ __all__ = [
     "bucket_levels_plain",
     "v3_expand_unpredict_cuda",
     "v3_expand_unpredict_plain",
+    "v3_tile_windows",
     "lut_idct",
     "lut_idct_plain",
     "decode_fused",
@@ -78,14 +79,27 @@ def v3_expand_unpredict_plain(dense, idx, seg, *, num_windows: int, e: int,
     return unpredict_levels(grid, seg, pred_id, bands)
 
 
+def v3_tile_windows(e: int) -> int:
+    """Windows per tile of the v3 stage's kernel for ``e`` bands: a
+    multiple of 256 (the scan's rounds), about 8 KiB of levels a tile, at
+    most 1024 windows."""
+    if not 1 <= e <= 128:
+        raise ValueError(f"the v3 stage takes 1 <= e <= 128 bands, got {e}")
+    return 256 * min(4, max(1, 8192 // (256 * e)))
+
+
 def v3_expand_unpredict_cuda(dense, idx, seg, *, num_windows: int, e: int,
                              pred_id: int, bands: int) -> torch.Tensor:
     """Launch K2's v3 stage on CUDA tensors: dense coded symbols uint8,
     idx int32[num_windows * e], seg int32[num_windows] -> uint8 levels
     ``[num_windows, e]``."""
     dev = dense.device
+    if dense.dtype != torch.uint8 or dense.dim() != 1:
+        raise TypeError("v3 dense symbols must be a flat uint8 tensor")
     if idx.dtype != torch.int32 or seg.dtype != torch.int32:
         raise TypeError("v3 idx/seg must be int32")
+    if not 0 <= bands <= e:
+        raise ValueError(f"predict_bands {bands} is not in [0, {e}]")
     if idx.shape != (num_windows * e,) or seg.shape != (num_windows,):
         raise ValueError(
             f"v3 idx {tuple(idx.shape)} / seg {tuple(seg.shape)} do not "
@@ -93,13 +107,20 @@ def v3_expand_unpredict_cuda(dense, idx, seg, *, num_windows: int, e: int,
         )
     if idx.device != dev or seg.device != dev:
         raise ValueError("v3 inputs must share the levels' CUDA device")
+    tile = v3_tile_windows(e)
+    dense = dense.contiguous()
     idx = idx.contiguous()
+    if idx.data_ptr() % 16:  # the kernel reads idx 16 bytes at a time
+        idx = idx.clone()
     seg = seg.contiguous()
     grid = torch.empty(num_windows * e, dtype=torch.uint8, device=dev)
+    tiles = -(-num_windows // tile)
+    scratch = torch.empty(tiles * (bands + 1), dtype=torch.int32, device=dev)
     ops.launch(
         "v3_unpredict", "fptc_v3_expand_unpredict", dev,
         dense.data_ptr(), dense.shape[0], idx.data_ptr(), seg.data_ptr(),
-        num_windows, e, bands, pred_id, grid.data_ptr(),
+        num_windows, e, bands, pred_id, tile, grid.data_ptr(),
+        scratch.data_ptr(),
     )
     return grid.reshape(num_windows, e)
 

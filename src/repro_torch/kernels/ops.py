@@ -118,7 +118,8 @@ _I = ctypes.c_int64
 _SIGNATURES = {
     "fptc_symlen_decode": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
                            _P],
-    "fptc_v3_expand_unpredict": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    "fptc_v3_expand_unpredict": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                 _P],
     "fptc_lut_idct": [_P, _I, _I, _I, _P, _P, _P, _P],
     "fptc_idct_dequant": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "fptc_dct_quant": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],

@@ -36,6 +36,7 @@ from repro_torch.kernels import idct_dequant as idq
 from repro_torch.kernels import ops
 from repro_torch.serving import BatchDecoder, BatchEncoder, Transcoder
 from repro_torch.serving.engine import p2, symlen_bucket
+from _v3_layouts import LAYOUTS, v3_stage_case
 
 pytestmark = pytest.mark.gpu
 
@@ -248,6 +249,28 @@ def test_k2_kernel_matches_plain(cuda, coding):
     assert_close(got, want)
 
 
+@pytest.mark.parametrize("e", [6, 32])
+@pytest.mark.parametrize("bands", ["1", "2", "e"])
+@pytest.mark.parametrize("pred_id", [1, 2])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_v3_stage_kernel_matches_plain(cuda, layout, pred_id, bands, e):
+    """K2's v3 stage on adversarial segment layouts (tests/_v3_layouts.py):
+    single windows, one segment across every tile, heads on, one before
+    and one after a tile's first window, random lengths; trailing padding
+    and a ragged last tile.  Levels must be equal."""
+    dense, idx, seg, nw = v3_stage_case(layout, e, df.v3_tile_windows(e),
+                                        seed=e)
+    kw = dict(num_windows=nw, e=e, pred_id=pred_id,
+              bands=e if bands == "e" else int(bands))
+    args = [torch.from_numpy(a).to(cuda) for a in (dense, idx, seg)]
+    before = ops.LAUNCHES["v3_unpredict"]
+    got = df.v3_expand_unpredict_cuda(*args, **kw)
+    assert ops.LAUNCHES["v3_unpredict"] == before + 1
+    want = df.v3_expand_unpredict_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("domain,n_windows", [("kv", 4099), ("seismic", 333)])
 def test_k3_kernel_matches_plain(cuda, domain, n_windows):
     tab = _tables(domain, "mitbih", {})
@@ -280,6 +303,18 @@ def test_wrappers_check_their_inputs(cuda):
         df.lut_idct(torch.zeros(4, 6, dtype=torch.int32, device=cuda),
                     torch.zeros(6, 256, device=cuda),
                     torch.zeros(6, 32, device=cuda))
+    dense = torch.zeros(8, dtype=torch.uint8, device=cuda)
+    idx = torch.zeros(4 * 6, dtype=torch.int32, device=cuda)
+    seg = torch.arange(4, dtype=torch.int32, device=cuda)
+    v3_kw = dict(num_windows=4, e=6, pred_id=2)
+    with pytest.raises(TypeError, match="flat uint8"):
+        df.v3_expand_unpredict_cuda(dense.int(), idx, seg, bands=2, **v3_kw)
+    with pytest.raises(ValueError, match="predict_bands"):
+        df.v3_expand_unpredict_cuda(dense, idx, seg, bands=7, **v3_kw)
+    with pytest.raises(ValueError, match="1 <= e <= 128"):
+        df.v3_expand_unpredict_cuda(
+            dense, torch.zeros(4 * 129, dtype=torch.int32, device=cuda), seg,
+            num_windows=4, e=129, pred_id=2, bands=2)
 
 
 def test_engine_on_card_matches_cpu(cuda):

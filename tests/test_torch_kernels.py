@@ -8,7 +8,9 @@ decode arms, which cannot run on this JAX (ROADMAP queue 3, R1):
     ``repro.core.symlen.unpack_symlen`` and ``unpack_symlen_np``;
   * K2 (``decode_fused``): levels exactly equal, floats within
     ``max|d| <= 1e-5 * max|ref|`` of ``_decode_bucket_math(use_kernels=
-    False)``;
+    False)``; its v3 stage alone exactly equal to ``expand_coded_stream``
+    + ``unpredict_levels`` on the adversarial segment layouts of
+    ``tests/_v3_layouts.py``;
   * K3 (``idct_dequant``): within ``1e-5 * max|ref|`` of
     ``kernels/ref.py::idct_dequant_ref`` and of the Pallas kernel in
     interpret mode;
@@ -81,6 +83,7 @@ from repro_torch.serving.batch_encode import (
     _gather_rows_math,
 )
 from repro_torch.serving.engine import p2, symlen_bucket
+from _v3_layouts import LAYOUTS, v3_stage_case
 
 REL_TOL = 1e-5
 
@@ -304,6 +307,38 @@ def test_k2_plain_matches_xla_arm(coding):
     assert ops.LAUNCHES == before
     assert got.dtype == torch.float32
     assert_close(got.numpy(), ref)  # every row, padding windows included
+
+
+@pytest.mark.parametrize("bands", ["1", "2", "e"])
+@pytest.mark.parametrize("pred_id", [1, 2])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_v3_stage_plain_matches_reference(layout, pred_id, bands):
+    """K2's v3 stage (the card's kernel is held to it) against the
+    reference's expand_coded_stream + unpredict_levels, on the adversarial
+    segment layouts of tests/_v3_layouts.py at the kernel's tile size."""
+    e = 6
+    dense, idx, seg, nw = v3_stage_case(layout, e, df.v3_tile_windows(e),
+                                        seed=e)
+    nb = e if bands == "e" else int(bands)
+    grid = ref_expand(jnp.asarray(dense), jnp.asarray(idx)).reshape(nw, e)
+    want = np.asarray(ref_unpredict(grid.astype(jnp.uint32),
+                                    jnp.asarray(seg), pred_id, nb))
+    got = df.v3_expand_unpredict_plain(
+        *(torch.from_numpy(a) for a in (dense, idx, seg)), num_windows=nw,
+        e=e, pred_id=pred_id, bands=nb)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_v3_tile_windows_fit_the_kernel():
+    """The tile rule the wrapper passes to the v3 kernel meets the
+    launcher's contract for every e it takes: a multiple of 256 windows,
+    the tile and its head flags within 44 KiB of shared memory."""
+    for e in range(1, 129):
+        t = df.v3_tile_windows(e)
+        assert t % 256 == 0 and 256 <= t <= 1024 and t * (e + 1) <= 44 * 1024
+    for e in (0, 129):
+        with pytest.raises(ValueError, match="1 <= e <= 128"):
+            df.v3_tile_windows(e)
 
 
 def test_k2_v3_needs_expansion_arrays():
