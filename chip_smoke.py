@@ -31,7 +31,14 @@ Run from the root of a checkout; it builds the CUDA kernels from
      outputs exactly; with the DCT basis the flip rule — the kernels sum the
      DCT in another order than the plain cuBLAS product, so a level may
      differ by exactly 1, in at most 1e-5 of the cells, before prediction;
-     ``symlen_pack`` fed the plain grid: every output exactly;
+     ``symlen_pack`` fed the plain grid: every output exactly, and in exact
+     mode (one chunk per row) on each bucket's distinct rows, each row's
+     words and sidecar equal to the host packer ``pack_symlen_np`` of its
+     valid symbols; ``symlen_pack`` on the adversarial layouts of
+     ``tests/_pack_layouts.py`` at archive shape (128 rows x 8192 windows,
+     the archive's e by turns), at chunks 1, 63, 1000, 1024 and 4097
+     against the plain version exactly, and in exact mode (4 rows) against
+     Algorithm 1 of each row's valid symbols;
      K6's whole tile (``huffman_decode_tile``) on each archive bucket
      exactly, and compacted (``compact_padded_scatter``) equal to K1's dense
      output; ``encode_levels_gather`` on one bucket per plan key, its rows
@@ -68,7 +75,8 @@ Run from the root of a checkout; it builds the CUDA kernels from
      ``codec.transcode`` of one container against the host round trip
      ``encode(decode(c))`` where no level flipped (the flip rule above);
   9. times  — per kernel, CUDA-event ms after warm-up beside the plain
-     version's ms and the card's bound for the same work.
+     version's ms and the card's bound for the same work; ``symlen_pack``
+     also per bucket, chunked and exact.
 
 Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
 ...}``.  Any failed check exits non-zero before the last line.
@@ -239,6 +247,65 @@ def adversarial_v3(num_windows: int, e: int, tile: int, seed: int):
     return dense, idx, seg
 
 
+def valid_slots(grid, zrow, zcol, counts, coding):
+    """bool[K, Wp * E] (numpy): the slots a coding enters into the stream —
+    v2 the first ``count``, v3 the true windows less the zero planes."""
+    import numpy as np
+
+    k, wp, e = grid.shape
+    counts = np.asarray(counts, np.int64)
+    if tuple(coding) == (0, 0, False):
+        return np.arange(wp * e)[None, :] < counts[:, None]
+    valid = np.repeat((np.arange(wp)[None, :] < (counts // e)[:, None])
+                      [:, :, None], e, axis=2)
+    if zrow is not None:
+        valid &= ~np.asarray(zrow)[:, :, None] & ~np.asarray(zcol)[:, None, :]
+    return valid.reshape(k, -1)
+
+
+def host_pack(symbols, codes, lengths):
+    """Algorithm 1 over one symbol stream, a code of length 0 (a histogram
+    gap) counted in its word and emitting nothing, as the chunked pack
+    treats it: (words uint64[W], symlen int32[W])."""
+    import numpy as np
+
+    codes, lengths = list(map(int, codes)), list(map(int, lengths))
+    words, sls = [], []
+    buf = bit = cnt = 0
+    for s in symbols.tolist():
+        n = lengths[s]
+        if bit + n > 64:
+            words.append(buf)
+            sls.append(cnt)
+            buf = bit = cnt = 0
+        if n:
+            buf |= codes[s] << (64 - bit - n)
+        bit += n
+        cnt += 1
+    if cnt:
+        words.append(buf)
+        sls.append(cnt)
+    return np.array(words, np.uint64), np.array(sls, np.int32)
+
+
+def exact_rows_equal(parts, want) -> bool:
+    """Exact-mode parts ``(hi, lo, symlen, wpc, bad)`` with one chunk per
+    row against per-row ``(words, symlen)``: the words, the sidecar, and
+    zeros past them."""
+    import numpy as np
+
+    hi, lo, sl, wpc = (t.cpu().numpy() for t in parts[:4])
+    for r, (words, sls) in enumerate(want):
+        w = int(wpc[r, 0])
+        got = (hi[r, 0].view(np.uint32).astype(np.uint64) << np.uint64(32)
+               | lo[r, 0].view(np.uint32).astype(np.uint64))
+        if not (w == words.size and np.array_equal(got[:w], words)
+                and np.array_equal(sl[r, 0, :w], sls)
+                and not got[w:].any() and not sl[r, 0, w:].any()):
+            return False
+    return True
+
+
 def outputs_equal(got, want) -> bool:
     """Tuples of tensors (or None) equal element for element."""
     import torch
@@ -296,6 +363,11 @@ def main() -> None:
         streams_from_containers,
     )
     from repro_torch.serving.engine import symlen_bucket
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _pack_layouts import CHUNKS as PACK_CHUNKS
+    from _pack_layouts import LAYOUTS as PACK_LAYOUTS
+    from _pack_layouts import pack_case
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -516,17 +588,70 @@ def main() -> None:
               "max_abs_err": fl["max_abs_err"], "flip_rule": fl["ok"],
               "clean_rows_equal": rows_equal,
               "clean_rows": int(clean.sum())}
-        cp = {"plan_key": key, "equal": outputs_equal(pk, pkp),
+        # exact mode (one chunk per row) on the bucket's distinct rows
+        # against the host packer of each row's valid symbols
+        gx = [t if t is None else t[:distinct] for t in gp[:3]]
+        px = ef.symlen_pack(*gx, counts[:distinct], p.tables.codes,
+                            p.tables.lengths, chunk_size=gx[0].shape[1] * p.e,
+                            coding=p.coding, check_gaps=p.has_gaps)
+        gxh = [t if t is None else t.cpu().numpy() for t in gx]
+        vx = valid_slots(*gxh, counts[:distinct].cpu().numpy(), p.coding)
+        host_rows = []
+        for r in range(distinct):
+            ps = symlen.pack_symlen_np(gxh[0][r].ravel()[vx[r]],
+                                       tables[b["did"]].book)
+            host_rows.append((ps.words, ps.symlen))
+        equal = outputs_equal(pk, pkp)
+        cp = {"plan_key": key, "equal": equal,
               "chunks": int(pk[3].numel()),
-              "words": int(pk[3].sum()), "max_abs_err": 0.0
-              if outputs_equal(pk, pkp) else float("inf")}
+              "words": int(pk[3].sum()),
+              "exact_rows_equal_host": exact_rows_equal(px, host_rows),
+              "max_abs_err": 0.0 if equal else float("inf")}
         checks["encode_levels"].append(ce)
         checks["symlen_pack"].append(cp)
         check(ce["identity_equal"], f"encode_levels (identity) differs: {ce}")
         check(ce["flip_rule"] and rows_equal,
               f"encode_levels breaks the flip rule: {ce}")
         check(cp["equal"], f"symlen_pack differs from plain: {cp}")
-        del gi, gip, g, gp, lk, lp, pk, pkp
+        check(cp["exact_rows_equal_host"],
+              f"exact-mode symlen_pack differs from pack_symlen_np: {cp}")
+        del gi, gip, g, gp, lk, lp, pk, pkp, px
+    # the pack on the adversarial layouts of tests/_pack_layouts.py at
+    # archive shape, the archive's e by turns
+    t1 = time.perf_counter()
+    arch_e = sorted({k[2] for k in keys})
+    for i, name in enumerate(PACK_LAYOUTS):
+        e = arch_e[i % len(arch_e)]
+        for chunk in PACK_CHUNKS:
+            case = pack_case(name, chunk, rows=128,
+                             windows=samples // keys[0][1], e=e,
+                             seed=args.seed)
+            rows = 128 if chunk is not None else distinct
+            ins = [None if case[f] is None else torch.from_numpy(
+                case[f][:rows] if f not in ("codes", "lengths") else case[f]
+            ).cuda() for f in ("grid", "zrow", "zcol", "counts", "codes",
+                               "lengths")]
+            kw = dict(chunk_size=case["chunk"], coding=case["coding"])
+            got = ef.symlen_pack(*ins, **kw)
+            if chunk is None:  # Algorithm 1 of each row's valid symbols
+                vx = valid_slots(*(None if a is None else a[:rows] for a in (
+                    case["grid"], case["zrow"], case["zcol"])),
+                    case["counts"][:rows], case["coding"])
+                flat = case["grid"][:rows].reshape(rows, -1)
+                equal = exact_rows_equal(got, [
+                    host_pack(flat[r][vx[r]], case["codes"], case["lengths"])
+                    for r in range(rows)])
+            else:
+                equal = outputs_equal(got, ef.symlen_pack_plain(*ins, **kw))
+            cp = {"plan_key": f"adversarial {name} e={e} chunk="
+                  f"{'exact' if chunk is None else chunk}", "equal": equal,
+                  "words": int(got[3].sum()),
+                  "max_abs_err": 0.0 if equal else float("inf")}
+            checks["symlen_pack"].append(cp)
+            check(equal, f"symlen_pack differs on an adversarial layout: "
+                  f"{cp}")
+            del ins, got
+    adversarial_pack_s = time.perf_counter() - t1
     # encode_levels_gather: one bucket per plan key, its rows gathered from
     # that plan key's decoded bucket (K2's windows, flattened and padded by
     # the bucket width, as the transcoder lays them out); each row is one
@@ -603,6 +728,7 @@ def main() -> None:
     check(c5["identity_equal"] and c5["flip_rule"]
           and c5["levels_equal_encode_fixed"], f"K5 differs: {c5}")
     emit({"phase": "check", "seconds": time.perf_counter() - t0,
+          "adversarial_pack_seconds": adversarial_pack_s,
           "tolerance": f"max|d| <= {REL_TOL} * max|plain|; levels with the "
           f"DCT basis: |d| <= 1 in at most {FLIP_SHARE} of the cells",
           "flips": {k: sum(c.get("flips", 0) for c in checks[k])
@@ -976,6 +1102,7 @@ def main() -> None:
     # the encode buckets: bytes each input read once and each output
     # written once; K4 as a whole counts the signal in and the parts out
     exact_ms = 0.0
+    pack_by_bucket = []
     for b in ebuckets:
         p, x, counts = b["plan"], b["x"], b["counts"]
         k, wp = x.shape[0], x.shape[1] // p.n
@@ -996,12 +1123,13 @@ def main() -> None:
                                                    **kw), reps=2),
             sig_b + grid_b + masks + small_b, fma)
         g = ef.encode_levels(x, counts, q, p.basis, **kw)
-        add("symlen_pack",
-            cuda_ms(lambda: ef.symlen_pack(*g[:3], counts, codes, lens,
-                                           **pack_kw)),
+        pack_b = grid_b + masks + 4 * k + 12 * 256 + parts_b
+        pack_ms = cuda_ms(lambda: ef.symlen_pack(*g[:3], counts, codes, lens,
+                                                 **pack_kw))
+        add("symlen_pack", pack_ms,
             cuda_ms(lambda: ef.symlen_pack_plain(*g[:3], counts, codes, lens,
                                                  **pack_kw), reps=1),
-            grid_b + masks + 4 * k + 12 * 256 + parts_b, 0.0)
+            pack_b, 0.0)
         fused_kw = dict(chunk_size=b["chunk"], check_gaps=p.has_gaps, **kw)
         add("encode_fused",
             cuda_ms(lambda: ef.encode_fused(x, counts, p.tables, p.basis,
@@ -1012,10 +1140,18 @@ def main() -> None:
             sig_b + small_b + 12 * 256 + parts_b + masks, fma)
         # exact mode (one chunk per row) on the exact run's 4-row bucket
         g4 = [t if t is None else t[:distinct] for t in g]
-        exact_ms += cuda_ms(lambda: ef.symlen_pack(
+        ex_ms = cuda_ms(lambda: ef.symlen_pack(
             *g4[:3], counts[:distinct], codes, lens,
             chunk_size=wp * p.e, coding=p.coding, check_gaps=p.has_gaps),
             reps=2)
+        exact_ms += ex_ms
+        ex_b = distinct * (wp * p.e * 13 + 4 + 1) + 12 * 256 + (
+            (distinct * wp + distinct * p.e) if p.coding[2] else 0)
+        pack_by_bucket.append({
+            "plan_key": str((p.domain_id, p.n, p.e, p.l_max, p.coding)),
+            "e": p.e, "chunks": slots // b["chunk"], "ms": pack_ms,
+            "bound_ms": bound_ms(pack_b, 0.0)[0], "exact_rows": distinct,
+            "exact_ms": ex_ms, "exact_bound_ms": bound_ms(ex_b, 0.0)[0]})
         del g, g4
     # encode_levels_gather on the gather buckets of the check phase: the
     # live samples of each row read once (the pad is never read), starts
@@ -1058,6 +1194,7 @@ def main() -> None:
           "symlen_pack_exact_ms": exact_ms,
           "symlen_pack_exact_what": "exact mode (chunk = the row's symbols), "
           f"{distinct} rows per plan key, summed over the 8 keys",
+          "symlen_pack_by_bucket": pack_by_bucket,
           **{k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
                  "bound_by": v[3]} for k, v in times.items()}})
 

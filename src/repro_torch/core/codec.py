@@ -15,6 +15,8 @@ Port of ``repro/core/codec.py``.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
 
@@ -35,6 +37,7 @@ __all__ = [
     "encode_device",
     "decode_device",
     "transcode",
+    "roundtrip_metrics",
     "validate_container_tables",
 ]
 
@@ -177,3 +180,14 @@ def transcode(
     return default_transcoder(None, device).transcode_to_host(
         [container], src_tables, dst_tables
     )[0]
+
+
+def roundtrip_metrics(
+    signal: np.ndarray, tables: DomainTables
+) -> Tuple[float, float]:
+    """(CR, PRD) of a host-path round trip — used by RD benchmarks."""
+    from repro_torch.core.metrics import prd
+
+    c = encode(signal, tables)
+    rec = decode(c, tables)
+    return c.compression_ratio, prd(signal, rec)

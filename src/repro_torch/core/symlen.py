@@ -80,6 +80,11 @@ class PackedStream:
     def max_symlen(self) -> int:
         return int(self.symlen.max()) if self.symlen.size else 0
 
+    @property
+    def payload_bytes(self) -> int:
+        # words + symlen sidecar (uint8 is sufficient: symlen <= 64)
+        return self.num_words * 8 + self.num_words
+
 
 def words_to_u32(words: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """uint64[W] -> (hi uint32[W], lo uint32[W])."""

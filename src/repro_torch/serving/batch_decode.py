@@ -58,6 +58,7 @@ from repro_torch.serving.engine import (
     PipelineExecutor,
     SubmitBuffer,
     Upload,
+    block_until_ready,
     fetch_to_host,
     member_positions,
     p2,
@@ -214,6 +215,11 @@ class DecodedBatch:
         rows = self._groups[s.group][s.win_off:s.win_off + s.num_windows]
         return rows.reshape(-1)[: s.signal_length]
 
+    def block_until_ready(self) -> "DecodedBatch":
+        """Wait until every bucket's windows are decoded; returns self."""
+        block_until_ready(self._groups)
+        return self
+
     def to_host(self) -> List[Any]:
         """Drain the batch: per container, its float32 samples (or, at a
         quarantined position, its typed error)."""
@@ -340,6 +346,8 @@ def streams_from_containers(
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class BatchDecoderStats:
+    batches: int = 0  # decode() calls
+    containers: int = 0  # items handed to decode(), poisoned ones included
     dispatches: int = 0  # bucket decodes launched
     quarantined: int = 0  # containers poisoned out of quarantine=True batches
     plan_hits: int = 0
@@ -479,6 +487,8 @@ class BatchDecoder:
         """
         containers = list(containers)
         total = len(containers)
+        self.stats.batches += 1
+        self.stats.containers += total
         poisoned: Dict[int, Exception] = {}
         clean_pos = list(range(total))
         if quarantine:
@@ -603,6 +613,12 @@ class BatchDecoder:
         self.stats.plan_hits = self._plans.hits
         self.stats.plan_misses = self._plans.misses
         return DecodedBatch(out_groups, slices)
+
+    def decode_to_host(
+        self, containers: Sequence[Container], tables: TablesArg
+    ) -> List[np.ndarray]:
+        """Convenience: decode + drain in one call."""
+        return self.decode(containers, tables).to_host()
 
     def close(self) -> None:
         """Join the executor's staging worker."""

@@ -68,6 +68,7 @@ from repro_torch.serving.engine import (
     PipelineExecutor,
     SubmitBuffer,
     Upload,
+    block_until_ready,
     fetch_to_host,
     fetch_to_host_stitched,
     putter,
@@ -257,6 +258,14 @@ class EncodedBucketParts:
     def chunk_size(self) -> int:
         return int(self.hi.shape[2])
 
+    @property
+    def num_chunks(self) -> int:
+        return int(self.hi.shape[1])
+
+    def words_per_signal(self) -> torch.Tensor:
+        """Per-row word extents int32[K], on the parts' device (no sync)."""
+        return self.words_per_chunk.sum(dim=1, dtype=torch.int32)
+
 
 def _gap_error(key) -> ValueError:
     return ValueError(
@@ -317,6 +326,11 @@ class EncodedBatch:
         fields (num_windows, signal_length, n, e, l_max, domain_id,
         coding)."""
         return list(self._slices)
+
+    def block_until_ready(self) -> "EncodedBatch":
+        """Wait until every bucket's chunk parts are packed; returns self."""
+        block_until_ready([p.words_per_chunk for p in self._buckets])
+        return self
 
     def _check_live(self, verb: str) -> None:
         if self._consumed is not None:

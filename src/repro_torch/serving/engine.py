@@ -58,6 +58,7 @@ __all__ = [
     "Upload",
     "PipelineExecutor",
     "ExecutorStats",
+    "block_until_ready",
     "fetch_to_host",
     "fetch_to_host_stitched",
     "GatherStage",
@@ -245,8 +246,12 @@ class Upload:
 
 @dataclasses.dataclass
 class ExecutorStats:
+    runs: int = 0
+    buckets: int = 0
+    pipelined_buckets: int = 0  # buckets whose upload ran on the worker
     upload_s: float = 0.0  # host staging + h2d enqueue (worker or inline)
     dispatch_s: float = 0.0  # main-thread dispatch time (kernels are async)
+    max_inflight: int = 0  # peak buckets simultaneously staged/dispatching
 
 
 class PipelineExecutor:
@@ -270,10 +275,23 @@ class PipelineExecutor:
         self._pool: Optional[ThreadPoolExecutor] = None
         self._copy_stream = None
         self._lock = threading.Lock()
+        self._inflight = 0
 
     @property
     def cuda(self) -> bool:
         return self.device.type == "cuda"
+
+    @property
+    def inflight(self) -> int:
+        """Buckets currently staged or dispatching (0 between runs)."""
+        with self._lock:
+            return self._inflight
+
+    def _inflight_add(self, delta: int) -> None:
+        with self._lock:
+            self._inflight += delta
+            if self._inflight > self.stats.max_inflight:
+                self.stats.max_inflight = self._inflight
 
     # -- staging helpers (called from upload) --------------------------------
     def host_buffer(self, size: int, dtype: torch.dtype) -> torch.Tensor:
@@ -334,6 +352,8 @@ class PipelineExecutor:
         dispatch: Callable[[Any, Any], Any],
     ) -> List[Any]:
         n = len(work)
+        self.stats.runs += 1
+        self.stats.buckets += n
         if n == 0:
             return []
 
@@ -353,9 +373,19 @@ class PipelineExecutor:
                 return dispatch(b, staged)
             finally:
                 self.stats.dispatch_s += time.perf_counter() - t0
+                self._inflight_add(-1)
 
         if not self.pipeline or n == 1:
-            return [timed_dispatch(b, timed_upload(b)) for b in work]
+            out = []
+            for b in work:
+                self._inflight_add(1)
+                try:
+                    staged = timed_upload(b)
+                except BaseException:
+                    self._inflight_add(-1)
+                    raise
+                out.append(timed_dispatch(b, staged))
+            return out
 
         pool = self._worker()
         results: List[Any] = [None] * n
@@ -363,18 +393,25 @@ class PipelineExecutor:
 
         def pop_dispatch() -> None:
             j, bj, fut = pending.popleft()
-            results[j] = timed_dispatch(bj, fut.result())
+            try:
+                staged = fut.result()
+            except BaseException:
+                self._inflight_add(-1)
+                raise
+            results[j] = timed_dispatch(bj, staged)
 
         try:
             for i, b in enumerate(work):
+                self._inflight_add(1)
                 pending.append((i, b, pool.submit(timed_upload, b)))
+                self.stats.pipelined_buckets += 1
                 if len(pending) > self.prefetch:
                     pop_dispatch()
             while pending:
                 pop_dispatch()
         finally:
             # on error, join the leftover staging futures so no upload
-            # outlives this call
+            # outlives this call, and unwind their in-flight count
             while pending:
                 _, _, fut = pending.popleft()
                 if not fut.cancel():
@@ -382,6 +419,7 @@ class PipelineExecutor:
                         fut.result()
                     except BaseException:
                         pass  # the primary exception is already in flight
+                self._inflight_add(-1)
         return results
 
 
@@ -415,6 +453,15 @@ def _start_d2h(tensors: Sequence[torch.Tensor]):
         else:
             hosts.append(t)
     return hosts, event
+
+
+def block_until_ready(tensors: Sequence[Optional[torch.Tensor]]) -> None:
+    """Wait until the device work that produces ``tensors`` has finished:
+    synchronize each CUDA device they live on (a CPU tensor is ready when
+    it is returned)."""
+    for dev in {t.device for t in tensors
+                if t is not None and t.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
 
 
 def fetch_to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple, Union
+from typing import List, Tuple, Union
 
 __all__ = ["BucketPolicy", "P2", "HALF_OCTAVE", "POLICY_NAMES", "PolicyArg"]
 
@@ -61,6 +61,26 @@ class BucketPolicy:
             if x <= edge < best:
                 best = edge
         return best
+
+    def edges(self, lo: int, hi: int) -> List[int]:
+        """Every distinct ladder edge covering sizes in ``[lo, hi]`` — the
+        bound on bucket-shape variants."""
+        lo, hi = max(int(lo), 1), max(int(hi), 1)
+        out, seen = [], set()
+        x = lo
+        while True:
+            e = self.round(x)
+            if e not in seen:
+                seen.add(e)
+                out.append(e)
+            if e >= hi:
+                break
+            x = e + 1
+        return out
+
+    def max_variants(self, lo: int, hi: int) -> int:
+        """Upper bound on distinct bucket edges for sizes in ``[lo, hi]``."""
+        return len(self.edges(lo, hi))
 
     @staticmethod
     def of(policy: PolicyArg) -> "BucketPolicy":

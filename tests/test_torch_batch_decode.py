@@ -319,3 +319,126 @@ def test_plan_cache_single_flight_under_contention():
     for k, plan in got:
         assert plans.setdefault(k, plan) is plan  # every thread shares it
     assert cache.misses == 8
+
+
+def test_decode_to_host_block_until_ready_and_stats_match_reference(
+        archive):
+    """``decode_to_host``, ``DecodedBatch.block_until_ready`` and the
+    ``batches`` / ``containers`` counters (of the decoder) and ``runs`` /
+    ``buckets`` / ``pipelined_buckets`` / ``max_inflight`` (of its
+    executor) against the reference engine's after the same calls."""
+    blobs, ref_tables, port_tables = archive
+    ref_dec = RefBatchDecoder(use_kernels=False, devices=None)
+    dec = BatchDecoder(device="cpu")
+    ref = ref_dec.decode_to_host(_ref_containers(blobs), ref_tables)
+    got = dec.decode_to_host([Container.from_bytes(b) for b in blobs],
+                             port_tables)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert_close(g, r)
+    # one container (one bucket: the serial path), then none
+    ref_b = ref_dec.decode(_ref_containers(blobs[:1]), ref_tables)
+    b = dec.decode([Container.from_bytes(blobs[0])], port_tables)
+    assert ref_b.block_until_ready() is ref_b
+    assert b.block_until_ready() is b
+    assert_close(b.to_host()[0], ref_b.to_host()[0])
+    ref_dec.decode([], ref_tables)
+    dec.decode([], port_tables)
+    for name in ("batches", "containers"):
+        assert getattr(dec.stats, name) == getattr(ref_dec.stats, name)
+    for name in ("runs", "buckets", "pipelined_buckets", "max_inflight"):
+        assert (getattr(dec.executor.stats, name)
+                == getattr(ref_dec.executor.stats, name)), name
+    assert dec.stats.batches == 3 and dec.executor.inflight == 0
+    dec.close()
+
+
+@pytest.mark.parametrize("pipeline,n,fail_at", [
+    (False, 3, None), (True, 1, None), (True, 2, None), (True, 5, None),
+    (False, 4, 2), (True, 4, 2)])
+def test_executor_inflight_and_stats_match_reference(pipeline, n, fail_at):
+    """The executor's in-flight gauge, read inside each dispatch, and its
+    counters after the run (and after an upload that raises) equal the
+    reference executor's on the same work."""
+    from repro.serving.engine import PipelineExecutor as RefExecutor
+    from repro_torch.serving.engine import PipelineExecutor
+
+    ref = RefExecutor(pipeline=pipeline, prefetch=2)
+    port = PipelineExecutor("cpu", pipeline=pipeline, prefetch=2)
+    gauges = {}
+    for ex in (ref, port):
+        seen = gauges.setdefault(id(ex), [])
+
+        def upload(b):
+            if b == fail_at:
+                raise RuntimeError("stage boom")
+            return b + 1
+
+        def dispatch(b, staged, ex=ex, seen=seen):
+            seen.append(ex.inflight)
+            return 2 * staged
+
+        if fail_at is None:
+            assert ex.run(list(range(n)), upload, dispatch) == [
+                2 * (i + 1) for i in range(n)]
+        else:
+            with pytest.raises(RuntimeError, match="stage boom"):
+                ex.run(list(range(n)), upload, dispatch)
+        assert ex.run([], upload, dispatch) == []
+        assert ex.inflight == 0
+    assert gauges[id(port)] == gauges[id(ref)]
+    for name in ("runs", "buckets", "pipelined_buckets", "max_inflight"):
+        assert getattr(port.stats, name) == getattr(ref.stats, name), name
+    port.close()
+
+
+def test_executor_inflight_gauge_under_contention():
+    """Threads running the executor at once (more than the cores) leave
+    the in-flight gauge at 0 and its peak within the threads' count: an
+    unlocked read-modify-write would lose updates here."""
+    import os
+    import sys
+    import threading
+
+    from repro_torch.serving.engine import PipelineExecutor
+
+    ex = PipelineExecutor("cpu", pipeline=False)
+    workers = 2 * (os.cpu_count() or 4)
+    errors = []
+
+    def worker():
+        try:
+            for _ in range(50):
+                ex.run(list(range(4)), lambda b: b, lambda b, s: s)
+        except Exception as exc:  # surfaced below
+            errors.append(exc)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors
+    assert ex.inflight == 0
+    assert 1 <= ex.stats.max_inflight <= workers
+
+
+def test_policy_edges_match_reference():
+    """``BucketPolicy.edges`` / ``.max_variants`` against the reference's
+    for both ladders the port has."""
+    from repro.tuning import policy as ref_policy
+    from repro_torch.tuning import policy
+
+    for name in ("p2", "half-octave"):
+        got, ref = policy.BucketPolicy.of(name), ref_policy.BucketPolicy.of(
+            name)
+        for lo, hi in ((1, 1), (0, 0), (1, 4096), (3, 3000), (1000, 1 << 20),
+                       (4097, 4097), (5, 2)):
+            assert got.edges(lo, hi) == ref.edges(lo, hi)
+            assert got.max_variants(lo, hi) == ref.max_variants(lo, hi)

@@ -219,3 +219,27 @@ def test_no_card_means_an_error(monkeypatch):
         default_encoder()
     with pytest.raises(ValueError, match="positive"):
         BatchEncoder(device="cpu", chunk_size=0)
+
+
+def test_parts_members_and_block_until_ready_match_reference(batch):
+    """``EncodedBucketParts.num_chunks`` / ``.words_per_signal()`` and
+    ``EncodedBatch.block_until_ready`` against the reference engine's on
+    the same signals."""
+    sigs, doms, ref_tables, port_tables = batch
+    ref = RefBatchEncoder(chunk_size=DEFAULT_CHUNK_SIZE, use_kernels=False,
+                          devices=None).encode(sigs, ref_tables,
+                                               domain_ids=doms)
+    got = BatchEncoder(chunk_size=DEFAULT_CHUNK_SIZE, device="cpu").encode(
+        sigs, port_tables, domain_ids=doms)
+    assert ref.block_until_ready() is ref
+    assert got.block_until_ready() is got
+    ref_parts, parts = ref.device_parts(), got.device_parts()
+    assert len(parts) == len(ref_parts) == len(ARCHIVAL) * len(CODINGS)
+    for g, r in zip(parts, ref_parts):
+        assert g.num_chunks == r.num_chunks
+        assert g.chunk_size == r.chunk_size
+        wps = g.words_per_signal()
+        assert wps.dtype == torch.int32
+        np.testing.assert_array_equal(wps.numpy(),
+                                      np.asarray(r.words_per_signal()))
+    assert max(p.num_chunks for p in parts) > 1

@@ -197,3 +197,42 @@ def test_tables_from_hist_matches_calibration():
     np.testing.assert_array_equal(again.book.codes, t.book.codes)
     np.testing.assert_array_equal(again.quant.zone.numpy(),
                                   t.quant.zone.numpy())
+
+
+@pytest.mark.parametrize("domain_key,dom_id", GOLDEN_DOMAINS)
+def test_roundtrip_metrics_match_reference(domain_key, dom_id):
+    """``codec.roundtrip_metrics`` (on the port's ``core/metrics.py``)
+    against the reference's on the golden signal: the compression ratio
+    exactly (the bytes are the golden blob's), the PRD within 1e-4 of it
+    (the two host decodes differ by at most 1e-5 of the signal's range)."""
+    ref_tables = golden_tables(domain_key, dom_id)
+    _, sig = golden_signal(ref_tables)
+    cr, prd = codec.roundtrip_metrics(sig, carry(ref_tables))
+    ref_cr, ref_prd = ref_codec.roundtrip_metrics(sig, ref_tables)
+    assert cr == ref_cr
+    assert abs(prd - ref_prd) <= 1e-4 * max(ref_prd, 1.0)
+
+
+def test_metrics_match_reference():
+    """prd, nrmse, snr_db and compression_ratio against the reference's on
+    the same arrays, the degenerate cases (exact, all-zero and constant
+    signals, an empty stream) included."""
+    from repro.core import metrics as ref_metrics
+    from repro_torch.core import metrics
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(4096).astype(np.float32)
+    noisy = x + np.float32(0.01) * rng.standard_normal(4096).astype(
+        np.float32)
+    zeros, const = np.zeros(64, np.float32), np.full(64, 3.0, np.float32)
+    pairs = [(x, noisy), (x, x), (zeros, zeros), (zeros, const),
+             (const, const), (const, zeros)]
+    for name in ("prd", "nrmse", "snr_db"):
+        for a, b in pairs:
+            assert (getattr(metrics, name)(a, b)
+                    == getattr(ref_metrics, name)(a, b)), (name, a[:2], b[:2])
+    for sizes in ((1 << 20, 4321), (100, 0), (0, 7)):
+        assert (metrics.compression_ratio(*sizes)
+                == ref_metrics.compression_ratio(*sizes))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        metrics.prd(x, noisy[:-1])

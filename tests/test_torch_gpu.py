@@ -36,6 +36,9 @@ from repro_torch.kernels import idct_dequant as idq
 from repro_torch.kernels import ops
 from repro_torch.serving import BatchDecoder, BatchEncoder, Transcoder
 from repro_torch.serving.engine import p2, symlen_bucket
+from _pack_layouts import CHUNKS as PACK_CHUNKS
+from _pack_layouts import LAYOUTS as PACK_LAYOUTS
+from _pack_layouts import pack_case
 from _v3_layouts import LAYOUTS, v3_stage_case
 
 pytestmark = pytest.mark.gpu
@@ -459,6 +462,27 @@ def test_symlen_pack_kernel_matches_plain(cuda, coding, chunk):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert bool(got[4].any())
+
+
+@pytest.mark.parametrize("chunk", PACK_CHUNKS,
+                         ids=lambda c: "exact" if c is None else str(c))
+@pytest.mark.parametrize("layout", PACK_LAYOUTS)
+def test_symlen_pack_kernel_matches_plain_on_layouts(cuda, layout, chunk):
+    """The tiled pack on the adversarial layouts of tests/_pack_layouts.py
+    (words ending at bit 64, word starts on and beside tile edges, gap
+    symbols after full words, masked chunks and tiles, 1- and 16-bit codes,
+    partial last chunks, exact mode): every output exactly."""
+    c = pack_case(layout, chunk)
+    args = [None if c[k] is None else torch.from_numpy(c[k]).to(cuda)
+            for k in ("grid", "zrow", "zcol", "counts", "codes", "lengths")]
+    kw = dict(chunk_size=c["chunk"], coding=c["coding"])
+    before = ops.LAUNCHES["symlen_pack"]
+    got = ef.symlen_pack(*args, **kw)
+    assert ops.LAUNCHES["symlen_pack"] == before + 1
+    want = ef.symlen_pack_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_encode_engine_on_card_matches_cpu(cuda):

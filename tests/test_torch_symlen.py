@@ -6,12 +6,18 @@ symlen`` against the same functions of ``repro.core.symlen``: words
 (as uint32 halves), symlen sidecars and word counts equal bit for bit.
 The pinned cases are ``tests/test_properties.py``'s chunked-pack cases,
 given as (seed, num_symbols, chunk, l_max).  The packs are compared
-directly, never through the reference's dense-decode arm.
+directly, never through the reference's dense-decode arm.  The encode
+kernel's plain pack (``encode_fused.symlen_pack_plain``, which the card's
+kernel is held to) is held to the reference's chunked pack on the
+adversarial layouts of ``tests/_pack_layouts.py``.
 """
+import functools
+
 import pytest
 
 jnp = pytest.importorskip("jax.numpy")  # the reference; absent on the card
 
+import jax  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
@@ -19,6 +25,8 @@ from repro.core import huffman as ref_huffman
 from repro.core import symlen as ref_symlen
 from repro_torch.core import symlen
 from repro_torch.core.huffman import codebook_from_lengths
+from repro_torch.kernels import encode_fused as ef
+from _pack_layouts import CHUNKS, LAYOUTS, pack_case
 
 PINNED = [(11, 63, 7, 8), (12, 4096, 1024, 16), (13, 1, 1, 9),
           (14, 500, 501, 10)]
@@ -105,6 +113,21 @@ def test_scan_packer_matches_reference(seed, num_symbols, chunk, l_max):
         host.words)
 
 
+@pytest.mark.parametrize("seed,num_symbols,chunk,l_max",
+                         PINNED + [(15, 0, 1, 12)])
+def test_packed_stream_payload_bytes_matches_reference(seed, num_symbols,
+                                                       chunk, l_max):
+    """``PackedStream.payload_bytes`` (words and a one-byte sidecar per
+    word) against the reference's on the host packer's stream."""
+    del chunk
+    syms, book, _, _ = _case(seed, num_symbols, l_max)
+    got = symlen.pack_symlen_np(syms, codebook_from_lengths(book.lengths,
+                                                            l_max))
+    ref = ref_symlen.pack_symlen_np(syms, book)
+    assert got.num_words == ref.num_words
+    assert got.payload_bytes == ref.payload_bytes == 9 * ref.num_words
+
+
 @pytest.mark.parametrize("mode", ["holes", "empty_chunk", "num_symbols"])
 def test_masked_packs_match_reference(mode):
     """A ``valid`` mask with holes (zero-plane suppression), a chunk with no
@@ -155,3 +178,55 @@ def test_precheck_refuses_histogram_gaps():
     with pytest.raises(ValueError, match="positive"):
         symlen.pack_symlen_chunked_parts(torch.from_numpy(syms), codes,
                                          lengths, chunk_size=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_chunked_parts(chunk):
+    """The reference's chunked pack under jit, as its batched encoder runs
+    it (traced, so a gap symbol packs and is flagged, not refused)."""
+    return jax.jit(lambda syms, codes, lengths, valid:
+                   ref_symlen.pack_symlen_chunked_parts(
+                       syms, codes, lengths, chunk_size=chunk, valid=valid))
+
+
+def _layout_valid(c):
+    """bool[K, Wp * E]: the slots a layout's coding enters into the stream,
+    by the container format's rule (v2: the first ``count`` slots; v3: the
+    true windows, less the zero planes)."""
+    k, wp, e = c["grid"].shape
+    if tuple(c["coding"]) == (0, 0, False):
+        return np.arange(wp * e)[None, :] < c["counts"][:, None]
+    valid = np.arange(wp)[None, :] < (c["counts"] // e)[:, None]
+    valid = np.repeat(valid[:, :, None], e, axis=2)
+    if c["zrow"] is not None:
+        valid &= ~c["zrow"][:, :, None] & ~c["zcol"][:, None, :]
+    return valid.reshape(k, -1)
+
+
+@pytest.mark.parametrize("chunk", CHUNKS,
+                         ids=lambda c: "exact" if c is None else str(c))
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_plain_pack_matches_reference_on_layouts(layout, chunk):
+    """``symlen_pack_plain`` against the reference's chunked pack, row by
+    row, on each adversarial layout: words, sidecars and word counts
+    exactly, and the gap flags against the valid slots with no code."""
+    c = pack_case(layout, chunk)
+    t = {k: None if c[k] is None else torch.from_numpy(c[k])
+         for k in ("grid", "zrow", "zcol", "counts", "codes", "lengths")}
+    got = ef.symlen_pack_plain(t["grid"], t["zrow"], t["zcol"], t["counts"],
+                               t["codes"], t["lengths"],
+                               chunk_size=c["chunk"], coding=c["coding"])
+    valid = _layout_valid(c)
+    flat = c["grid"].reshape(valid.shape[0], -1)
+    ref_pack = _ref_chunked_parts(c["chunk"])
+    codes = jnp.asarray(c["codes"], jnp.uint32)
+    lengths = jnp.asarray(c["lengths"], jnp.int32)
+    for r in range(flat.shape[0]):
+        ref = ref_pack(jnp.asarray(flat[r]), codes, lengths,
+                       jnp.asarray(valid[r]))
+        assert_parts_equal([g[r] for g in got[:4]], ref)
+    want_bad = ((c["lengths"][flat] == 0) & valid).any(axis=1)
+    np.testing.assert_array_equal(got[4].numpy(), want_bad)
+    assert want_bad.any() == (layout == "gap_after_full")
+    if layout == "masked":  # a row with no coded cell packs no word
+        assert not got[3][1].any() and not got[0][1].any()
