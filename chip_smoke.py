@@ -2,10 +2,13 @@
 """Drive the PyTorch/CUDA port's batched decode, encode and transcode paths
 on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--src DIR]
 
 Run from the root of a checkout; it builds the CUDA kernels from
-``src/repro_torch/kernels/csrc`` on first use.  Phases, one JSON line each:
+``src/repro_torch/kernels/csrc`` on first use.  ``--src`` drives the
+``repro_torch`` of another checkout's ``src`` with this script's checks
+(e.g. a parent commit, to compare kernels on one card; their outputs'
+digests below must then match).  Phases, one JSON line each:
 
   1. device — the card (and, on its own line, ``nvidia-smi``'s name and
      power limit); fails when no CUDA device is present;
@@ -44,7 +47,21 @@ Run from the root of a checkout; it builds the CUDA kernels from
      output; ``encode_levels_gather`` on one bucket per plan key, its rows
      gathered from that bucket's decoded windows, equal to
      ``encode_levels`` on the materialized rows exactly, with the DCT and
-     the identity basis;
+     the identity basis; the DCT + quantize layouts of
+     ``tests/_levels_layouts.py`` at archive width (8192 + 3 windows a row,
+     each archive (n, e) under v2, delta and linear2 with zero planes, and
+     linear2 on every band; counts ending mid-block, mid-window and 0;
+     gather starts off a 16-byte boundary, lens of 0, mid-window and the
+     full width, shared runs; enough rows that every persistent CTA walks
+     more than 4 tiles): ``encode_levels`` with the identity basis
+     exactly and the DCT basis by the flip rule (and every row without a
+     flipped level exactly), ``encode_levels_gather`` equal to
+     ``encode_levels`` on the gathered rows bit for bit; K5 on (16, 16)
+     layouts from an aligned start and from one sample on.  The check line
+     carries a ``sha256`` of each archive bucket's ``encode_levels``
+     outputs (grid, zrow, zcol, ncoded, DCT basis), of each gather
+     bucket's, and of K5's KV levels, so that a later build of these
+     kernels can be compared byte for byte;
   5. main   — with every launch counter set to 0: ``BatchDecoder().decode
      (archive).to_host()`` and ``decode_fixed`` of the KV block, then the
      counters (K2's ``symlen_decode`` and ``lut_idct`` once per bucket,
@@ -75,8 +92,9 @@ Run from the root of a checkout; it builds the CUDA kernels from
      ``codec.transcode`` of one container against the host round trip
      ``encode(decode(c))`` where no level flipped (the flip rule above);
   9. times  — per kernel, CUDA-event ms after warm-up beside the plain
-     version's ms and the card's bound for the same work; ``symlen_pack``
-     also per bucket, chunked and exact.
+     version's ms and the card's bound for the same work; per encode
+     bucket (``k4_by_bucket``) ``encode_levels``' ms and bound beside
+     ``symlen_pack``'s, chunked and exact.
 
 Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
 ...}``.  Any failed check exits non-zero before the last line.
@@ -306,6 +324,18 @@ def exact_rows_equal(parts, want) -> bool:
     return True
 
 
+def digest(tensors) -> str:
+    """sha256 of tensors' bytes in order (None as a marker), so that a
+    later build can be compared byte for byte."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(b"none" if t is None else t.contiguous().cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
 def outputs_equal(got, want) -> bool:
     """Tuples of tensors (or None) equal element for element."""
     import torch
@@ -320,6 +350,9 @@ def outputs_equal(got, want) -> bool:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--src", default=os.path.join(HERE, "src"),
+                    help="the src directory whose repro_torch is driven "
+                    "(default: this checkout's)")
     args = ap.parse_args()
 
     # -- 1. device -----------------------------------------------------------
@@ -327,7 +360,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
-    src = os.path.join(HERE, "src")
+    src = os.path.abspath(args.src)
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"{src}/repro_torch not found: run from a checkout of the repo")
     sys.path.insert(0, src)
@@ -368,6 +401,8 @@ def main() -> None:
     from _pack_layouts import CHUNKS as PACK_CHUNKS
     from _pack_layouts import LAYOUTS as PACK_LAYOUTS
     from _pack_layouts import pack_case
+    from _levels_layouts import BIG, CODINGS as LEVEL_CODINGS
+    from _levels_layouts import dct_case, levels_case, walk_rows
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -442,6 +477,8 @@ def main() -> None:
               "decode_fused": [], "idct_dequant": [], "encode_levels": [],
               "symlen_pack": [], "dct_quant": [], "symlen_tile": [],
               "encode_levels_gather": []}
+    digests = {"encode_levels": [], "encode_levels_gather": [],
+               "dct_quant": []}
     for b in buckets:
         p, kw = b["plan"], dict(l_max=b["plan"].l_max, max_symlen=b["ms"])
         key = str(b["grp"].plan_key)
@@ -562,6 +599,8 @@ def main() -> None:
         kw = dict(n=p.n, e=p.e, coding=p.coding)
         g = ef.encode_levels(x, counts, q, p.basis, **kw)
         gp = ef.encode_levels_plain(x, counts, q, p.basis, **kw)
+        digests["encode_levels"].append({"plan_key": key,
+                                         "sha256": digest(g)})
         lp = quantize.quantize(x.reshape(x.shape[0], -1, p.n) @ p.basis, q)
         lk = g[0]
         if p.coding != (0, 0, False):
@@ -685,6 +724,8 @@ def main() -> None:
         gd = ef.encode_levels_gather(*gx, g["counts"], q, p.basis,
                                      width=g["width"], **kw)
         dd = ef.encode_levels(rows, g["counts"], q, p.basis, **kw)
+        digests["encode_levels_gather"].append({"plan_key": key,
+                                                "sha256": digest(gd)})
         # identity basis: windows of E samples, so coefficients = samples
         wid = samples // p.e * p.e
         ci = torch.full_like(g["counts"], wid)
@@ -708,6 +749,83 @@ def main() -> None:
               and cg["identity_equal_plain"],
               f"encode_levels_gather differs from encode_levels: {cg}")
         del rows, gd, dd, gi, di, gip
+    # the DCT + quantize layouts of tests/_levels_layouts.py at archive
+    # width (8192 + 3 windows a row), each archive (n, e) under every
+    # coding, with enough rows that every persistent CTA walks more than 4
+    # tiles: identity basis exactly, DCT basis by the flip rule, the gather
+    # arm equal to the dense arm on the gathered rows bit for bit
+    t1 = time.perf_counter()
+    for n, e in sorted({(k[1], k[2]) for k in keys}):
+        for coding in LEVEL_CODINGS:
+            c = levels_case(n, e, BIG, coding, rows=walk_rows(n, e, BIG),
+                            seed=args.seed)
+            q = quantize.quant_table_from_arrays(
+                c["zone"], c["scale"], c["mu"], c["alpha1"]).to("cuda")
+            x, cnt, flat, st, ln, gcnt = (
+                torch.from_numpy(c[f]).cuda() for f in (
+                    "signals", "counts", "flat", "starts", "lens", "gcounts"))
+            kw = dict(n=n, e=e, coding=c["coding"])
+            gkw = dict(width=c["width"], **kw)
+            rows_g = ef.gather_rows(flat, st, ln, c["width"])
+            res = {"plan_key": f"layouts n={n} e={e} wp={BIG} "
+                   f"coding={c['coding']}", "rows": int(x.shape[0])}
+            for name, basis in (
+                    ("identity", torch.eye(n, device="cuda")[:, :e]
+                     .contiguous()),
+                    ("dct", dct.dct_basis(n, e, device="cuda"))):
+                got = ef.encode_levels(x, cnt, q, basis, **kw)
+                want = ef.encode_levels_plain(x, cnt, q, basis, **kw)
+                gg = ef.encode_levels_gather(flat, st, ln, gcnt, q, basis,
+                                             **gkw)
+                res[f"gather_equal_dense_{name}"] = outputs_equal(
+                    gg, ef.encode_levels(rows_g, gcnt, q, basis, **kw))
+                if name == "identity":
+                    res["identity_equal"] = outputs_equal(got, want)
+                    res["gather_identity_equal_plain"] = outputs_equal(
+                        gg, ef.encode_levels_gather_plain(
+                            flat, st, ln, gcnt, q, basis, **gkw))
+                    continue
+                lvk = ef.encode_levels(x, cnt, q, basis, n=n, e=e)[0]
+                fl = flip_stats(lvk, ef.encode_levels_plain(
+                    x, cnt, q, basis, n=n, e=e)[0])
+                clean = (lvk == ef.encode_levels_plain(
+                    x, cnt, q, basis, n=n, e=e)[0]).reshape(
+                        lvk.shape[0], -1).all(dim=1)
+                res.update(flips=fl["flips"], cells=fl["cells"],
+                           max_abs_err=fl["max_abs_err"], flip_rule=fl["ok"],
+                           clean_rows_equal=all(
+                               (a is None and w is None)
+                               or bool(torch.equal(a[clean], w[clean]))
+                               for a, w in zip(got, want)))
+            torch.cuda.synchronize()
+            checks["encode_levels"].append(res)
+            check(all(res[k] for k in (
+                "identity_equal", "gather_identity_equal_plain",
+                "gather_equal_dense_identity", "gather_equal_dense_dct",
+                "flip_rule", "clean_rows_equal")),
+                f"encode_levels differs on a layout: {res}")
+            del x, cnt, flat, st, ln, gcnt, rows_g, got, want, gg, lvk
+    for n, e in ((16, 16),):  # K5: the KV block's pair, aligned and not
+        c = dct_case(n, e, BIG, seed=args.seed)
+        q = quantize.quant_table_from_arrays(
+            c["zone"], c["scale"], c["mu"], c["alpha1"]).to("cuda")
+        full = torch.from_numpy(c["windows"]).cuda()
+        one = full.reshape(-1)[1:1 + BIG * n].view(BIG, n)  # 4 bytes on
+        for off, x in (("aligned", full[:BIG]), ("one sample on", one)):
+            eye = torch.eye(n, device="cuda")[:, :e].contiguous()
+            db = dct.dct_basis(n, e, device="cuda")
+            fl = flip_stats(dq.dct_quant(x, q, e=e, basis=db),
+                            dq.dct_quant_plain(x, q, db))
+            res = {"shape": f"layouts n={n} e={e} windows={BIG} {off}",
+                   "identity_equal": bool(torch.equal(
+                       dq.dct_quant(x, q, e=e, basis=eye),
+                       dq.dct_quant_plain(x, q, eye))),
+                   "flips": fl["flips"], "cells": fl["cells"],
+                   "max_abs_err": fl["max_abs_err"], "flip_rule": fl["ok"]}
+            checks["dct_quant"].append(res)
+            check(res["identity_equal"] and res["flip_rule"],
+                  f"K5 differs on a layout: {res}")
+    levels_layouts_s = time.perf_counter() - t1
     kv_win = kv_gpu.reshape(-1, 16)
     kv_eq = kv_tab.device_tables("cuda").quant
     kv_db = enc.plan_for(kv_tab).basis
@@ -725,10 +843,13 @@ def main() -> None:
           "levels_equal_encode_fixed": bool(torch.equal(
               k5, kv_levels.reshape(-1, 16)))}
     checks["dct_quant"].append(c5)
+    digests["dct_quant"].append({"shape": list(kv_win.shape),
+                                 "sha256": digest([k5])})
     check(c5["identity_equal"] and c5["flip_rule"]
           and c5["levels_equal_encode_fixed"], f"K5 differs: {c5}")
     emit({"phase": "check", "seconds": time.perf_counter() - t0,
           "adversarial_pack_seconds": adversarial_pack_s,
+          "levels_layouts_seconds": levels_layouts_s, "sha256": digests,
           "tolerance": f"max|d| <= {REL_TOL} * max|plain|; levels with the "
           f"DCT basis: |d| <= 1 in at most {FLIP_SHARE} of the cells",
           "flips": {k: sum(c.get("flips", 0) for c in checks[k])
@@ -1117,11 +1238,12 @@ def main() -> None:
         parts_b = 12 * slots + 4 * slots // b["chunk"] + k
         small_b = 4 * p.n * p.e + 8 * p.e + 8 + 4 * k + 4 * k * v3
         fma = 2.0 * k * wp * p.n * p.e
-        add("encode_levels",
-            cuda_ms(lambda: ef.encode_levels(x, counts, q, p.basis, **kw)),
+        lv_ms = cuda_ms(lambda: ef.encode_levels(x, counts, q, p.basis, **kw))
+        lv_b = sig_b + grid_b + masks + small_b
+        add("encode_levels", lv_ms,
             cuda_ms(lambda: ef.encode_levels_plain(x, counts, q, p.basis,
                                                    **kw), reps=2),
-            sig_b + grid_b + masks + small_b, fma)
+            lv_b, fma)
         g = ef.encode_levels(x, counts, q, p.basis, **kw)
         pack_b = grid_b + masks + 4 * k + 12 * 256 + parts_b
         pack_ms = cuda_ms(lambda: ef.symlen_pack(*g[:3], counts, codes, lens,
@@ -1149,7 +1271,9 @@ def main() -> None:
             (distinct * wp + distinct * p.e) if p.coding[2] else 0)
         pack_by_bucket.append({
             "plan_key": str((p.domain_id, p.n, p.e, p.l_max, p.coding)),
-            "e": p.e, "chunks": slots // b["chunk"], "ms": pack_ms,
+            "e": p.e, "levels_ms": lv_ms,
+            "levels_bound_ms": bound_ms(lv_b, fma)[0],
+            "chunks": slots // b["chunk"], "ms": pack_ms,
             "bound_ms": bound_ms(pack_b, 0.0)[0], "exact_rows": distinct,
             "exact_ms": ex_ms, "exact_bound_ms": bound_ms(ex_b, 0.0)[0]})
         del g, g4
@@ -1194,7 +1318,10 @@ def main() -> None:
           "symlen_pack_exact_ms": exact_ms,
           "symlen_pack_exact_what": "exact mode (chunk = the row's symbols), "
           f"{distinct} rows per plan key, summed over the 8 keys",
-          "symlen_pack_by_bucket": pack_by_bucket,
+          "k4_by_bucket": pack_by_bucket,
+          "k4_by_bucket_what": "per encode bucket: encode_levels "
+          "(levels_ms, levels_bound_ms) and symlen_pack (ms, bound_ms; "
+          "exact_ms, exact_bound_ms in exact mode)",
           **{k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
                  "bound_by": v[3]} for k, v in times.items()}})
 

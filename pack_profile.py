@@ -57,7 +57,7 @@ def variant_source() -> str:
     """The pack kernel as a template on <kProf, kStores> with a launcher."""
     src = open(os.path.join(CSRC, "encode_fused.cu")).read()
     a = src.index("// Up to 8 grid bytes at src")
-    b = src.index("size_t encode_levels_smem(")
+    b = src.index("template <bool kGather>\nint launch_encode_levels(")
     kern = src[a:b]
 
     def sub(old, new):

@@ -9,24 +9,34 @@
 //
 // (a) encode_levels: signals f32[K, Wp * N] -> coded grid u8[K, Wp, E],
 //     and under a v3 coding ncoded i32[K] plus, with zero planes, zrow
-//     u8[K, Wp] and zcol u8[K, E].  One CTA per block of 128 windows of
-//     one row: DCT + quantize (dct_quant.cuh, K5's template), then the
-//     prediction against the previous one or two windows — the CTA
-//     recomputes the two windows before its block (a halo; before window 0
-//     the history is the virtual all-128 one), so blocks need nothing from
-//     each other and the TPU kernel's whole-row residency is not needed.
-//     zrow covers all Wp windows; zcol only the row's true windows (count
-//     / E): each CTA ORs its nonzero bands and adds its kept windows into a
-//     per-row scratch with atomics, and the row's last CTA to finish writes
-//     zcol and ncoded = (true windows not in zrow) x (bands not in zcol).
+//     u8[K, Wp] and zcol u8[K, E]: levels_kernel of dct_quant.cuh (K5
+//     runs it too).  Persistent CTAs walk contiguous ranges of (row, block
+//     of bw windows) tiles: the basis and quant table staged once a CTA,
+//     each tile copied by cp.async while the one before is transformed in
+//     RW x 4 register tiles (bw x RW: 128 x 4 at E = 32, 256 x 4 at
+//     E = 16, 256 x 2 at E = 8 and 6), quantized a band at a time, then
+//     the prediction against the previous one or two windows.  A tile's
+//     history (the two windows before its block; before window 0 the
+//     virtual all-128 one) is the tile before's last levels, carried in
+//     shared memory; only a CTA's first tile recomputes it, by the same
+//     chain, so tiles need no order among CTAs and the TPU kernel's
+//     whole-row residency is not needed.  The grid bytes are written 16 a
+//     store where aligned, single bytes at the tile's edges.  zrow covers
+//     all Wp windows; zcol only the row's true windows (count / E): a CTA
+//     ORs the nonzero bands and counts the kept windows of its run of a
+//     row's tiles, adds them into the row's scratch with atomics once, and
+//     the CTA that finishes the row's last tiles writes zcol and ncoded =
+//     (true windows not in zrow) x (bands not in zcol).
 //     encode_levels_gather is the same kernel with its rows read through
 //     (flat, starts, lens) — the transcoder's decoded samples — in place of
-//     a materialized f32[K, Wp * N] matrix: the staging masks each row at
-//     its true length (a decoded signal's window tail is re-decoded data,
-//     not zeros), so the signal matrix never makes a round trip through
-//     device memory, as the TPU package fuses that gather into the same jit
-//     as its pallas_call (batch_encode.py:371).  Its levels equal
-//     encode_levels' on the gathered matrix bit for bit.
+//     a materialized f32[K, Wp * N] matrix: the copies zero-fill each row
+//     at its true length (cp.async's src-size; a decoded signal's window
+//     tail is re-decoded data, not zeros, and is never read), so the signal
+//     matrix never makes a round trip through device memory, as the TPU
+//     package fuses that gather into the same jit as its pallas_call
+//     (batch_encode.py:371).  Its levels equal encode_levels' on the
+//     gathered matrix bit for bit.  dct_quant.cuh says which copies are 16
+//     bytes wide and which 4.
 // (b) symlen_pack: grid + masks -> hi/lo u32[K, B, C], symlen i32[K, B, C],
 //     words-per-chunk i32[K, B], bad u8[K].  One CTA of one warp per
 //     chunk walks the chunk in tiles of 256 symbols, 8 consecutive symbols
@@ -62,11 +72,14 @@
 //     and at 5.3 KiB of shared memory and 64 registers an SM holds 32
 //     such CTAs, so 32 chains are walked at once.
 //
-// What bounds it on the H100: bytes — the f32 signal read once, and the
+// What bounds K4 on the H100: bytes — the f32 signal read once, and the
 // chunk parts written (12 bytes per symbol slot, most of them the zeros
 // past each chunk's words); the grid between the two kernels adds one
-// byte per cell written and read back.  encode_levels' CTAs stage,
-// transform and store one block in turn, latency bound.  symlen_pack is
+// byte per cell written and read back.  encode_levels is bound by its
+// bytes at E <= 8 and by its arithmetic at E >= 16: the quantizer (two
+// IEEE divisions and a log1pf an output in zone 0) and the FMAs take
+// longer than the bytes there, and the next tile's copies are in flight
+// while they run (dct_quant.cuh).  symlen_pack is
 // bound by its instructions and their latency, not by its bytes (leaving
 // out every store saves little on the H100): the chain walk, one
 // dependent ballot and shuffle a word, takes about half of a tile's time,
@@ -83,127 +96,8 @@
 
 namespace {
 
-constexpr int kLevelThreads = 256;
 constexpr int kPackPer = 8;  // consecutive symbols a lane
 constexpr int kPackTile = fptc::kWarp * kPackPer;
-
-struct Coding {
-  int pred_id;  // 0 none, 1 delta, 2 linear2
-  int bands;    // predict_bands
-  int zplanes;  // zero-plane suppression
-};
-
-// kGather: row r's samples are the run [starts[r], starts[r] + lens[r]) of
-// the flat tensor `signals`, exact zero past lens[r]; otherwise row r is
-// signals[r * wp * n, (r + 1) * wp * n).
-template <bool kGather>
-__global__ void __launch_bounds__(kLevelThreads)
-    encode_levels_kernel(const float* __restrict__ signals,
-                         const int32_t* __restrict__ starts,
-                         const int32_t* __restrict__ lens,
-                         const int32_t* __restrict__ counts, int64_t wp,
-                         int n, int e, int bw, const float* __restrict__ basis,
-                         fptc::QuantArgs q, Coding coding,
-                         uint8_t* __restrict__ grid, uint8_t* __restrict__ zrow,
-                         uint8_t* __restrict__ zcol,
-                         int32_t* __restrict__ ncoded,
-                         int32_t* __restrict__ scratch) {
-  extern __shared__ float smem[];
-  float* s_basis = smem;                               // [N, E]
-  float* s_quant = s_basis + n * e;                    // the quant table
-  float* s_x = s_quant + fptc::quant_table_floats(e);  // [bw + 2, N + 1]
-  int* s_nz = reinterpret_cast<int*>(s_x + (bw + 2) * (n + 1));  // [E]
-  int* s_keep = s_nz + e;                                        // [1]
-  uint8_t* s_lv = reinterpret_cast<uint8_t*>(s_keep + 1);  // [bw + 2, E]
-  uint8_t* s_g = s_lv + (bw + 2) * e;                      // [bw, E]
-
-  const int64_t row = blockIdx.y;
-  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * bw;
-  const int rows = static_cast<int>(min(static_cast<int64_t>(bw), wp - w0));
-  const int64_t nvalid = counts[row] / e;  // the row's true windows
-  const bool predict = coding.pred_id != 0 && coding.bands > 0;
-  // the windows before the block that the prediction reads, recomputed
-  // here (before window 0 the history is the virtual all-128 one)
-  const int halo = predict ? static_cast<int>(min(static_cast<int64_t>(2),
-                                                  w0))
-                           : 0;
-  for (int i = threadIdx.x; i < n * e; i += blockDim.x) s_basis[i] = basis[i];
-  fptc::stage_quant(s_quant, q, e);
-  for (int i = threadIdx.x; i < 2 * e; i += blockDim.x) s_lv[i] = 128;
-  for (int i = threadIdx.x; i < e; i += blockDim.x) s_nz[i] = 0;
-  if (threadIdx.x == 0) *s_keep = 0;
-  if constexpr (kGather) {
-    fptc::stage_windows_gather(s_x, signals + starts[row], lens[row],
-                               (w0 - halo) * n, rows + halo, n);
-  } else {
-    fptc::stage_windows(s_x, signals + (row * wp + w0 - halo) * n,
-                        rows + halo, n);
-  }
-  __syncthreads();
-  // s_lv row 2 + j holds window w0 + j (j from -halo)
-  uint8_t* s_lv0 = s_lv + (2 - halo) * e;
-  fptc::dct_quant_block(s_x, rows + halo, n, e, s_basis, s_quant,
-                        [&](int w, int k, uint8_t level) {
-                          s_lv0[w * e + k] = level;
-                        });
-  __syncthreads();
-  // the v3 prediction: residuals mod 256 against the previous window
-  // (delta) or 2 * prev - prev2 (linear2) on bands k < predict_bands
-  uint8_t* g_out = grid + (row * wp + w0) * e;
-  for (int i = threadIdx.x; i < rows * e; i += blockDim.x) {
-    const int w = i / e;
-    const int k = i - w * e;
-    const int lv = s_lv[(w + 2) * e + k];
-    int g = lv;
-    if (predict && k < coding.bands) {
-      const int p1 = s_lv[(w + 1) * e + k];
-      const int pred = coding.pred_id == 1 ? p1 : 2 * p1 - s_lv[w * e + k];
-      g = (lv - pred + 128) & 255;
-    }
-    s_g[i] = static_cast<uint8_t>(g);
-    g_out[i] = static_cast<uint8_t>(g);
-  }
-  if (!coding.zplanes) {
-    if (ncoded != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
-      ncoded[row] = counts[row];
-    }
-    return;
-  }
-  __syncthreads();
-  if (threadIdx.x < rows) {  // zrow over every window, padding included
-    bool all = true;
-    for (int k = 0; k < e; ++k) all = all && s_g[threadIdx.x * e + k] == 128;
-    zrow[row * wp + w0 + threadIdx.x] = all ? 1 : 0;
-    if (!all && w0 + threadIdx.x < nvalid) atomicAdd(s_keep, 1);
-  }
-  // zcol over the row's true windows only: a band is nonzero if any true
-  // window of any block has a non-128 cell in it
-  const int64_t live = min(static_cast<int64_t>(rows), nvalid - w0);
-  for (int i = threadIdx.x; i < live * e; i += blockDim.x) {
-    if (s_g[i] != 128) s_nz[i % e] = 1;
-  }
-  __syncthreads();
-  // the row's totals in scratch [E + 2]: nonzero bands, kept windows, and
-  // the count of finished blocks; the row's last block writes zcol, ncoded
-  int32_t* acc = scratch + row * (e + 2);
-  if (threadIdx.x < e && s_nz[threadIdx.x]) atomicOr(acc + threadIdx.x, 1);
-  if (threadIdx.x == 0 && *s_keep) atomicAdd(acc + e, *s_keep);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    *s_keep = atomicAdd(acc + e + 1, 1) == static_cast<int>(gridDim.x) - 1;
-  }
-  __syncthreads();
-  if (!*s_keep) return;
-  __threadfence();
-  bool kept_col = false;
-  if (threadIdx.x < e) {
-    kept_col = atomicOr(acc + threadIdx.x, 0) != 0;
-    zcol[row * e + threadIdx.x] = kept_col ? 0 : 1;
-  }
-  const int cols = __syncthreads_count(kept_col);
-  if (threadIdx.x == 0) ncoded[row] = atomicAdd(acc + e, 0) * cols;
-}
 
 // Up to 8 grid bytes at src (those at i >= n read as 0), one 8-byte load
 // when they are all in range and aligned.
@@ -518,13 +412,6 @@ __global__ void __launch_bounds__(fptc::kWarp, 32)
   if (__any_sync(kAll, gap) && check_gaps && lane == 0) bad[row] = 1;
 }
 
-size_t encode_levels_smem(int n, int e, int bw) {
-  return sizeof(float) * (static_cast<size_t>(n) * e +
-                          fptc::quant_table_floats(e) +
-                          static_cast<size_t>(bw + 2) * (n + 1)) +
-         sizeof(int) * (e + 1) + static_cast<size_t>(2 * bw + 2) * e;
-}
-
 template <bool kGather>
 int launch_encode_levels(const void* signals, const void* starts,
                          const void* lens, const void* counts, int64_t k,
@@ -544,31 +431,20 @@ int launch_encode_levels(const void* signals, const void* starts,
                   scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int bw = 128;
-  const size_t smem = encode_levels_smem(static_cast<int>(n),
-                                         static_cast<int>(e), bw);
-  cudaError_t err = fptc::allow_smem(
-      reinterpret_cast<const void*>(encode_levels_kernel<kGather>), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fptc::QuantArgs q{static_cast<const int32_t*>(zone),
-                    static_cast<const float*>(scale),
-                    static_cast<const float*>(mu),
-                    static_cast<const float*>(alpha1)};
-  Coding coding{static_cast<int>(pred_id), static_cast<int>(bands),
-                static_cast<int>(zplanes)};
-  const dim3 blocks(static_cast<unsigned>((wp + bw - 1) / bw),
-                    static_cast<unsigned>(k));
-  encode_levels_kernel<kGather><<<blocks, kLevelThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
+  return fptc::launch_levels<kGather>(
       static_cast<const float*>(signals), static_cast<const int32_t*>(starts),
       static_cast<const int32_t*>(lens), static_cast<const int32_t*>(counts),
-      wp, static_cast<int>(n), static_cast<int>(e), bw,
-      static_cast<const float*>(basis), q, coding,
+      k, wp, static_cast<int>(n), static_cast<int>(e),
+      static_cast<const float*>(basis),
+      fptc::QuantArgs{static_cast<const int32_t*>(zone),
+                      static_cast<const float*>(scale),
+                      static_cast<const float*>(mu),
+                      static_cast<const float*>(alpha1)},
+      fptc::Coding{static_cast<int>(pred_id), static_cast<int>(bands),
+                   static_cast<int>(zplanes)},
       static_cast<uint8_t*>(grid), static_cast<uint8_t*>(zrow),
       static_cast<uint8_t*>(zcol), static_cast<int32_t*>(ncoded),
-      static_cast<int32_t*>(scratch));
-  FPTC_CHECK_LAUNCH();
-  return 0;
+      static_cast<int32_t*>(scratch), static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

@@ -39,6 +39,8 @@ from repro_torch.serving.engine import p2, symlen_bucket
 from _pack_layouts import CHUNKS as PACK_CHUNKS
 from _pack_layouts import LAYOUTS as PACK_LAYOUTS
 from _pack_layouts import pack_case
+from _levels_layouts import CODINGS as LEVEL_CODINGS
+from _levels_layouts import PAIRS, dct_case, levels_case, walk_rows, widths
 from _v3_layouts import LAYOUTS, v3_stage_case
 
 pytestmark = pytest.mark.gpu
@@ -483,6 +485,109 @@ def test_symlen_pack_kernel_matches_plain_on_layouts(cuda, layout, chunk):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+LEVEL_SHAPES = [(n, e, wp) for n, e in PAIRS for wp in widths(n, e)]
+K5_SHAPES = [(n, e, w) for n, e in PAIRS for w in widths(n, e)]
+
+
+def _layout_quant(c, cuda):
+    from repro_torch.core.quantize import quant_table_from_arrays
+
+    return quant_table_from_arrays(c["zone"], c["scale"], c["mu"],
+                                   c["alpha1"]).to(cuda)
+
+
+def _layout_bases(n, e, cuda):
+    return [("identity", torch.eye(n, device=cuda)[:, :e].contiguous()),
+            ("dct", dct.dct_basis(n, e, device=cuda))]
+
+
+def assert_levels_rule(got, want, got_levels, want_levels, exact):
+    """Outputs of encode_levels (grid, zrow, zcol, ncoded) against the plain
+    version's: all equal when ``exact`` (the identity basis); else the flip
+    rule on the levels before prediction, and every output equal on the
+    rows with no flipped level."""
+    if exact:
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            assert g is None or (g.dtype == w.dtype and torch.equal(g, w))
+        return
+    assert_flip_rule(got_levels, want_levels)
+    clean = (got_levels == want_levels).reshape(got_levels.shape[0], -1).all(
+        dim=1)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        assert g is None or torch.equal(g[clean], w[clean])
+
+
+@pytest.mark.parametrize("coding", LEVEL_CODINGS,
+                         ids=lambda c: "-".join(str(v) for v in c))
+@pytest.mark.parametrize("shape", LEVEL_SHAPES,
+                         ids=lambda s: "n{}-e{}-w{}".format(*s))
+def test_encode_levels_kernel_on_layouts(cuda, shape, coding):
+    """encode_levels and its gather arm on the layouts of
+    tests/_levels_layouts.py, with enough rows that every persistent CTA
+    walks more than 4 tiles: the identity basis exactly, the DCT basis by
+    the flip rule; the gather arm equal to the dense arm on the gathered
+    rows bit for bit, and (identity basis) to its plain version."""
+    n, e, wp = shape
+    c = levels_case(n, e, wp, coding, rows=walk_rows(n, e, wp))
+    q = _layout_quant(c, cuda)
+    x, counts, flat, st, ln, gcounts = (
+        torch.from_numpy(c[f]).to(cuda) for f in (
+            "signals", "counts", "flat", "starts", "lens", "gcounts"))
+    rows = ef.gather_rows(flat, st, ln, c["width"])
+    kw = dict(n=n, e=e, coding=c["coding"])
+    for name, basis in _layout_bases(n, e, cuda):
+        before = dict(ops.LAUNCHES)
+        got = ef.encode_levels(x, counts, q, basis, **kw)
+        gg = ef.encode_levels_gather(flat, st, ln, gcounts, q, basis,
+                                     width=c["width"], **kw)
+        assert ops.LAUNCHES["encode_levels"] == before["encode_levels"] + 1
+        assert ops.LAUNCHES["encode_levels_gather"] == (
+            before["encode_levels_gather"] + 1)
+        want = ef.encode_levels_plain(x, counts, q, basis, **kw)
+        levels = ef.encode_levels(x, counts, q, basis, n=n, e=e)[0]
+        plain_levels = ef.encode_levels_plain(x, counts, q, basis, n=n,
+                                              e=e)[0]
+        assert_levels_rule(got, want, levels, plain_levels,
+                           name == "identity")
+        dense = ef.encode_levels(rows, gcounts, q, basis, **kw)
+        torch.cuda.synchronize()
+        for g, d in zip(gg, dense):
+            assert (g is None) == (d is None)
+            assert g is None or (g.dtype == d.dtype and torch.equal(g, d))
+        if name == "identity":
+            gp = ef.encode_levels_gather_plain(flat, st, ln, gcounts, q,
+                                               basis, width=c["width"], **kw)
+            assert_levels_rule(gg, gp, None, None, True)
+
+
+@pytest.mark.parametrize("shape", K5_SHAPES,
+                         ids=lambda s: "n{}-e{}-w{}".format(*s))
+def test_k5_kernel_on_layouts(cuda, shape):
+    """dct_quant on the (N, E) pairs of tests/_levels_layouts.py at window
+    counts of 1, a block less and more 1 and 8192 + 3, from an aligned
+    start, one window on (not 16-byte aligned for N % 4 != 0) and one
+    sample on (never aligned): the identity basis exactly, the DCT basis
+    by the flip rule."""
+    n, e, w = shape
+    c = dct_case(n, e, w)
+    q = _layout_quant(c, cuda)
+    full = torch.from_numpy(c["windows"]).to(cuda)
+    one = full.reshape(-1)[1:1 + w * n].view(w, n)  # one sample on
+    for x in (full[:w], full[1:], one):
+        for name, basis in _layout_bases(n, e, cuda):
+            before = ops.LAUNCHES["dct_quant"]
+            got = dq.dct_quant(x, q, e=e, basis=basis)
+            assert ops.LAUNCHES["dct_quant"] == before + 1
+            want = dq.dct_quant_plain(x, q, basis)
+            torch.cuda.synchronize()
+            if name == "identity":
+                assert torch.equal(got, want)
+            else:
+                assert_flip_rule(got, want)
 
 
 def test_encode_engine_on_card_matches_cpu(cuda):
