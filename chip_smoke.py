@@ -57,11 +57,16 @@ digests below must then match).  Phases, one JSON line each:
      exactly and the DCT basis by the flip rule (and every row without a
      flipped level exactly), ``encode_levels_gather`` equal to
      ``encode_levels`` on the gathered rows bit for bit; K5 on (16, 16)
-     layouts from an aligned start and from one sample on.  The check line
-     carries a ``sha256`` of each archive bucket's ``encode_levels``
-     outputs (grid, zrow, zcol, ncoded, DCT basis), of each gather
-     bucket's, and of K5's KV levels, so that a later build of these
-     kernels can be compared byte for byte;
+     layouts from an aligned start and from one sample on.  Every level in
+     every band (levels [256, E], row r level r; the basis [I_E | 0], so
+     the output's first E columns are the dequant table): the LUT-iDCT
+     equal to each archive plan's LUT exactly, K3 within the float bound of
+     the plain ``dequantize`` for the KV table and each archive plan's.
+     The check line carries a ``sha256`` of each archive bucket's
+     ``lut_idct`` output, of K3's KV output and of its every-level tables,
+     of each archive bucket's ``encode_levels`` outputs (grid, zrow, zcol,
+     ncoded, DCT basis), of each gather bucket's, and of K5's KV levels, so
+     that a later build of these kernels can be compared byte for byte;
   5. main   — with every launch counter set to 0: ``BatchDecoder().decode
      (archive).to_host()`` and ``decode_fixed`` of the KV block, then the
      counters (K2's ``symlen_decode`` and ``lut_idct`` once per bucket,
@@ -403,6 +408,7 @@ def main() -> None:
     from _pack_layouts import pack_case
     from _levels_layouts import BIG, CODINGS as LEVEL_CODINGS
     from _levels_layouts import dct_case, levels_case, walk_rows
+    from _idct_layouts import every_level
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -477,8 +483,8 @@ def main() -> None:
               "decode_fused": [], "idct_dequant": [], "encode_levels": [],
               "symlen_pack": [], "dct_quant": [], "symlen_tile": [],
               "encode_levels_gather": []}
-    digests = {"encode_levels": [], "encode_levels_gather": [],
-               "dct_quant": []}
+    digests = {"lut_idct": [], "idct_dequant": [], "encode_levels": [],
+               "encode_levels_gather": [], "dct_quant": []}
     for b in buckets:
         p, kw = b["plan"], dict(l_max=b["plan"].l_max, max_symlen=b["ms"])
         key = str(b["grp"].plan_key)
@@ -501,6 +507,7 @@ def main() -> None:
             check(cv["equal"], f"v3 levels differ from plain: {cv}")
         li = df.lut_idct(lvp, p.lut, p.basis)
         lip = df.lut_idct_plain(lvp, p.lut, p.basis)
+        digests["lut_idct"].append({"plan_key": key, "sha256": digest([li])})
         lv = df.bucket_levels(b["words"], b["symlen"], p.tables, b["v3"],
                               **lv_kw)
         f_kw = dict(n=p.n, **lv_kw)
@@ -568,8 +575,39 @@ def main() -> None:
           "max_abs_err": float((k3 - k3p).abs().max()),
           "rel_err": rel_err(k3, k3p), "finite": bool(torch.isfinite(k3).all())}
     checks["idct_dequant"].append(c3)
+    digests["idct_dequant"].append({"shape": list(kv_levels.shape),
+                                    "sha256": digest([k3])})
     check(c3["finite"] and c3["rel_err"] <= REL_TOL,
           f"K3 differs from plain: {c3}")
+    # every level in every band: levels [256, E] whose row r holds level r,
+    # the basis [I_E | 0], so out[:, :E] is the dequant table: lut_idct's
+    # equal to each archive plan's LUT exactly (+-0 alike), K3's within the
+    # float bound of the plain dequantize for the KV table and each archive
+    # plan's; the pad columns zero
+    plans = [("kv", kv_q, None, 16, 16)] + [
+        (str(b["grp"].plan_key), b["plan"].tables.quant, b["plan"].lut,
+         b["plan"].e, b["plan"].n) for b in buckets]
+    for name, q, lut, e, n in plans:
+        lv_all, eye = (torch.from_numpy(a).cuda() for a in every_level(e, n))
+        if lut is not None:
+            ev = df.lut_idct(lv_all, lut, eye)
+            ce = {"plan_key": f"every level {name}",
+                  "equal_lut": bool(torch.equal(ev[:, :e], lut.T))
+                  and not bool(ev[:, e:].any()),
+                  "max_abs_err": float((ev[:, :e] - lut.T).abs().max())}
+            checks["lut_idct"].append(ce)
+            check(ce["equal_lut"], f"LUT-iDCT is not its LUT: {ce}")
+        ev = idq.idct_dequant(lv_all, q, eye)
+        evp = quantize.dequantize(lv_all, q)
+        ce = {"shape": f"every level {name}",
+              "max_abs_err": float((ev[:, :e] - evp).abs().max()),
+              "rel_err": rel_err(ev[:, :e], evp),
+              "zero_pad": not bool(ev[:, e:].any())}
+        checks["idct_dequant"].append(ce)
+        digests["idct_dequant"].append({"shape": ce["shape"],
+                                        "sha256": digest([ev])})
+        check(ce["rel_err"] <= REL_TOL and ce["zero_pad"],
+              f"K3's dequant differs from plain: {ce}")
     # the encode kernels: one archive bucket per plan key, as the engine
     # stages it (128 rows of 2**18 samples, chunk 1024), and K5 on the KV
     # block.  Identity basis: exact; DCT basis: the flip rule, on levels

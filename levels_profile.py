@@ -10,8 +10,8 @@ buckets (128 rows of 2**18 samples; the four archival domains in v2 and in
 v3 with prediction and zero planes) and a KV block of 2**21 windows of 16
 samples, it times (CUDA events, mean of ``--reps`` after a warm-up) four
 builds of the kernel, made with ``nvcc`` from the kernel's text with edits
-at named places (the script stops if a place is not found) into the
-kernels' gitignored build directory:
+at named places of ``dct_quant.cuh`` and ``common.cuh`` (the script stops
+if a place is not found) into the kernels' gitignored build directory:
 
   * ``as_built`` — the kernel as the port builds it; its outputs are held
     against the port's own library (they must be equal);
@@ -43,34 +43,35 @@ BUILD = os.path.join(HERE, "src", "repro_torch", "kernels", "build",
 ARCHIVAL = [("biomedical", "mitbih", "delta"), ("seismic", "seismic", "delta"),
             ("power", "load_power", "linear2"),
             ("meteorological", "temperature", "linear2")]
-# (text in dct_quant.cuh, its replacement) for each edit
+# (file, its text, the replacement) for each edit
 NO_QUANTIZER = [(
+    "dct_quant.cuh",
     "#pragma unroll\n  for (int i = 0; i < RW; ++i) out[i] = 0;\n",
     "#pragma unroll\n  for (int i = 0; i < RW; ++i) out[i] = 0;\n"
     "  if (mu > -1.0f) {\n#pragma unroll\n    for (int i = 0; i < RW; ++i) {\n"
     "      out[i] = __float_as_uint(acc[i][0] + acc[i][1] + acc[i][2] +"
     " acc[i][3]);\n    }\n    return;\n  }\n")]
-NO_FMA = [("  for (; j + 4 <= n; j += 4) {", "  for (; j + 4 <= 4; j += 4) {"),
-          ("  for (; j < n; ++j) {  // N % 4 tail",
-           "  for (; j < 0; ++j) {  // N % 4 tail")]
+NO_FMA = [("common.cuh", "  for (; j + 4 <= n; j += 4) {",
+           "  for (; j + 4 <= 4; j += 4) {"),
+          ("common.cuh", "  for (; j < n; ++j) {  // n % 4 tail",
+           "  for (; j < 0; ++j) {  // n % 4 tail")]
 VARIANTS = {"as_built": [], "no_quantizer": NO_QUANTIZER, "no_fma": NO_FMA,
             "neither": NO_QUANTIZER + NO_FMA}
 
 
 def build(name: str, edits, ops) -> ctypes.CDLL:
-    """dct_quant.cu and encode_fused.cu with `edits` made to dct_quant.cuh,
-    as one shared library."""
+    """dct_quant.cu and encode_fused.cu with `edits` made to a copy of the
+    sources, as one shared library."""
     out = os.path.join(BUILD, name)
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(CSRC, out)
-    path = os.path.join(out, "dct_quant.cuh")
-    text = open(path).read()
-    for old, new in edits:
+    for fname, old, new in edits:
+        path = os.path.join(out, fname)
+        text = open(path).read()
         if old not in text:
-            sys.exit("levels_profile: kernel text changed, not found: "
-                     f"{old!r}")
-        text = text.replace(old, new, 1)
-    open(path, "w").write(text)
+            sys.exit("levels_profile: kernel text changed, not found in "
+                     f"{fname}: {old!r}")
+        open(path, "w").write(text.replace(old, new, 1))
     so = os.path.join(out, f"levels_{name}.so")
     subprocess.run([ops._nvcc(), *ops._FLAGS, "-shared", "-o", so,
                     os.path.join(out, "dct_quant.cu"),

@@ -13,7 +13,7 @@
 // transforms the other (stage_windows_async).  Every thread owns an RW x 4
 // register tile of (window, band) outputs: per 4 j-steps it reads RW
 // float4s of x and 4 float4 rows of the basis and does 16 RW FMAs
-// (dct_tile).  Where the band groups divide the 8 warps, a warp holds one
+// (fma_tile).  Where the band groups divide the 8 warps, a warp holds one
 // band group (tile_coords), so its lanes take one branch of the quantizer
 // (zones are per band), which quantizes a band at a time with the
 // thread's RW outputs interleaved (quantize_tile).  Windows lie at a stride
@@ -61,9 +61,7 @@
 
 #include <map>
 #include <mutex>
-#include <set>
 #include <tuple>
-#include <utility>
 
 #include "common.cuh"
 
@@ -234,50 +232,6 @@ __device__ __forceinline__ void tile_coords(const DctTile& t, int* kg,
   }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Item `it` (from threadIdx.x, blockDim.x apart) of a [rows][per] loop as
-// (row r, column j), stepped without a division.
-struct Walk {
-  int r, j, dr, dj, per;
-  __device__ __forceinline__ explicit Walk(int per_) : per(per_) {
-    r = threadIdx.x / per;
-    j = threadIdx.x - r * per;
-    dr = blockDim.x / per;
-    dj = blockDim.x - dr * per;
-  }
-  __device__ __forceinline__ void step() {
-    r += dr;
-    j += dj;
-    if (j >= per) {
-      j -= per;
-      ++r;
-    }
-  }
-};
-
 // Start copying `count` windows of N samples into shared memory at `dst`,
 // window w at dst + w * stride: sample p of the block (from 0) is src[p]
 // for p < avail and an exact zero past it, and no sample at or past avail
@@ -318,60 +272,6 @@ __device__ __forceinline__ void stage_basis_quant(float* s_basis,
   stage_quant(s_quant, q, e);
 }
 
-// The thread's RW x 4 tile: acc[i][c] = the chain over j of x[i * wstride +
-// j] * b[j * ep + c], j ascending from 0.0f (x: the thread's first window;
-// b: its first band's column).
-template <int RW>
-__device__ __forceinline__ void dct_tile(const float* __restrict__ x,
-                                         int wstride,
-                                         const float* __restrict__ b, int ep,
-                                         int n, float (&acc)[RW][4]) {
-#pragma unroll
-  for (int i = 0; i < RW; ++i) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
-  }
-  int j = 0;
-#pragma unroll 2
-  for (; j + 4 <= n; j += 4) {
-    const float4 b0 = *reinterpret_cast<const float4*>(b + j * ep);
-    const float4 b1 = *reinterpret_cast<const float4*>(b + (j + 1) * ep);
-    const float4 b2 = *reinterpret_cast<const float4*>(b + (j + 2) * ep);
-    const float4 b3 = *reinterpret_cast<const float4*>(b + (j + 3) * ep);
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      const float4 v = *reinterpret_cast<const float4*>(x + i * wstride + j);
-      acc[i][0] = fmaf(v.x, b0.x, acc[i][0]);
-      acc[i][1] = fmaf(v.x, b0.y, acc[i][1]);
-      acc[i][2] = fmaf(v.x, b0.z, acc[i][2]);
-      acc[i][3] = fmaf(v.x, b0.w, acc[i][3]);
-      acc[i][0] = fmaf(v.y, b1.x, acc[i][0]);
-      acc[i][1] = fmaf(v.y, b1.y, acc[i][1]);
-      acc[i][2] = fmaf(v.y, b1.z, acc[i][2]);
-      acc[i][3] = fmaf(v.y, b1.w, acc[i][3]);
-      acc[i][0] = fmaf(v.z, b2.x, acc[i][0]);
-      acc[i][1] = fmaf(v.z, b2.y, acc[i][1]);
-      acc[i][2] = fmaf(v.z, b2.z, acc[i][2]);
-      acc[i][3] = fmaf(v.z, b2.w, acc[i][3]);
-      acc[i][0] = fmaf(v.w, b3.x, acc[i][0]);
-      acc[i][1] = fmaf(v.w, b3.y, acc[i][1]);
-      acc[i][2] = fmaf(v.w, b3.z, acc[i][2]);
-      acc[i][3] = fmaf(v.w, b3.w, acc[i][3]);
-    }
-  }
-  for (; j < n; ++j) {  // N % 4 tail
-    const float4 bj = *reinterpret_cast<const float4*>(b + j * ep);
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      const float v = x[i * wstride + j];
-      acc[i][0] = fmaf(v, bj.x, acc[i][0]);
-      acc[i][1] = fmaf(v, bj.y, acc[i][1]);
-      acc[i][2] = fmaf(v, bj.z, acc[i][2]);
-      acc[i][3] = fmaf(v, bj.w, acc[i][3]);
-    }
-  }
-}
-
 // One output by the same chain, for the few outputs outside a register
 // tile (K4's halo windows): x the window, b the band's column.
 __device__ __forceinline__ float dct_one(const float* x, const float* b,
@@ -379,49 +279,6 @@ __device__ __forceinline__ float dct_one(const float* x, const float* b,
   float acc = 0.0f;
   for (int j = 0; j < n; ++j) acc = fmaf(x[j], b[j * ep], acc);
   return acc;
-}
-
-// Let `kernel` take `bytes` of dynamic shared memory on the current device
-// where that is more than the default 48 KiB: its limit is raised to the
-// device's opt-in maximum, once per (device, kernel), so launches of one
-// kernel at several (N, E) all fit.  Returns the error, if any.
-inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  int max_smem = 0;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  if (bytes > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  static std::mutex mu;
-  static std::set<std::pair<int, const void*>> done;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_pair(device, kernel);
-  if (done.count(key)) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
-  if (err == cudaSuccess) done.insert(key);
-  return err;
-}
-
-// CTAs of `kernel` (kDctThreads threads, `smem` bytes) the current device
-// holds at once: its SMs times the CTAs an SM holds.
-inline cudaError_t resident_ctas(const void* kernel, size_t smem,
-                                 int64_t* out) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kDctThreads, smem);
-  if (err != cudaSuccess) return err;
-  *out = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  return cudaSuccess;
 }
 
 // The v3 coding of encode_levels (trivial for K5).
@@ -435,10 +292,6 @@ struct Coding {
 struct LevelsCarve {
   size_t quant, x, nz, rz, lv, carry, g, total;
 };
-
-__host__ __device__ inline size_t align16(size_t b) {
-  return (b + 15) & ~static_cast<size_t>(15);
-}
 
 // Bytes between the rows of the shared level tile: E rounded up to 4, an
 // odd number of words, so lanes on consecutive windows hit distinct banks.
@@ -571,7 +424,7 @@ __global__ void __launch_bounds__(kDctThreads, 2)
     const bool direct = words && !predict && !coding.zplanes;
     if (active) {
       float acc[RW][4];
-      dct_tile<RW>(xb + (2 + wg) * t.stride, t.wg * t.stride,
+      fma_tile<RW>(xb + (2 + wg) * t.stride, t.wg * t.stride,
                    s_basis + 4 * kg, t.ep, n, acc);
       uint32_t lv[RW];
       quantize_tile<RW>(acc, band, mu, log1p_mu, lv);
@@ -776,7 +629,7 @@ inline cudaError_t levels_geometry(int n, int e, LevelsGeometry* g) {
   }
   err = allow_smem(k, g->smem);
   if (err != cudaSuccess) return err;
-  err = resident_ctas(k, g->smem, &g->resident);
+  err = resident_ctas(k, kDctThreads, g->smem, &g->resident);
   if (err != cudaSuccess) return err;
   cache.emplace(key, g->resident);
   return cudaSuccess;

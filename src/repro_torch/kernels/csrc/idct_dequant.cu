@@ -3,15 +3,18 @@
 // Replaces repro/kernels/idct_dequant.py::idct_dequant (_kernel), the TPU
 // kernel at idct_dequant.py:104: levels [W, E] -> inline 3-zone dequant
 // (mu-law expm1/log1p in zone 0, linear deadzone in zone 1, zero in zone 2)
-// -> @ idct_basis [E, N] -> f32 [W, N].  It dequantizes inline, as that
-// kernel does, not from the LUT.
+// -> @ idct_basis [E, N] -> f32 [W, N].  It dequantizes by that kernel's
+// 3-zone formulas, not from quant_grid's LUT.
 //
 // What bounds it on the H100: the f32 output write (4 N bytes per window
-// against E level bytes read) at the memory rate; the expm1f per zone-0
-// coefficient and the FMA loop are the compute side (see dequant_idct.cuh).
-// Design: the same CTA template as K2's last stage, with the zone table,
-// scales and (mu, alpha1, log1p(mu)) staged in shared memory in place of
-// the LUT; mu and alpha1 are read on the device, so no host sync.
+// against E level bytes read) at the memory rate (see dequant_idct.cuh).
+// Design: the template of K2's last stage.  Each CTA builds the E x 256
+// dequant table on the device once, by the unchanged inline 3-zone dequant
+// (ZoneDequant::apply) for every (band, level), from zone, scale, mu and
+// alpha1 (read on the device, so no host sync); the windows then take the
+// same table path as the LUT-iDCT.  The reference evaluates the dequant per
+// coefficient; the table holds the same values for 2^21 x 16 coefficients
+// at the cost of 4096 evaluations a CTA.
 #include "dequant_idct.cuh"
 
 // levels u8[num_windows, e], zone i32[e], scale f32[e], mu f32[1],

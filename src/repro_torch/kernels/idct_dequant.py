@@ -1,12 +1,13 @@
 """K3: fused 3-zone dequant + inverse DCT for fixed-rate (entropy-off)
 blocks — the KV-cache decode.
 
-CUDA kernel: ``csrc/idct_dequant.cu`` (``fptc_idct_dequant``), which
-replaces ``repro/kernels/idct_dequant.py::idct_dequant``: it dequantizes
-inline (mu-law ``expm1``/``log1p`` in zone 0, linear deadzone in zone 1,
-zero in zone 2), as that kernel does, then multiplies by the iDCT basis.
-The source's header says what bounds it on the H100 and what its design
-does about it.
+CUDA kernel: ``csrc/idct_dequant.cu`` (``fptc_idct_dequant``, on the
+template of ``csrc/dequant_idct.cuh``), which replaces
+``repro/kernels/idct_dequant.py::idct_dequant``: it dequantizes by that
+kernel's 3-zone formulas (mu-law ``expm1``/``log1p`` in zone 0, linear
+deadzone in zone 1, zero in zone 2), tabulated once a CTA on the device
+for every (band, level), then multiplies by the iDCT basis.  The sources'
+headers say what bounds it on the H100 and what its design does about it.
 
 Plain version: :func:`idct_dequant_plain`, the math of the reference's
 ``kernels/ref.py::idct_dequant_ref``.  :func:`idct_dequant` takes it for

@@ -41,6 +41,9 @@ from _pack_layouts import LAYOUTS as PACK_LAYOUTS
 from _pack_layouts import pack_case
 from _levels_layouts import CODINGS as LEVEL_CODINGS
 from _levels_layouts import PAIRS, dct_case, levels_case, walk_rows, widths
+from _idct_layouts import PAIRS as IDCT_PAIRS
+from _idct_layouts import every_level, idct_case
+from _idct_layouts import widths as idct_widths
 from _v3_layouts import LAYOUTS, v3_stage_case
 
 pytestmark = pytest.mark.gpu
@@ -588,6 +591,69 @@ def test_k5_kernel_on_layouts(cuda, shape):
                 assert torch.equal(got, want)
             else:
                 assert_flip_rule(got, want)
+
+
+IDCT_SHAPES = [(e, n, w) for e, n in IDCT_PAIRS for w in idct_widths(e, n)]
+
+
+def _idct_runs(kernel, c, cuda):
+    """(the wrapper on some levels, its plain version) for one layout."""
+    basis = torch.from_numpy(c["basis"]).to(cuda)
+    if kernel == "lut_idct":
+        lut = torch.from_numpy(c["lut"]).to(cuda)
+        return (lambda lv: df.lut_idct(lv, lut, basis),
+                lambda lv: df.lut_idct_plain(lv, lut, basis))
+    q = _layout_quant(c, cuda)
+    return (lambda lv: idq.idct_dequant(lv, q, basis),
+            lambda lv: idq.idct_dequant_plain(lv, q, basis))
+
+
+@pytest.mark.parametrize("shape", IDCT_SHAPES,
+                         ids=lambda s: "e{}-n{}-w{}".format(*s))
+@pytest.mark.parametrize("kernel", ["lut_idct", "idct_dequant"])
+def test_idct_kernels_on_layouts(cuda, kernel, shape):
+    """lut_idct and K3 on the layouts of tests/_idct_layouts.py (1 window,
+    less than a tile, one past a multiple of it, and enough tiles that every
+    persistent CTA walks more than 4): against the plain version within the
+    float bound, and from a levels base at each byte offset 1-15 equal bit
+    for bit to the aligned run."""
+    e, n, w = shape
+    c = idct_case(e, n, w)
+    run, plain = _idct_runs(kernel, c, cuda)
+    levels = torch.from_numpy(c["levels"]).to(cuda)
+    before = ops.LAUNCHES[kernel]
+    got = run(levels)
+    assert ops.LAUNCHES[kernel] == before + 1
+    assert_close(got, plain(levels))
+    flat = levels.reshape(-1)
+    buf = torch.empty(flat.numel() + 16, dtype=torch.uint8, device=cuda)
+    for off in range(1, 16):
+        buf[off:off + flat.numel()] = flat
+        lv = buf[off:off + flat.numel()].view(w, e)
+        assert lv.data_ptr() % 16 == off
+        assert torch.equal(run(lv), got)
+
+
+@pytest.mark.parametrize("pair", IDCT_PAIRS,
+                         ids=lambda p: "e{}-n{}".format(*p))
+def test_idct_kernels_every_level(cuda, pair):
+    """Every level in every band (levels [256, E], basis [I_E | 0]), so the
+    output's first E columns are the dequant table: lut_idct's equal to the
+    LUT (transposed) exactly, K3's to the plain dequantize within the float
+    bound; the other columns zero."""
+    from repro_torch.core.quantize import dequantize
+
+    e, n = pair
+    c = idct_case(e, n, 1)
+    levels, eye = (torch.from_numpy(a).to(cuda) for a in every_level(e, n))
+    lut = torch.from_numpy(c["lut"]).to(cuda)
+    got = df.lut_idct(levels, lut, eye)
+    assert torch.equal(got[:, :e], lut.T)
+    assert not got[:, e:].any()
+    q = _layout_quant(c, cuda)
+    got = idq.idct_dequant(levels, q, eye)
+    assert_close(got[:, :e].contiguous(), dequantize(levels, q))
+    assert not got[:, e:].any()
 
 
 def test_encode_engine_on_card_matches_cpu(cuda):
