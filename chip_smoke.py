@@ -44,7 +44,14 @@ digests below must then match).  Phases, one JSON line each:
      Algorithm 1 of each row's valid symbols;
      K6's whole tile (``huffman_decode_tile``) on each archive bucket
      exactly, and compacted (``compact_padded_scatter``) equal to K1's dense
-     output; ``encode_levels_gather`` on one bucket per plan key, its rows
+     output; K1 and K6 on the adversarial layouts of
+     ``tests/_symlen_layouts.py`` (each l_max of 1, 2, 8, 12, 13 and 16
+     under each layout, at enough words that every warp of K1 walks more
+     than 4 tiles; K1 at num_symbols below, at and past the
+     total) against the plain versions exactly, and K6 compacted equal to
+     K1; the decode table both run on, built on the card for every l_max
+     in [1, 16] (three codes each), equal to the plain table entry by
+     entry; ``encode_levels_gather`` on one bucket per plan key, its rows
      gathered from that bucket's decoded windows, equal to
      ``encode_levels`` on the materialized rows exactly, with the DCT and
      the identity basis; the DCT + quantize layouts of
@@ -62,11 +69,12 @@ digests below must then match).  Phases, one JSON line each:
      the output's first E columns are the dequant table): the LUT-iDCT
      equal to each archive plan's LUT exactly, K3 within the float bound of
      the plain ``dequantize`` for the KV table and each archive plan's.
-     The check line carries a ``sha256`` of each archive bucket's
-     ``lut_idct`` output, of K3's KV output and of its every-level tables,
-     of each archive bucket's ``encode_levels`` outputs (grid, zrow, zcol,
-     ncoded, DCT basis), of each gather bucket's, and of K5's KV levels, so
-     that a later build of these kernels can be compared byte for byte;
+     The check line carries a ``sha256`` of each archive bucket's K1
+     output, K6 tile and ``lut_idct`` output, of K3's KV output and of its
+     every-level tables, of each archive bucket's ``encode_levels``
+     outputs (grid, zrow, zcol, ncoded, DCT basis), of each gather
+     bucket's, and of K5's KV levels, so that a later build of these
+     kernels can be compared byte for byte;
   5. main   — with every launch counter set to 0: ``BatchDecoder().decode
      (archive).to_host()`` and ``decode_fixed`` of the KV block, then the
      counters (K2's ``symlen_decode`` and ``lut_idct`` once per bucket,
@@ -99,7 +107,9 @@ digests below must then match).  Phases, one JSON line each:
   9. times  — per kernel, CUDA-event ms after warm-up beside the plain
      version's ms and the card's bound for the same work; per encode
      bucket (``k4_by_bucket``) ``encode_levels``' ms and bound beside
-     ``symlen_pack``'s, chunked and exact.
+     ``symlen_pack``'s, chunked and exact; and per kernel the CUDA kernels
+     one wrapper call puts on the card (``grids_per_call``), counted by
+     ``torch.profiler`` over one call on the first bucket that runs it.
 
 Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
 ...}``.  Any failed check exits non-zero before the last line.
@@ -186,6 +196,32 @@ def cuda_ms(fn, reps: int = 5) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def grids_per_call(name: str, fn) -> float:
+    """The CUDA kernels (not copies or memsets) that one call of ``fn`` puts
+    on the card, by ``torch.profiler``, over the wrapper calls of ``name``
+    that the launch counter saw in it (a counter counts wrapper calls, and
+    a wrapper may launch several kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    fn()
+    torch.cuda.synchronize()
+    before = ops.LAUNCHES[name]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = ops.LAUNCHES[name] - before
+    grids = sum(ev.count for ev in prof.key_averages()
+                if "CUDA" in str(getattr(ev, "device_type", ""))
+                and not ev.key.startswith(("Memcpy", "Memset")))
+    check(calls > 0 and grids > 0, f"{name}: the profiler saw {grids} "
+          f"kernels in {calls} wrapper calls")
+    return grids // calls if grids % calls == 0 else grids / calls
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -409,6 +445,10 @@ def main() -> None:
     from _levels_layouts import BIG, CODINGS as LEVEL_CODINGS
     from _levels_layouts import dct_case, levels_case, walk_rows
     from _idct_layouts import every_level
+    from _symlen_layouts import BIG as SYMLEN_BIG
+    from _symlen_layouts import L_MAXES as SYMLEN_L_MAXES
+    from _symlen_layouts import LAYOUTS as SYMLEN_LAYOUTS
+    from _symlen_layouts import num_symbols_cases, symlen_case
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -482,8 +522,9 @@ def main() -> None:
     checks = {"symlen_decode": [], "v3_unpredict": [], "lut_idct": [],
               "decode_fused": [], "idct_dequant": [], "encode_levels": [],
               "symlen_pack": [], "dct_quant": [], "symlen_tile": [],
-              "encode_levels_gather": []}
-    digests = {"lut_idct": [], "idct_dequant": [], "encode_levels": [],
+              "encode_levels_gather": [], "symlen_lut": []}
+    digests = {"symlen_decode": [], "symlen_tile": [], "lut_idct": [],
+               "idct_dequant": [], "encode_levels": [],
                "encode_levels_gather": [], "dct_quant": []}
     for b in buckets:
         p, kw = b["plan"], dict(l_max=b["plan"].l_max, max_symlen=b["ms"])
@@ -493,6 +534,8 @@ def main() -> None:
                                      num_symbols=nsym, **kw)
         k1p = hd.huffman_decode_plain(b["words"], b["symlen"], p.tables,
                                       num_symbols=nsym, **kw)
+        digests["symlen_decode"].append({"plan_key": key,
+                                         "sha256": digest([k1])})
         lv_kw = dict(num_windows=b["nw"], e=p.e, coding=p.coding, **kw)
         lvp = df.bucket_levels_plain(b["words"], b["symlen"], p.tables,
                                      b["v3"], **lv_kw)
@@ -539,6 +582,8 @@ def main() -> None:
               "compact_equals_k1": bool(torch.equal(
                   compact.to(torch.uint8), k1))}
         checks["symlen_tile"].append(c6)
+        digests["symlen_tile"].append({"plan_key": key,
+                                       "sha256": digest([tile])})
         check(c6["equal"] and c6["compact_equals_k1"],
               f"K6 tile differs: {c6}")
         del tile, tilep, compact
@@ -565,6 +610,73 @@ def main() -> None:
             checks["v3_unpredict"].append(cv)
             check(cv["equal"], f"v3 levels differ from plain: {cv}")
         del adv, un, unp
+    # K1 and K6 on the adversarial layouts of tests/_symlen_layouts.py at
+    # SYMLEN_BIG words (every warp of K1 walks more than 4 tiles): K1 at
+    # num_symbols below, at and past the total, K6's whole tile, and K6
+    # compacted against K1
+    t_sl = time.perf_counter()
+
+    def layout_tables(lengths, l_max):
+        from repro_torch.core.calibration import DomainTables
+        from repro_torch.core.config import CodecConfig
+        from repro_torch.core.huffman import codebook_from_lengths
+        from repro_torch.core.quantize import quant_table_from_arrays
+
+        return DomainTables(
+            config=CodecConfig(n=8, e=8, b1=0, b2=8, l_max=l_max),
+            quant=quant_table_from_arrays(np.zeros(8), np.ones(8), 50.0,
+                                          0.0),
+            book=codebook_from_lengths(lengths, l_max),
+        ).device_tables("cuda")
+
+    for l_max in SYMLEN_L_MAXES:
+        for layout in SYMLEN_LAYOUTS:
+            c = symlen_case(l_max, layout, SYMLEN_BIG, seed=args.seed)
+            tabs = layout_tables(c["lengths"], l_max)
+            lw = torch.from_numpy(c["words"].view(np.int64)).cuda()
+            ls = torch.from_numpy(c["symlen"]).cuda()
+            kw = dict(l_max=l_max, max_symlen=c["max_symlen"])
+            name = f"layout l_max={l_max} {layout}"
+            for nsym in num_symbols_cases(c["total"]):
+                a = hd.huffman_decode_dense(lw, ls, tabs, num_symbols=nsym,
+                                            **kw)
+                ap = hd.huffman_decode_plain(lw, ls, tabs, num_symbols=nsym,
+                                             **kw)
+                cc = {"plan_key": name, "symbols": nsym,
+                      "equal": bool(torch.equal(a, ap)),
+                      "max_abs_err": int_err(a, ap)}
+                checks["symlen_decode"].append(cc)
+                check(cc["equal"], f"K1 differs from plain: {cc}")
+            nsym = max(1, c["total"])
+            t6 = hd.huffman_decode_tile(lw, tabs, **kw)
+            t6p = hd.huffman_decode_tile_plain(lw, tabs, **kw)
+            cc = {"plan_key": name, "slots": t6.numel(),
+                  "equal": bool(torch.equal(t6, t6p)),
+                  "max_abs_err": int_err(t6, t6p),
+                  "compact_equals_k1": bool(torch.equal(
+                      symlen.compact_padded_scatter(t6.T, ls, nsym).to(
+                          torch.uint8),
+                      hd.huffman_decode_dense(lw, ls, tabs, num_symbols=nsym,
+                                              **kw)))}
+            checks["symlen_tile"].append(cc)
+            check(cc["equal"] and cc["compact_equals_k1"],
+                  f"K6 tile differs: {cc}")
+            del a, ap, t6, t6p
+    # the decode table both run on, built on the card by K1's first kernel
+    # for every l_max in [1, 16] (three codes each), against the plain table
+    # entry by entry (a port without it, driven by --src, skips this)
+    for l_max in range(1, 17) if hasattr(hd, "decode_lut") else ():
+        for layout in ("stream", "one_bit", "random"):
+            tabs = layout_tables(symlen_case(l_max, layout, 1)["lengths"],
+                                 l_max)
+            got = hd.decode_lut(tabs, l_max=l_max)
+            want = hd.decode_lut_plain(tabs, l_max=l_max)
+            cc = {"l_max": l_max, "code": layout, "entries": got.numel(),
+                  "equal": bool(torch.equal(got, want)),
+                  "max_abs_err": int_err(got, want)}
+            checks["symlen_lut"].append(cc)
+            check(cc["equal"], f"decode table differs from plain: {cc}")
+    symlen_layouts_s = time.perf_counter() - t_sl
     kv_flat = kv_levels.reshape(-1, 16)
     kv_q = kv_tab.device_tables("cuda").quant
     kv_basis = dct.idct_basis(16, 16, device="cuda")
@@ -887,7 +999,8 @@ def main() -> None:
           and c5["levels_equal_encode_fixed"], f"K5 differs: {c5}")
     emit({"phase": "check", "seconds": time.perf_counter() - t0,
           "adversarial_pack_seconds": adversarial_pack_s,
-          "levels_layouts_seconds": levels_layouts_s, "sha256": digests,
+          "levels_layouts_seconds": levels_layouts_s,
+          "symlen_layouts_seconds": symlen_layouts_s, "sha256": digests,
           "tolerance": f"max|d| <= {REL_TOL} * max|plain|; levels with the "
           f"DCT basis: |d| <= 1 in at most {FLIP_SHARE} of the cells",
           "flips": {k: sum(c.get("flips", 0) for c in checks[k])
@@ -1198,6 +1311,48 @@ def main() -> None:
                               "of the cells"}})
 
     # -- 9. times -------------------------------------------------------------------
+    # first, the CUDA kernels one wrapper call of each kernel puts on the
+    # card, on the first bucket that runs it, the profiler sessions one
+    # after another (K3's session, placed after the timing loops below,
+    # saw no kernel on the H100, though K3 alone in a process is seen)
+    b0, bv = buckets[0], next(b for b in buckets if b["v3"] is not None)
+    p0, pv = b0["plan"], bv["plan"]
+    kw0 = dict(l_max=p0.l_max, max_symlen=b0["ms"])
+    a0 = (b0["words"], b0["symlen"], p0.tables)
+    dense_v = hd.huffman_decode_dense(
+        bv["words"], bv["symlen"], pv.tables, num_symbols=bv["nw"] * pv.e,
+        l_max=pv.l_max, max_symlen=bv["ms"])
+    levels0 = df.bucket_levels(*a0, b0["v3"], num_windows=b0["nw"], e=p0.e,
+                               coding=p0.coding, **kw0)
+    eb, gb = ebuckets[0], gbuckets[0]
+    pe, pg = eb["plan"], gb["plan"]
+    ekw = dict(n=pe.n, e=pe.e, coding=pe.coding)
+    g0 = ef.encode_levels(eb["x"], eb["counts"], pe.tables.quant, pe.basis,
+                          **ekw)
+    grids = {name: grids_per_call(name, fn) for name, fn in (
+        ("symlen_decode", lambda: hd.huffman_decode_dense(
+            *a0, num_symbols=b0["nw"] * p0.e, **kw0)),
+        ("symlen_tile", lambda: hd.huffman_decode_tile(
+            b0["words"], p0.tables, **kw0)),
+        ("v3_unpredict", lambda: df.v3_expand_unpredict_cuda(
+            dense_v, *bv["v3"], num_windows=bv["nw"], e=pv.e,
+            pred_id=pv.coding[0], bands=pv.coding[1])),
+        ("lut_idct", lambda: df.lut_idct(levels0, p0.lut, p0.basis)),
+        ("idct_dequant", lambda: idq.idct_dequant(kv_flat, kv_q, kv_basis)),
+        ("encode_levels", lambda: ef.encode_levels(
+            eb["x"], eb["counts"], pe.tables.quant, pe.basis, **ekw)),
+        ("symlen_pack", lambda: ef.symlen_pack(
+            *g0[:3], eb["counts"], pe.tables.codes, pe.tables.lengths,
+            chunk_size=eb["chunk"], coding=pe.coding,
+            check_gaps=pe.has_gaps)),
+        ("encode_levels_gather", lambda: ef.encode_levels_gather(
+            gb["flat"], gb["starts"], gb["lens"], gb["counts"],
+            pg.tables.quant, pg.basis, width=gb["width"], n=pg.n, e=pg.e,
+            coding=pg.coding)),
+        ("dct_quant", lambda: dq.dct_quant(kv_win, kv_eq, e=16, basis=kv_db,
+                                           exact=True)),
+    )}
+    del dense_v, levels0, g0
     # per kernel: [ms, plain ms, bytes moved, operations], summed over the
     # buckets; K2 as a whole (its three kernels in a row) beside them, and
     # K4 as a whole (encode_levels then symlen_pack)
@@ -1372,6 +1527,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": srcfile,
             "replaces": replaces, "launches": counts_of[PATH_OF[name]][name],
+            "grids_per_call": grids[name],
             "max_abs_err": max(c["max_abs_err"] for c in checks[name]),
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": None,

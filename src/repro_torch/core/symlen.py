@@ -53,6 +53,7 @@ __all__ = [
     "unpack_symlen",
     "compact_padded_scatter",
     "decode_tile",
+    "decode_lut",
     "halves_to_words",
     "words_to_u32",
     "u32_to_words",
@@ -611,19 +612,41 @@ def _decode_tables(dec_limit, dec_first, dec_rank, dec_syms):
                  for t in (dec_limit, dec_first, dec_rank, dec_syms))
 
 
-def _decode_slot(cur: torch.Tensor, tabs, l_max: int):
-    """Decode the symbol at the top of every word ``cur`` (int64 bit
-    patterns) and consume its codeword: steps 1-5 of
-    :func:`unpack_symlen`, with the length clamp and the rank clip, so
-    every bit pattern decodes to a defined symbol.  Returns ``(symbol
-    int64[W], the shifted words)``."""
+def _decode_prefix(prefix: torch.Tensor, tabs, l_max: int):
+    """Steps 2-4 of :func:`unpack_symlen` for the top ``l_max`` bits
+    ``prefix`` (int64) of words, with the length clamp and the rank clip,
+    so every bit pattern decodes to a defined symbol.  Returns ``(symbol,
+    length)``, both int64."""
     limit, first, rank_off, syms = tabs
-    prefix = (cur >> (WORD_BITS - l_max)) & ((1 << l_max) - 1)
     length = 1 + (prefix[None, :] >= limit[:, None]).sum(0)
     length = torch.clamp(length, max=l_max)
     diff = (prefix - first[length]) & _U32
     rank = rank_off[length] + _as_i32(diff >> (l_max - length))
-    return syms[torch.clamp(rank, 0, 255)], cur << length
+    return syms[torch.clamp(rank, 0, 255)], length
+
+
+def _decode_slot(cur: torch.Tensor, tabs, l_max: int):
+    """Decode the symbol at the top of every word ``cur`` (int64 bit
+    patterns) and consume its codeword: steps 1-5 of
+    :func:`unpack_symlen`.  Returns ``(symbol int64[W], the shifted
+    words)``."""
+    prefix = (cur >> (WORD_BITS - l_max)) & ((1 << l_max) - 1)
+    sym, length = _decode_prefix(prefix, tabs, l_max)
+    return sym, cur << length
+
+
+def decode_lut(dec_limit, dec_first, dec_rank, dec_syms, *,
+               l_max: int) -> torch.Tensor:
+    """The decode table of the canonical code: int16[2**l_max], entry ``p``
+    the symbol (bits 0-7) and the codeword length (bits 8-15) that a word
+    whose top ``l_max`` bits are ``p`` decodes to — :func:`_decode_slot`'s
+    arithmetic for every prefix, so a table read and a shift by the length
+    decode exactly as the arithmetic does (the paper's 2**l_max LUT)."""
+    tabs = _decode_tables(dec_limit, dec_first, dec_rank, dec_syms)
+    prefix = torch.arange(1 << l_max, dtype=torch.int64,
+                          device=dec_syms.device)
+    sym, length = _decode_prefix(prefix, tabs, l_max)
+    return (sym | (length << 8)).to(torch.int16)
 
 
 def decode_tile(words, dec_limit, dec_first, dec_rank, dec_syms, *,

@@ -9,8 +9,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include <map>
 #include <mutex>
 #include <set>
+#include <tuple>
 #include <utility>
 
 #define FPTC_EXPORT extern "C" __attribute__((visibility("default")))
@@ -66,16 +68,6 @@ __device__ __forceinline__ T block_exclusive_scan(T v, Op op, T identity,
   const T base = warp > 0 ? op(warp_aggs[warp - 1], ex) : ex;
   __syncthreads();
   return base;
-}
-
-struct Plus {
-  __device__ int32_t operator()(int32_t a, int32_t b) const { return a + b; }
-};
-
-// The int32 sum scan (K1's offsets).
-__device__ __forceinline__ int32_t block_exclusive_scan(
-    int32_t v, int32_t* warp_sums, int32_t* total) {
-  return block_exclusive_scan(v, Plus{}, 0, warp_sums, total);
 }
 
 __host__ __device__ inline size_t align16(size_t b) {
@@ -198,10 +190,10 @@ __device__ __forceinline__ void fma_tile(const float* __restrict__ x,
 
 // Let `kernel` take `bytes` of dynamic shared memory on the current device
 // where that is more than the default 48 KiB: its limit is raised to the
-// device's opt-in maximum, once per (device, kernel), so launches of one
-// kernel at several shapes all fit.  Keyed by the kernel: a process that
-// loads two builds of a library shares this function's static state between
-// them.  Returns the error, if any.
+// device's opt-in maximum less the kernel's static shared memory, once per
+// (device, kernel), so launches of one kernel at several shapes all fit.
+// Keyed by the kernel: a process that loads two builds of a library shares
+// this function's static state between them.  Returns the error, if any.
 inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   int device = 0;
@@ -211,14 +203,18 @@ inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  if (bytes > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  const int room = max_smem - static_cast<int>(attr.sharedSizeBytes);
+  if (bytes > static_cast<size_t>(room)) return cudaErrorInvalidValue;
   static std::mutex mu;
   static std::set<std::pair<int, const void*>> done;
   std::lock_guard<std::mutex> lock(mu);
   const auto key = std::make_pair(device, kernel);
   if (done.count(key)) return cudaSuccess;
   err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, room);
   if (err == cudaSuccess) done.insert(key);
   return err;
 }
@@ -238,6 +234,33 @@ inline cudaError_t resident_ctas(const void* kernel, int threads, size_t smem,
                                                       threads, smem);
   if (err != cudaSuccess) return err;
   *out = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  return cudaSuccess;
+}
+
+// resident_ctas for a kernel that needs nothing but `smem` bytes sized per
+// launch: computed once per (device, kernel, threads, smem), after raising
+// the kernel's shared-memory limit where it needs more than 48 KiB.  Keyed
+// by the kernel, since a process that loads two builds of a library shares
+// this function's static state between them.
+inline cudaError_t cached_resident_ctas(const void* kernel, int threads,
+                                        size_t smem, int64_t* out) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int, size_t>, int64_t> cache;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(device, kernel, threads, smem);
+  auto it = cache.find(key);
+  if (it != cache.end()) {
+    *out = it->second;
+    return cudaSuccess;
+  }
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  err = resident_ctas(kernel, threads, smem, out);
+  if (err != cudaSuccess) return err;
+  cache.emplace(key, *out);
   return cudaSuccess;
 }
 

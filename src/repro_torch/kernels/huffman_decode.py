@@ -1,12 +1,17 @@
 """K1: word-parallel SymLen Huffman decode + compaction; K6: the slot-major
-decode tile.
+decode tile; and the decode table both run on.
 
 CUDA kernel: ``csrc/symlen_decode.cu`` (``fptc_symlen_decode``), which
 replaces ``repro/kernels/huffman_decode.py::huffman_decode_dense``.  The
 source's header says what bounds it on the H100 and how its design differs
-from the TPU kernel: a device-wide exclusive scan of the symlen sidecar in
-place of the running base carried across the sequential TPU grid, one
-thread per native 64-bit word, and the canonical tables in shared memory.
+from the TPU kernel: two launches from one call — a reduce pass that sums
+the symlen sidecar over each warp's segment of tiles and builds the decode
+table in the workspace, then persistent CTAs whose warps walk their own
+segments in order, decoding each word by table reads into a shared-memory
+stage and storing each tile's contiguous run of output bytes in 16-byte
+stores.  It writes every output byte, zeros included, so the output is
+taken with ``torch.empty``; its scratch (the table and the segments' sums)
+comes from :func:`ops.workspace`.
 
 Plain version: :func:`repro_torch.core.symlen.unpack_symlen`, the math of
 the reference's XLA arm.  :func:`huffman_decode_dense` takes it for CPU
@@ -17,16 +22,23 @@ K6, ``csrc/symlen_tile.cu`` (``fptc_symlen_tile``), replaces
 every word decoded into a slot-major int32 tile ``[max_symlen, W]``, no
 compaction.  It lies on no serving path of either package; it is the staged
 decode (tile, then ``core.symlen.compact_padded_scatter``) that holds K1
-independently.  Both kernels run the one per-symbol step of
-``csrc/symlen_step.cuh``.  Plain version: :func:`huffman_decode_tile_plain`
+independently.  Plain version: :func:`huffman_decode_tile_plain`
 (``core.symlen.decode_tile``), the twin of the reference's
 ``kernels/ref.py::huffman_decode_padded_ref``.
+
+Both kernels decode through the table of ``csrc/symlen_step.cuh``: entry
+``p`` of 2**l_max is the symbol and the codeword length of a word whose
+top ``l_max`` bits are ``p``, built on the device by the canonical
+arithmetic, so a symbol is one table read and a shift.  Plain version:
+:func:`decode_lut_plain`; :func:`decode_lut` builds it on the card by K1's
+first kernel (``fptc_symlen_lut``) for the checks.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.calibration import DeviceTables
+from repro_torch.core.symlen import decode_lut as _decode_lut
 from repro_torch.core.symlen import decode_tile, unpack_symlen
 from repro_torch.kernels import ops
 
@@ -38,9 +50,15 @@ __all__ = [
     "huffman_decode_tile_plain",
     "huffman_decode_padded",
     "symlen_tile_cuda",
+    "decode_lut",
+    "decode_lut_plain",
+    "symlen_lut_cuda",
 ]
 
-SCAN_BLOCK = 1024  # words per block of the kernel's offset scan
+# K1's workspace: the decode table's region (2**16 entries of 2 bytes),
+# then the int64 sums of the decode's CTAs and of their 8 warps each, 72
+# bytes a CTA: room for 910 CTAs (the launcher caps its grid there)
+WORKSPACE_BYTES = (2 << 16) + 8 * 8192
 
 
 def huffman_decode_plain(words, symlen, tables: DeviceTables, *, l_max: int,
@@ -53,14 +71,9 @@ def huffman_decode_plain(words, symlen, tables: DeviceTables, *, l_max: int,
     )
 
 
-def _check_decode_args(name: str, words, tables: DeviceTables,
-                       l_max: int) -> None:
-    """The checks K1 and K6 share: int64 words [W] and int32 tables for
-    ``l_max``, on the words' CUDA device."""
-    dev = words.device
-    if words.dtype != torch.int64 or words.ndim != 1:
-        raise TypeError(f"{name} takes int64 words [W], got {words.dtype} "
-                        f"{tuple(words.shape)}")
+def _check_tables(name: str, tables: DeviceTables, l_max: int,
+                  dev: torch.device) -> None:
+    """int32 decode tables for ``l_max`` on ``dev``."""
     if not 1 <= l_max <= 16 or tables.dec_limit.shape[0] != l_max:
         raise ValueError(f"tables do not match l_max={l_max}")
     parts = (tables.dec_limit, tables.dec_first, tables.dec_rank,
@@ -69,6 +82,23 @@ def _check_decode_args(name: str, words, tables: DeviceTables,
         raise ValueError(f"{name} inputs must share one CUDA device")
     if any(t.dtype != torch.int32 for t in parts):
         raise TypeError(f"{name} decode tables must be int32")
+
+
+def _check_decode_args(name: str, words, tables: DeviceTables,
+                       l_max: int) -> None:
+    """The checks K1 and K6 share: int64 words [W] and int32 tables for
+    ``l_max``, on the words' CUDA device."""
+    if words.dtype != torch.int64 or words.ndim != 1:
+        raise TypeError(f"{name} takes int64 words [W], got {words.dtype} "
+                        f"{tuple(words.shape)}")
+    _check_tables(name, tables, l_max, words.device)
+
+
+def _table_ptrs(tables: DeviceTables):
+    return (tables.dec_limit.contiguous().data_ptr(),
+            tables.dec_first.contiguous().data_ptr(),
+            tables.dec_rank.contiguous().data_ptr(),
+            tables.dec_syms.contiguous().data_ptr())
 
 
 def symlen_decode_cuda(words, symlen, tables: DeviceTables, *, l_max: int,
@@ -89,18 +119,12 @@ def symlen_decode_cuda(words, symlen, tables: DeviceTables, *, l_max: int,
         )
     words = words.contiguous()
     symlen = symlen.contiguous()
-    n = words.shape[0]
-    out = torch.zeros(num_symbols, dtype=torch.uint8, device=dev)
-    local = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
-    block = torch.empty(max(-(-n // SCAN_BLOCK), 1), dtype=torch.int32,
-                        device=dev)
+    out = torch.empty(num_symbols, dtype=torch.uint8, device=dev)
+    ws = ops.workspace(dev, WORKSPACE_BYTES)
     ops.launch(
         "symlen_decode", "fptc_symlen_decode", dev,
-        words.data_ptr(), symlen.data_ptr(), n, local.data_ptr(),
-        block.data_ptr(), tables.dec_limit.contiguous().data_ptr(),
-        tables.dec_first.contiguous().data_ptr(),
-        tables.dec_rank.contiguous().data_ptr(),
-        tables.dec_syms.contiguous().data_ptr(), l_max, max_symlen,
+        words.data_ptr(), symlen.data_ptr(), words.shape[0],
+        *_table_ptrs(tables), l_max, max_symlen, ws.data_ptr(), ws.numel(),
         out.data_ptr(), num_symbols,
     )
     return out
@@ -145,10 +169,7 @@ def symlen_tile_cuda(words, tables: DeviceTables, *, l_max: int,
         return out  # nothing to launch
     ops.launch(
         "symlen_tile", "fptc_symlen_tile", dev,
-        words.data_ptr(), n, tables.dec_limit.contiguous().data_ptr(),
-        tables.dec_first.contiguous().data_ptr(),
-        tables.dec_rank.contiguous().data_ptr(),
-        tables.dec_syms.contiguous().data_ptr(), l_max, max_symlen,
+        words.data_ptr(), n, *_table_ptrs(tables), l_max, max_symlen,
         out.data_ptr(),
     )
     return out
@@ -177,3 +198,33 @@ def huffman_decode_padded(words, tables: DeviceTables, *, l_max: int,
     """Word-major view of :func:`huffman_decode_tile`: [W, max_symlen]."""
     return huffman_decode_tile(words, tables, l_max=l_max,
                                max_symlen=max_symlen).T
+
+
+# ---------------------------------------------------------------------------
+# The decode table of K1 and K6.
+# ---------------------------------------------------------------------------
+def decode_lut_plain(tables: DeviceTables, *, l_max: int) -> torch.Tensor:
+    """The plain version of the kernels' decode table (runs on any device):
+    int16[2**l_max], entry ``p`` the symbol (bits 0-7) and codeword length
+    (bits 8-15) of prefix ``p``."""
+    return _decode_lut(tables.dec_limit, tables.dec_first, tables.dec_rank,
+                       tables.dec_syms, l_max=l_max)
+
+
+def symlen_lut_cuda(tables: DeviceTables, *, l_max: int) -> torch.Tensor:
+    """Build the decode table on the card by K1's first kernel, the code
+    that builds it for every decode: int16[2**l_max]."""
+    dev = tables.dec_syms.device
+    _check_tables("symlen_lut", tables, l_max, dev)
+    out = torch.empty(1 << l_max, dtype=torch.int16, device=dev)
+    ops.launch("symlen_lut", "fptc_symlen_lut", dev, *_table_ptrs(tables),
+               l_max, out.data_ptr())
+    return out
+
+
+def decode_lut(tables: DeviceTables, *, l_max: int) -> torch.Tensor:
+    """The decode table for ``tables``' device: built on the card by the
+    kernels' own code for CUDA tables, the plain version on the CPU."""
+    if ops.is_cuda(tables.dec_syms):
+        return symlen_lut_cuda(tables, l_max=l_max)
+    return decode_lut_plain(tables, l_max=l_max)

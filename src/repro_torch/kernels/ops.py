@@ -40,6 +40,7 @@ __all__ = [
     "launch",
     "build_log",
     "is_cuda",
+    "workspace",
 ]
 
 _I32_MAX = np.iinfo(np.int32).max
@@ -48,7 +49,8 @@ _I32_MAX = np.iinfo(np.int32).max
 # symlen_decode (K1, and K2's first stage), v3_unpredict and lut_idct (K2's
 # stages after K1), idct_dequant (K3), encode_levels and symlen_pack (K4's
 # two stages), encode_levels_gather (K4's first stage reading its rows
-# through a GatherStage), dct_quant (K5) and symlen_tile (K6)
+# through a GatherStage), dct_quant (K5), symlen_tile (K6), and symlen_lut
+# (K1's decode table built on its own, for the checks)
 LAUNCHES: Dict[str, int] = {
     "symlen_decode": 0,
     "v3_unpredict": 0,
@@ -59,6 +61,7 @@ LAUNCHES: Dict[str, int] = {
     "symlen_pack": 0,
     "dct_quant": 0,
     "symlen_tile": 0,
+    "symlen_lut": 0,
 }
 
 
@@ -116,8 +119,9 @@ _I = ctypes.c_int64
 # exported C functions and their argument types (pointers and the stream as
 # void*, sizes as int64)
 _SIGNATURES = {
-    "fptc_symlen_decode": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
+    "fptc_symlen_decode": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I,
                            _P],
+    "fptc_symlen_lut": [_P, _P, _P, _P, _I, _P, _P],
     "fptc_v3_expand_unpredict": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                                  _P],
     "fptc_lut_idct": [_P, _I, _I, _I, _P, _P, _P, _P],
@@ -238,18 +242,43 @@ def build_log() -> str:
     return _build_log
 
 
+def _stream(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the raw handle."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+_workspaces: Dict[tuple, torch.Tensor] = {}
+
+
+def workspace(device: torch.device, nbytes: int) -> torch.Tensor:
+    """Scratch bytes on ``device`` for launches on its current stream: one
+    buffer per (device, stream), kept across calls and grown on demand, so
+    a wrapper allocates no scratch per call.  Launches on one stream run in
+    order, so they may share it; another stream gets its own."""
+    key = (device.index, _stream(device))
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < nbytes:
+        ws = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        _workspaces[key] = ws
+    return ws
+
+
 def launch(name: str, fn: str, device: torch.device, *args) -> None:
     """Call the exported launcher ``fn`` on ``device`` and count one launch
     of ``name``; raise if the launch was refused.
 
-    ``device`` is made the current device for the call (the launchers read
-    its limits and launch in its context) and PyTorch's current stream on
-    it is passed as the launcher's last argument.
+    The launchers read the current device's limits and launch in its
+    context, so ``device`` is made current for the call where it is not;
+    PyTorch's current stream on it is passed as the launcher's last
+    argument.
     """
     lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    stream = _stream(device)
+    if device.index == torch.cuda.current_device():
         rc = getattr(lib, fn)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = getattr(lib, fn)(*args, stream)
     if rc != 0:
         msg = lib.fptc_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")

@@ -45,6 +45,11 @@ from _idct_layouts import PAIRS as IDCT_PAIRS
 from _idct_layouts import every_level, idct_case
 from _idct_layouts import widths as idct_widths
 from _v3_layouts import LAYOUTS, v3_stage_case
+from _symlen_layouts import BIG as SYMLEN_BIG
+from _symlen_layouts import COUNTS as SYMLEN_COUNTS
+from _symlen_layouts import L_MAXES
+from _symlen_layouts import LAYOUTS as SYMLEN_LAYOUTS
+from _symlen_layouts import num_symbols_cases, symlen_case
 
 pytestmark = pytest.mark.gpu
 
@@ -249,7 +254,7 @@ def test_k2_kernel_matches_plain(cuda, coding):
         "symlen_decode": 1, "v3_unpredict": int(v3 is not None),
         "lut_idct": 1, "idct_dequant": 0, "encode_levels": 0,
         "encode_levels_gather": 0, "symlen_pack": 0, "dct_quant": 0,
-        "symlen_tile": 0,
+        "symlen_tile": 0, "symlen_lut": 0,
     }
     want = df.decode_fused_plain(*args, lut, basis, v3, n=cfg.n, **kw)
     torch.cuda.synchronize()
@@ -654,6 +659,144 @@ def test_idct_kernels_every_level(cuda, pair):
     got = idq.idct_dequant(levels, q, eye)
     assert_close(got[:, :e].contiguous(), dequantize(levels, q))
     assert not got[:, e:].any()
+
+
+SYMLEN_CASES = [(l_max, layout) for l_max in L_MAXES
+                for layout in SYMLEN_LAYOUTS]
+
+
+def _symlen_tables(lengths, l_max, cuda):
+    from repro_torch.core.calibration import DomainTables
+    from repro_torch.core.config import CodecConfig
+    from repro_torch.core.huffman import codebook_from_lengths
+    from repro_torch.core.quantize import quant_table_from_arrays
+
+    return DomainTables(
+        config=CodecConfig(n=8, e=8, b1=0, b2=8, l_max=l_max),
+        quant=quant_table_from_arrays(np.zeros(8), np.ones(8), 50.0, 0.0),
+        book=codebook_from_lengths(lengths, l_max),
+    ).device_tables(cuda)
+
+
+def _symlen_inputs(c, cuda):
+    """(words, symlen) on the card as they are, and as views at an odd
+    offset of larger buffers."""
+    w = torch.from_numpy(c["words"].view(np.int64)).to(cuda)
+    s = torch.from_numpy(c["symlen"]).to(cuda)
+    n = w.numel()
+    wbuf = torch.zeros(n + 3, dtype=torch.int64, device=cuda)
+    sbuf = torch.zeros(n + 5, dtype=torch.uint8, device=cuda)
+    wbuf[1:n + 1] = w
+    sbuf[3:n + 3] = s
+    return [(w, s), (wbuf[1:n + 1], sbuf[3:n + 3])]
+
+
+@pytest.mark.parametrize("case", SYMLEN_CASES,
+                         ids=lambda c: "l{}-{}".format(*c))
+def test_k1_kernel_on_symlen_layouts(cuda, case):
+    """K1 on the layouts of tests/_symlen_layouts.py (word counts around a
+    tile and enough that every persistent CTA walks more than 4 tiles;
+    num_symbols below, at and past the total; aligned and odd-offset
+    inputs): every output byte equal to the plain version, written over a
+    buffer of garbage (the kernel writes its zeros itself)."""
+    l_max, layout = case
+    for count in (*SYMLEN_COUNTS, SYMLEN_BIG):
+        c = symlen_case(l_max, layout, count)
+        tables = _symlen_tables(c["lengths"], l_max, cuda)
+        for w, s in _symlen_inputs(c, cuda):
+            for nsym in num_symbols_cases(c["total"]):
+                kw = dict(l_max=l_max, max_symlen=c["max_symlen"],
+                          num_symbols=nsym)
+                want = hd.huffman_decode_plain(w, s, tables, **kw)
+                junk = torch.full((nsym,), 0xA5, dtype=torch.uint8,
+                                  device=cuda)
+                del junk  # its block is the next allocation of this size
+                before = ops.LAUNCHES["symlen_decode"]
+                got = hd.huffman_decode_dense(w, s, tables, **kw)
+                assert ops.LAUNCHES["symlen_decode"] == before + 1
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (count, nsym)
+
+
+@pytest.mark.parametrize("case", SYMLEN_CASES,
+                         ids=lambda c: "l{}-{}".format(*c))
+def test_k6_kernel_on_symlen_layouts(cuda, case):
+    """K6 on the same layouts: the whole tile equal to the plain version,
+    and compacted equal to K1's dense output."""
+    l_max, layout = case
+    for count in (*SYMLEN_COUNTS, SYMLEN_BIG):
+        c = symlen_case(l_max, layout, count)
+        tables = _symlen_tables(c["lengths"], l_max, cuda)
+        kw = dict(l_max=l_max, max_symlen=c["max_symlen"])
+        for w, s in _symlen_inputs(c, cuda):
+            before = ops.LAUNCHES["symlen_tile"]
+            got = hd.huffman_decode_tile(w, tables, **kw)
+            assert ops.LAUNCHES["symlen_tile"] == before + 1
+            want = hd.huffman_decode_tile_plain(w, tables, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), count
+            nsym = max(1, c["total"])
+            dense = compact_padded_scatter(got.T, s, nsym)
+            k1 = hd.huffman_decode_dense(w, s, tables, num_symbols=nsym, **kw)
+            assert torch.equal(dense.to(torch.uint8), k1), count
+
+
+def test_k1_threads_sharing_the_default_stream(cuda):
+    """Two host threads decoding different codebooks on the default stream
+    at once, with no synchronization between calls: K1's two launches of a
+    call share one workspace a stream, so a call's launches must not
+    interleave with another thread's.  Every output equal to the plain
+    version."""
+    import threading
+
+    cases = []
+    for l_max, layout in ((8, "stream"), (12, "random")):
+        c = symlen_case(l_max, layout, 40 * SYMLEN_COUNTS[1] + 3)
+        tables = _symlen_tables(c["lengths"], l_max, cuda)
+        w, s = _symlen_inputs(c, cuda)[0]
+        kw = dict(l_max=l_max, max_symlen=c["max_symlen"],
+                  num_symbols=c["total"] + 5)
+        cases.append((w, s, tables, kw,
+                      hd.huffman_decode_plain(w, s, tables, **kw)))
+    calls = 500
+    start = threading.Barrier(len(cases))
+    outs = [[] for _ in cases]
+    streams = [None] * len(cases)
+
+    def run(i):
+        w, s, tables, kw, _ = cases[i]
+        streams[i] = torch.cuda.current_stream(cuda)
+        start.wait()
+        for _ in range(calls):
+            outs[i].append(hd.huffman_decode_dense(w, s, tables, **kw))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for i, (*_, want) in enumerate(cases):
+        assert streams[i] == torch.cuda.default_stream(cuda)
+        assert len(outs[i]) == calls
+        bad = [j for j, got in enumerate(outs[i])
+               if not torch.equal(got, want)]
+        assert not bad, (i, bad[:10])
+
+
+@pytest.mark.parametrize("l_max", range(1, 17))
+def test_decode_lut_on_card(cuda, l_max):
+    """The decode table built on the card (by K1's first kernel) equal to
+    the plain table, entry by entry, for codes of three kinds."""
+    for layout in ("stream", "one_bit", "random"):
+        lengths = symlen_case(l_max, layout, 1)["lengths"]
+        tables = _symlen_tables(lengths, l_max, cuda)
+        before = ops.LAUNCHES["symlen_lut"]
+        got = hd.decode_lut(tables, l_max=l_max)
+        assert ops.LAUNCHES["symlen_lut"] == before + 1
+        want = hd.decode_lut_plain(tables, l_max=l_max)
+        assert got.dtype == torch.int16 and torch.equal(got, want)
 
 
 def test_encode_engine_on_card_matches_cpu(cuda):
