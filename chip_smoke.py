@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched decode, encode and transcode paths
-on one NVIDIA GPU.
+and its serving frontend on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--src DIR]
 
@@ -104,7 +104,49 @@ digests below must then match).  Phases, one JSON line each:
      against draining and transcoding the containers; and
      ``codec.transcode`` of one container against the host round trip
      ``encode(decode(c))`` where no level flipped (the flip rule above);
-  9. times  — per kernel, CUDA-event ms after warm-up beside the plain
+  9. serve  — the port's ``ServingFrontend`` on the card, under the
+     reference's serving setup: ``build_domain_tables()`` (the four paper
+     domains), the mix decode 0.6 / encode 0.3 / transcode 0.1, log-normal
+     sizes (median 16 windows, sigma 0.75, clip 256), SLO 250 ms, flush
+     slack 50 ms, ``max_batch`` 64, queue bound 1024; the engines warmed
+     by a 0.5 s stream.  (a) with every launch counter set to 0, a 400
+     requests/s stream for 2 s: every response equal to
+     ``offline_expected`` (the offline engines on the card) — samples bit
+     for bit, containers byte for byte — nothing shed, expired or failed,
+     and ``symlen_decode`` / ``lut_idct`` launched once per decoder bucket,
+     ``symlen_pack`` and ``encode_levels`` + ``encode_levels_gather`` once
+     per encoder bucket (the engines' own ``stats.dispatches``), each of
+     the five at least once, no other kernel; and every call the engines
+     made of the five wrappers in that run (its inputs and output cloned
+     where the engines call it) against its plain version on the same
+     inputs, by the check phase's rules: K1's symbols and the pack's
+     outputs exactly, ``lut_idct`` within ``REL_TOL``, ``encode_levels``
+     and its gather arm by the flip rule outside the deadzone class
+     ``DEADZONE`` (a cell in it on both sides within 2 levels: the
+     transcoder's re-encode of a decoded level 128 is zero but for float
+     noise, whose sign picks 127 or 129) — the oracle above runs the same
+     kernels, so it alone could not see a kernel fault at the serving
+     shapes; (b) the load sweep, arms
+     ``microbatch`` (``max_batch`` 64) and ``batch1`` (``max_batch`` 1),
+     at 25-800 requests/s for 2 s each and doubling past 800 while the
+     arm sustains (cap 6400): p50/p95/p99 sojourn ms, achieved
+     requests/s, shed, batches, mean batch size, deadline misses, and
+     each arm's knee (the highest load with p99 within the SLO, nothing
+     shed, every admitted request completed) — printed, not checked;
+     then the overload point: decode at 2000 requests/s for 0.5 s (8
+     windows, ``max_batch`` 8, queue bound 16), the rate doubled until it
+     sheds (cap 32000), every admitted request completed at each rate and
+     the last one shedding; (c) chaos: 2400 requests/s for 2 s (8 windows, domains 2
+     and 3), 5% of the containers corrupted, transient faults, a device
+     loss and latency injected, every outcome typed, nothing hung or
+     dropped, every clean result equal to the offline engines; one hung
+     dispatch cut by the watchdog resolves as ``DispatchFailedError`` and
+     the frontend serves on; (d) the HTTP service (``launch.serve``'s
+     server on 127.0.0.1, port 0): encode, the decode of its answer and a
+     transcode equal to the offline engines, one corrupt blob per
+     ``CONTAINER_FAULTS`` class answered 422 with its expected fault
+     class, 400s and a 404, ``/healthz`` and ``/statz``;
+ 10. times  — per kernel, CUDA-event ms after warm-up beside the plain
      version's ms and the card's bound for the same work; per encode
      bucket (``k4_by_bucket``) ``encode_levels``' ms and bound beside
      ``symlen_pack``'s, chunked and exact; and per kernel the CUDA kernels
@@ -131,6 +173,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 REL_TOL = 1e-5  # floats: max|kernel - plain| <= REL_TOL * max|plain|
 FLIP_SHARE = 1e-5  # DCT basis: at most this share of levels one level off
+# the quantizer's deadzone class: a coefficient that is zero but for float
+# noise (a decoded level 128's re-encode) lands on 127, 128 or 129 by the
+# noise's sign, so two summation orders may put it up to 2 levels apart
+DEADZONE = (127, 128, 129)
 
 ARCHIVAL = [  # (domain, dataset, v3 predictor)
     ("biomedical", "mitbih", "delta"),
@@ -386,6 +432,486 @@ def outputs_equal(got, want) -> bool:
             g is not None and w is not None and g.dtype == w.dtype
             and bool(torch.equal(g, w)))
         for g, w in zip(got, want))
+
+
+# the serve phase: the reference's serving setup (bench_serving.py's full
+# run) on the port's frontend, its engines on the card
+SERVE_SLO_MS, SERVE_SLACK_MS = 250.0, 50.0
+SERVE_TRAFFIC = {"mix": {"decode": 0.6, "encode": 0.3, "transcode": 0.1},
+                 "median_windows": 16, "sigma": 0.75, "max_windows": 256}
+SERVE_LOADS = (25.0, 50.0, 100.0, 200.0, 400.0, 800.0)
+SERVE_LOAD_CAP = 6400.0
+OVERLOAD_CAP = 32000.0
+# the kernels a served request runs: decode K1 + lut_idct, encode
+# encode_levels + symlen_pack, transcode K1 + lut_idct +
+# encode_levels_gather + symlen_pack
+SERVE_KERNELS = ("symlen_decode", "lut_idct", "encode_levels",
+                 "encode_levels_gather", "symlen_pack")
+
+
+def sustains(point: dict) -> bool:
+    """bench_serving's knee rule for one load point: p99 within the SLO,
+    nothing shed, every admitted request completed."""
+    return (point["p99_ms"] <= SERVE_SLO_MS and point["shed"] == 0
+            and point["completed"] == point["submitted"] > 0)
+
+
+def same_result(got, want) -> bool:
+    """A served response against the offline engines': f32 samples bit for
+    bit (dtype, shape and bytes), containers byte for byte."""
+    import numpy as np
+
+    if isinstance(want, (bytes, bytearray)):
+        return got.to_bytes() == bytes(want)
+    return (isinstance(got, np.ndarray) and got.dtype == want.dtype
+            and got.shape == want.shape and got.tobytes() == want.tobytes())
+
+
+def served_vs_plain(name: str, calls, plain) -> dict:
+    """One path kernel's calls from a serve run, each ``(args, kwargs,
+    output)``, against its plain version on the same inputs, by the check
+    phase's rules: ``lut_idct`` within ``REL_TOL``, ``encode_levels`` and
+    its gather arm by the flip rule over all the calls' levels outside the
+    deadzone class (a cell in ``DEADZONE`` on both sides within 2 levels),
+    rows that agree equal in every output, K1 and the pack exactly."""
+    import torch
+
+    res = {"calls": len(calls), "max_abs_err": 0.0, "ok": True}
+    flips = deadzone = cells = 0
+    for args, kw, out in calls:
+        want = plain(*args, **kw)
+        if name == "lut_idct":
+            err = rel_err(out, want)
+            res["rel_err"] = max(res.get("rel_err", 0.0), err)
+            res["max_abs_err"] = max(res["max_abs_err"],
+                                     float((out - want).abs().max()))
+            res["ok"] &= err <= REL_TOL
+        elif name.startswith("encode_levels"):
+            got, exp = out[0].int(), want[0].int()
+            zone = torch.tensor(DEADZONE, dtype=got.dtype, device=got.device)
+            d = (got - exp).abs()
+            dz = torch.isin(got, zone) & torch.isin(exp, zone)
+            flips += int((d[~dz] > 0).sum())
+            deadzone += int((d[dz] > 0).sum())
+            cells += d.numel()
+            res["max_abs_err"] = max(res["max_abs_err"], int_err(got, exp))
+            if d.numel():
+                res["ok"] &= (int(d.masked_fill(~dz, 0).max()) <= 2
+                              and int(d.masked_fill(dz, 0).max()) <= 1)
+            clean = (d == 0).reshape(d.shape[0], -1).all(1)
+            res["ok"] &= all(
+                (a is None and c is None)
+                or bool(torch.equal(a[clean], c[clean]))
+                for a, c in zip(out, want))
+        elif name == "symlen_decode":
+            equal = outputs_equal((out,), (want,))
+            res["ok"] &= equal
+            res["max_abs_err"] = max(res["max_abs_err"], int_err(out, want)
+                                     if out.shape == want.shape
+                                     else float("inf"))
+        else:
+            equal = outputs_equal(out, want)
+            res["ok"] &= equal
+            if not equal:
+                res["max_abs_err"] = float("inf")
+    if name.startswith("encode_levels"):
+        res.update(flips=flips, deadzone_moves=deadzone, cells=cells)
+        res["ok"] &= flips <= FLIP_SHARE * cells
+    return res
+
+
+def open_loop(fe, requests) -> list:
+    """Submit ``requests`` to ``fe`` at their arrival times (open loop, as
+    ``traffic.replay`` does) and return each request's future, or the
+    admission error it raised."""
+    start = time.monotonic()
+    futures = []
+    for r in requests:
+        delay = start + r.arrival - time.monotonic()
+        if delay > 0:
+            time.sleep(delay)
+        try:
+            if r.kind == "decode":
+                futures.append(fe.submit_decode(r.container))
+            elif r.kind == "encode":
+                futures.append(fe.submit_encode(r.signal, r.domain_id))
+            else:
+                futures.append(fe.submit_transcode(r.container,
+                                                   r.dst_domain_id))
+        except Exception as err:  # a typed rejection, checked by the caller
+            futures.append(err)
+    fe.flush()
+    return futures
+
+
+def serve_phase(smi: str) -> dict:
+    """Phase 9: the port's serving frontend on the card (see the module
+    docstring): byte identity and launch counts, the load sweep, overload,
+    chaos, the watchdog, and the HTTP service.  Returns its JSON line."""
+    import http.client
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DOMAIN_DEFAULTS, calibrate, encode
+    from repro_torch.data import make_signal
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import encode_fused as ef
+    from repro_torch.kernels import huffman_decode as hd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_server
+    from repro_torch.serving import (
+        BatchDecoder,
+        BatchEncoder,
+        FrontendConfig,
+        RetryPolicy,
+        ServingFrontend,
+        TrafficConfig,
+        Transcoder,
+        build_domain_tables,
+        generate,
+        replay,
+    )
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.testing.faults import (
+        CONTAINER_FAULTS,
+        EXPECTED_FAULT,
+        DispatcherFaultInjector,
+        chaos_replay,
+        corrupt,
+        offline_expected,
+    )
+
+    t_phase = time.perf_counter()
+    secs = {}
+    tables = build_domain_tables()
+    dec, enc = BatchDecoder(), BatchEncoder()
+    engines = {"decoder": dec, "encoder": enc,
+               "transcoder": Transcoder(decoder=dec, encoder=enc)}
+
+    def config(**kw) -> "FrontendConfig":
+        base = dict(max_batch=64, max_queue_depth=1024,
+                    default_slo_ms=SERVE_SLO_MS,
+                    flush_slack_ms=SERVE_SLACK_MS)
+        base.update(kw)
+        return FrontendConfig(**base)
+
+    def stream(rps, duration_s=2.0, seed=None, **kw):
+        traffic = {**SERVE_TRAFFIC, **kw}
+        return generate(TrafficConfig(
+            rate=rps, duration_s=duration_s,
+            seed=42 + int(rps) if seed is None else seed, **traffic),
+            tables)
+
+    # warm the engines: plans, pinned and device allocator pools
+    t0 = time.perf_counter()
+    with ServingFrontend(tables, config=config(), **engines) as fe:
+        replay(fe, stream(800.0, 0.5, seed=99))
+    secs["warm"] = time.perf_counter() - t0
+
+    # -- 9a. byte identity and launch counts ----------------------------------
+    t0 = time.perf_counter()
+    reqs = stream(400.0, seed=1)
+    torch.cuda.synchronize()
+    d0, e0 = dec.stats.dispatches, enc.stats.dispatches
+    d2h = {"s": 0.0, "calls": 0}
+    d2h_lock = threading.Lock()
+    start_d2h = engine_mod._start_d2h
+
+    def timed_d2h(tensors):  # the drain's pinned allocations and copies
+        t = time.perf_counter()
+        try:
+            return start_d2h(tensors)
+        finally:
+            with d2h_lock:
+                d2h["s"] += time.perf_counter() - t
+                d2h["calls"] += 1
+
+    # every call of the five path wrappers, recorded where the engines call
+    # them: its inputs (cloned before the call) and its output (cloned after
+    # it), to hold against the plain version once the run is over
+    served = {k: [] for k in SERVE_KERNELS}
+    hooks = [(hd, "huffman_decode_dense", "symlen_decode",
+              hd.huffman_decode_plain),
+             (df, "lut_idct", "lut_idct", df.lut_idct_plain),
+             (ef, "encode_levels", "encode_levels", ef.encode_levels_plain),
+             (ef, "encode_levels_gather", "encode_levels_gather",
+              ef.encode_levels_gather_plain),
+             (ef, "symlen_pack", "symlen_pack", ef.symlen_pack_plain)]
+
+    def snap(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        return tuple(map(snap, x)) if isinstance(x, tuple) else x
+
+    def recorder(fn, name):
+        def rec(*args, **kw):
+            ins = (snap(args), {k: snap(v) for k, v in kw.items()})
+            out = fn(*args, **kw)
+            served[name].append((*ins, snap(out)))
+            return out
+        return rec
+
+    ops.reset_launches()
+    engine_mod._start_d2h = timed_d2h
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in hooks]
+    for (mod, attr, fn), (_, _, name, _) in zip(saved, hooks):
+        setattr(mod, attr, recorder(fn, name))
+    try:
+        t_run = time.perf_counter()
+        with ServingFrontend(tables, config=config(), **engines) as fe:
+            futures = open_loop(fe, reqs)
+            results = [f.result(timeout=120) if not isinstance(f, Exception)
+                       else f for f in futures]
+            st = fe.stats_snapshot()
+        run_s = time.perf_counter() - t_run
+    finally:
+        engine_mod._start_d2h = start_d2h
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    buckets = {"decoder": dec.stats.dispatches - d0,
+               "encoder": enc.stats.dispatches - e0}
+    rejected = [r for r in results if isinstance(r, Exception)]
+    check(not rejected and st.shed == 0 and st.rejected_expired == 0
+          and st.failed == 0 and st.completed == st.admitted == len(reqs),
+          f"identity run: {len(rejected)} rejected, stats {st}")
+    want = {k: 0 for k in launches}
+    want.update(symlen_decode=buckets["decoder"],
+                lut_idct=buckets["decoder"], symlen_pack=buckets["encoder"])
+    got = dict(launches)
+    levels = got.pop("encode_levels") + got.pop("encode_levels_gather")
+    for k in ("encode_levels", "encode_levels_gather"):
+        want.pop(k)
+    check(got == want and levels == buckets["encoder"]
+          and all(launches[k] > 0 for k in SERVE_KERNELS),
+          f"serve launch counts {launches} against the engines' buckets "
+          f"{buckets}")
+    # each served bucket's kernel output against its plain version on the
+    # card, on the inputs the path gave it
+    vs_plain = {}
+    for _, _, name, plain in hooks:
+        vs_plain[name] = served_vs_plain(name, served.pop(name), plain)
+        check(vs_plain[name]["ok"]
+              and vs_plain[name]["calls"] == launches[name],
+              f"{name} at the serve path's shapes against its plain "
+              f"version: {vs_plain[name]}, {launches[name]} launches")
+    expected = offline_expected(reqs, tables)
+    mism = [i for i, r in enumerate(results)
+            if not same_result(r, expected[i])]
+    check(not mism, f"{len(mism)} of {len(reqs)} served responses differ "
+          f"from the offline engines (first {mism[:5]})")
+    kinds = {k: sum(r.kind == k for r in reqs)
+             for k in ("decode", "encode", "transcode")}
+    identity = {"requests": len(reqs), "kinds": kinds, "identical": len(reqs),
+                "batches": st.batches, "mean_batch": st.mean_batch_size,
+                "deadline_misses": st.deadline_misses, "wall_s": run_s,
+                "launches": launches, "engine_buckets": buckets,
+                "kernels_vs_plain": vs_plain,
+                "drain_start_d2h_s": d2h["s"], "drain_start_d2h_calls":
+                d2h["calls"]}
+    del results, expected, futures
+    secs["identity"] = time.perf_counter() - t0
+
+    # -- 9b. the load sweep, two arms, and the overload point -----------------
+    t0 = time.perf_counter()
+    sweep, knees, streams = {}, {}, {}
+    for arm in ("microbatch", "batch1"):
+        loads, points = list(SERVE_LOADS), []
+        for rps in loads:
+            if rps not in streams:
+                streams[rps] = stream(rps)
+            with ServingFrontend(
+                    tables, config=config(max_batch=1 if arm == "batch1"
+                                          else 64), **engines) as fe:
+                rep = replay(fe, streams[rps])
+                st = fe.stats_snapshot()
+            point = rep.summary()
+            point.update(offered_rps=rps, batches=st.batches,
+                         mean_batch=st.mean_batch_size,
+                         deadline_misses=st.deadline_misses)
+            points.append(point)
+            if rps == loads[-1] and sustains(point) and rps < SERVE_LOAD_CAP:
+                loads.append(2 * rps)
+        sweep[arm] = points
+        knees[arm] = max([p["offered_rps"] for p in points if sustains(p)],
+                         default=0.0)
+    secs["sweep"] = time.perf_counter() - t0
+    # overload: bench_serving's point (2000 requests/s of decode for 0.5 s,
+    # 8 windows, max_batch 8, queue bound 16), doubled until it sheds: the
+    # card may sustain 2000 (capped at 32000); every admitted request must
+    # resolve at every rate
+    t0 = time.perf_counter()
+    overload, rps = [], 2000.0
+    while True:
+        burst = stream(rps, 0.5, seed=7, mix={"decode": 1.0},
+                       fixed_windows=8)
+        with ServingFrontend(tables, config=config(
+                max_batch=8, max_queue_depth=16, flush_slack_ms=2.0),
+                **engines) as fe:
+            rep = replay(fe, burst)
+        overload.append({**rep.summary(), "offered_rps": rps,
+                         "queue_bound": 16, "requests": len(burst)})
+        check(rep.completed == rep.submitted and rep.failed == 0,
+              f"overload at {rps:g}/s: {rep.completed} of {rep.submitted} "
+              f"admitted completed, {rep.failed} failed")
+        if rep.shed > 0 or rps >= OVERLOAD_CAP:
+            break
+        rps *= 2
+    check(overload[-1]["shed"] > 0,
+          f"overload: nothing shed up to {rps:g} requests/s")
+    secs["overload"] = time.perf_counter() - t0
+
+    # -- 9c. chaos, then one hung dispatch under the watchdog -----------------
+    t0 = time.perf_counter()
+    creqs = generate(TrafficConfig(
+        rate=2400.0, duration_s=2.0, fixed_windows=8,
+        mix={"decode": 0.5, "encode": 0.3, "transcode": 0.2},
+        domains=(2, 3), seed=31), tables)
+    cexp = offline_expected(creqs, tables)
+    inj = DispatcherFaultInjector(fail_on={3, 11}, latency_on={6: 0.05},
+                                  device_loss_on={17})
+    with ServingFrontend(tables, config=config(
+            max_queue_depth=8192, default_slo_ms=600_000.0),
+            fault_injector=inj, **engines) as fe:
+        rep = chaos_replay(fe, creqs, corrupt_frac=0.05, seed=31,
+                           expected=cexp, result_timeout_s=120.0)
+        st = fe.stats_snapshot()
+    chaos = {k: getattr(rep, k) for k in (
+        "total", "clean", "corrupted", "ok", "poisoned", "dispatch_failed",
+        "rejected", "untyped_failures", "hangs", "clean_mismatches",
+        "clean_ok")}
+    chaos.update(accounted=rep.accounted, quarantined=st.quarantined,
+                 retries=st.retries, retry_successes=st.retry_successes,
+                 injected=[list(x) for x in inj.injected])
+    check(rep.accounted == rep.total == len(creqs) and rep.hangs == 0
+          and rep.untyped_failures == 0 and rep.clean_mismatches == 0
+          and rep.poisoned == rep.corrupted > 0 and rep.clean_ok == rep.clean
+          and len(inj.injected) >= 3, f"chaos contract broken: {chaos}")
+    del cexp
+    wreqs = generate(TrafficConfig(
+        rate=200.0, duration_s=0.5, fixed_windows=8, mix={"decode": 1.0},
+        domains=(2,), seed=32), tables)
+    wexp = offline_expected(wreqs, tables)
+    hang = DispatcherFaultInjector(hang_on={2}, hang_timeout_s=120.0)
+    try:
+        with ServingFrontend(tables, config=config(
+                max_batch=8, max_queue_depth=4096, default_slo_ms=600_000.0,
+                retry=RetryPolicy(max_retries=1, base_backoff_ms=1.0),
+                watchdog_timeout_ms=500.0, watchdog_poll_ms=25.0),
+                pipeline=False, fault_injector=hang) as fe:
+            rep = chaos_replay(fe, wreqs, corrupt_frac=0.0, seed=32,
+                               expected=wexp, result_timeout_s=120.0)
+            again = fe.submit_decode(wreqs[0].container)
+            fe.flush()
+            again_ok = same_result(again.result(timeout=60), wexp[0])
+            st = fe.stats_snapshot()
+            health = fe.health()
+    finally:
+        hang.release()  # the abandoned dispatcher finishes its stale call
+    for t in threading.enumerate():
+        if t.name == "fptc-frontend-dispatch":
+            t.join(timeout=30)
+    watchdog = {"requests": len(wreqs), "ok": rep.ok,
+                "dispatch_failed": rep.dispatch_failed, "hangs": rep.hangs,
+                "untyped_failures": rep.untyped_failures,
+                "watchdog_restarts": st.watchdog_restarts,
+                "health": health["status"], "serves_after": again_ok}
+    check(rep.accounted == rep.total and rep.hangs == 0
+          and rep.untyped_failures == 0 and rep.clean_mismatches == 0
+          and rep.dispatch_failed > 0
+          and rep.ok + rep.dispatch_failed == rep.total
+          and st.watchdog_restarts == 1 and health["status"] == "degraded"
+          and again_ok and any(k == "hang" for _, k in hang.injected),
+          f"watchdog case: {watchdog}")
+    secs["chaos"] = time.perf_counter() - t0
+
+    # -- 9d. the HTTP service -------------------------------------------------
+    t0 = time.perf_counter()
+    off_dec, off_enc = BatchDecoder(pipeline=False), BatchEncoder(
+        pipeline=False)
+    off_tr = Transcoder(decoder=off_dec, encoder=off_enc)
+    sig = make_signal("load_power", 16 * tables[2].config.n, seed=5)
+    v3_tab = calibrate(make_signal("load_power", 65536, seed=1002),
+                       DOMAIN_DEFAULTS["power"].replace(
+                           predictor="delta", predict_bands=2,
+                           zero_planes=True), domain_id=2)
+    blob_v3 = encode(sig, v3_tab).to_bytes()
+    statuses = {}
+    fe = ServingFrontend(tables, config=config(), **engines)
+    server = make_server(fe, "127.0.0.1", 0)
+    serving = threading.Thread(target=server.serve_forever,
+                               name="fptc-http", daemon=True)
+    serving.start()
+
+    def call(method, path, body=None, headers=None):
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_port,
+                                          timeout=60)
+        try:
+            conn.request(method, path, body=body, headers=headers or {})
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    try:
+        code, blob = call("POST", "/v1/encode?domain_id=2",
+                          sig.astype("<f4").tobytes())
+        want = off_enc.encode([sig], tables[2]).to_host()[0]
+        check(code == 200 and blob == want.to_bytes(),
+              f"HTTP encode: {code}, equal {blob == want.to_bytes()}")
+        code, raw = call("POST", "/v1/decode", blob)
+        want_d = off_dec.decode([want], tables[2]).to_host()[0]
+        check(code == 200 and raw == want_d.astype("<f4").tobytes(),
+              f"HTTP decode: {code}")
+        code, tblob = call("POST", "/v1/transcode?dst=3", blob)
+        want_t = off_tr.transcode([want], tables[2], tables[3],
+                                  dst_domain_ids=[3]).to_host()[0]
+        check(code == 200 and tblob == want_t.to_bytes(),
+              f"HTTP transcode: {code}")
+        statuses.update(encode=200, decode=200, transcode=200)
+        for fault in CONTAINER_FAULTS:
+            src = blob_v3 if fault == "reserved-flags" else blob
+            code, body = call("POST", "/v1/decode",
+                              corrupt(src, fault, seed=13))
+            rec = json.loads(body)
+            check(code == 422 and rec["fault"] in EXPECTED_FAULT[fault],
+                  f"HTTP {fault}: {code} {rec}")
+            statuses[fault] = [code, rec["fault"]]
+        code, _ = call("POST", "/v1/transcode", blob)
+        check(code == 400, f"transcode without dst: {code}")
+        code2, _ = call("POST", "/v1/decode", blob,
+                        {"X-FPTC-Deadline-Ms": "0"})
+        check(code2 == 400, f"expired deadline: {code2}")
+        code3, _ = call("GET", "/v1/nowhere")
+        check(code3 == 404, f"unknown route: {code3}")
+        statuses.update(no_dst=code, expired=code2, unknown_route=code3)
+        code, body = call("GET", "/healthz")
+        check(code == 200 and json.loads(body)["status"] == "ok",
+              f"/healthz: {code} {body[:200]}")
+        code2, body2 = call("GET", "/statz")
+        statz = json.loads(body2)
+        check(code2 == 200 and statz["stats"]["completed"] >= 3,
+              f"/statz: {code2} {body2[:200]}")
+        statuses.update(healthz=code, statz=code2)
+    finally:
+        server.shutdown()
+        server.server_close()
+        serving.join(timeout=30)
+        fe.close()
+    secs["http"] = time.perf_counter() - t0
+    engines["transcoder"].close()
+    return {"phase": "serve", "nvidia_smi": smi,
+            "config": {"slo_ms": SERVE_SLO_MS,
+                       "flush_slack_ms": SERVE_SLACK_MS, "max_batch": 64,
+                       "max_queue_depth": 1024, "duration_s": 2.0,
+                       **SERVE_TRAFFIC},
+            "identity": identity, "sweep": sweep, "knees_rps": knees,
+            "overload": overload, "chaos": chaos, "watchdog": watchdog,
+            "http": statuses, "seconds_by_step": secs,
+            "seconds": time.perf_counter() - t_phase}
 
 
 def main() -> None:
@@ -1310,7 +1836,10 @@ def main() -> None:
                               "rule": f"|d| <= 1 in at most {FLIP_SHARE} "
                               "of the cells"}})
 
-    # -- 9. times -------------------------------------------------------------------
+    # -- 9. serve ---------------------------------------------------------------------
+    emit(serve_phase(smi))
+
+    # -- 10. times ------------------------------------------------------------------
     # first, the CUDA kernels one wrapper call of each kernel puts on the
     # card, on the first bucket that runs it, the profiler sessions one
     # after another (K3's session, placed after the timing loops below,
@@ -1518,7 +2047,7 @@ def main() -> None:
           **{k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
                  "bound_by": v[3]} for k, v in times.items()}})
 
-    # -- 10. the kernels line, and the last line ---------------------------------
+    # -- 11. the kernels line, and the last line ---------------------------------
     counts_of = {"main": launches, "encode": elaunches,
                  "transcode": tlaunches, "staged": slaunches}
     kernels = []

@@ -65,9 +65,16 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+# guards LAUNCHES: the serving front-end's dispatcher threads (a watchdog
+# restart can leave two running) launch concurrently, and ``+=`` on a dict
+# entry is a read-modify-write
+_launches_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launches_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def check_i32_offsets(num_symbols: int, max_symlen: int) -> None:
@@ -248,19 +255,25 @@ def _stream(device: torch.device) -> int:
 
 
 _workspaces: Dict[tuple, torch.Tensor] = {}
+_workspaces_lock = threading.Lock()
 
 
 def workspace(device: torch.device, nbytes: int) -> torch.Tensor:
     """Scratch bytes on ``device`` for launches on its current stream: one
     buffer per (device, stream), kept across calls and grown on demand, so
     a wrapper allocates no scratch per call.  Launches on one stream run in
-    order, so they may share it; another stream gets its own."""
+    order, so they may share it; another stream gets its own.  The lookup
+    and the growth run under one lock, so host threads that share a stream
+    get one buffer at a time (a caller keeps its reference to the buffer
+    it was handed; a buffer replaced by a larger one is freed in stream
+    order)."""
     key = (device.index, _stream(device))
-    ws = _workspaces.get(key)
-    if ws is None or ws.numel() < nbytes:
-        ws = torch.empty(nbytes, dtype=torch.uint8, device=device)
-        _workspaces[key] = ws
-    return ws
+    with _workspaces_lock:
+        ws = _workspaces.get(key)
+        if ws is None or ws.numel() < nbytes:
+            ws = torch.empty(nbytes, dtype=torch.uint8, device=device)
+            _workspaces[key] = ws
+        return ws
 
 
 def launch(name: str, fn: str, device: torch.device, *args) -> None:
@@ -282,4 +295,11 @@ def launch(name: str, fn: str, device: torch.device, *args) -> None:
     if rc != 0:
         msg = lib.fptc_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
-    LAUNCHES[name] += 1
+    _count_launch(name)
+
+
+def _count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]``, under the counters' lock (called by
+    :func:`launch` only, once a kernel was enqueued)."""
+    with _launches_lock:
+        LAUNCHES[name] += 1

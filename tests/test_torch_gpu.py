@@ -13,7 +13,12 @@ plain ``windows @ basis``, so a coefficient within an ulp of a quantizer
 cell boundary can land one level away: with an identity basis (the
 coefficients are the inputs) levels must be equal, and with the DCT basis
 every differing level must differ by one (the flip rule), in at most 1e-5
-of the cells (or one cell, at these small sizes).  Packing the same grid must give equal words."""
+of the cells (or one cell, at these small sizes).  Packing the same grid must give equal words.
+
+The serving frontend on the card (no device given) answers byte-identically
+to the offline engines on the card, corrupt blobs included as typed
+outcomes, and two frontends serving at once on the default stream keep the
+kernels' shared state (K1's workspace, the launch counters) coherent."""
 import numpy as np
 import pytest
 import torch
@@ -915,3 +920,152 @@ def test_transcode_on_card_matches_round_trip(cuda):
     with pytest.raises(RuntimeError, match="donated"):
         src.to_host()
     tc.close()
+
+
+# ---------------------------------------------------------------------------
+# The serving frontend on the card.
+# ---------------------------------------------------------------------------
+def _serving_tables():
+    """Two serving domains with different configs (power e = 6,
+    meteorological e = 8), so a flipped domain id lands on plan-mismatch;
+    plus a v3 power table for the v3-only corruption."""
+    from repro_torch.serving import DOMAIN_DATASETS
+
+    tables = {}
+    for domain_id in (2, 3):
+        domain, dataset = DOMAIN_DATASETS[domain_id]
+        tables[domain_id] = calibrate(
+            make_signal(dataset, 32768, seed=1000 + domain_id),
+            DOMAIN_DEFAULTS[domain], domain_id=domain_id)
+    v3 = calibrate(make_signal("load_power", 32768, seed=1002),
+                   DOMAIN_DEFAULTS["power"].replace(**CODINGS[2]),
+                   domain_id=2)
+    return tables, v3
+
+
+def _serve_stream(tables, seed, rate=300.0):
+    from repro_torch.serving import TrafficConfig, generate
+
+    return generate(TrafficConfig(
+        rate=rate, duration_s=0.5, fixed_windows=8,
+        mix={"decode": 0.5, "encode": 0.3, "transcode": 0.2},
+        domains=(2, 3), seed=seed), tables)
+
+
+def _submit(fe, r):
+    if r.kind == "decode":
+        return fe.submit_decode(r.container)
+    if r.kind == "encode":
+        return fe.submit_encode(r.signal, r.domain_id)
+    return fe.submit_transcode(r.container, r.dst_domain_id)
+
+
+def _same(got, want):
+    if isinstance(want, bytes):
+        return got.to_bytes() == want
+    return got.dtype == want.dtype and got.tobytes() == want.tobytes()
+
+
+def test_frontend_on_card_byte_identical_with_poison(cuda):
+    """``ServingFrontend(tables)`` with no device serves on the card: mixed
+    decode / encode / transcode requests, plus one corrupt blob per
+    ``CONTAINER_FAULTS`` class among them, each clean response equal to
+    the offline engines on the card (samples bit for bit, containers byte
+    for byte), each corrupt one a typed outcome of its expected class, and
+    every kernel of the served path launched."""
+    from repro_torch.core.container import ContainerFormatError
+    from repro_torch.serving import (
+        FrontendConfig,
+        PoisonedContainerError,
+        ServingFrontend,
+    )
+    from repro_torch.testing.faults import (
+        CONTAINER_FAULTS,
+        EXPECTED_FAULT,
+        corrupt,
+        offline_expected,
+    )
+
+    tables, v3 = _serving_tables()
+    reqs = _serve_stream(tables, seed=11)
+    want = offline_expected(reqs, tables)
+    blob = next(r.container for r in reqs
+                if r.container is not None).to_bytes()
+    blob_v3 = codec.encode(make_signal("load_power", 256, seed=3),
+                           v3).to_bytes()
+    ops.reset_launches()
+    with ServingFrontend(tables, config=FrontendConfig(
+            max_batch=16, default_slo_ms=60_000.0)) as fe:
+        assert fe.decoder.device.type == "cuda"
+        futs = [_submit(fe, r) for r in reqs]
+        poison = {}
+        for fault in CONTAINER_FAULTS:
+            src = blob_v3 if fault == "reserved-flags" else blob
+            try:
+                poison[fault] = fe.submit_decode(corrupt(src, fault, seed=13))
+            except ContainerFormatError as err:  # typed at admission
+                poison[fault] = err
+        fe.flush()
+        got = [f.result(timeout=120) for f in futs]
+        for fault, f in poison.items():
+            err = f
+            if not isinstance(f, Exception):
+                with pytest.raises(PoisonedContainerError) as exc:
+                    f.result(timeout=120)
+                err = exc.value
+            assert err.fault in EXPECTED_FAULT[fault], (fault, err)
+    bad = [i for i, g in enumerate(got) if not _same(g, want[i])]
+    assert not bad, bad[:10]
+    for name in ("symlen_decode", "lut_idct", "encode_levels",
+                 "encode_levels_gather", "symlen_pack"):
+        assert ops.LAUNCHES[name] > 0, name
+
+
+def test_two_frontend_dispatchers_share_the_default_stream(cuda):
+    """Two frontends, each with its own engines and dispatcher thread,
+    serving at once on the card's default stream: the kernels' shared
+    state (K1's workspace, the launch counters) is taken under locks, so
+    every response equals the offline engines' and the counters add up to
+    both frontends' bucket counts."""
+    import threading
+
+    from repro_torch.serving import FrontendConfig, ServingFrontend
+    from repro_torch.testing.faults import offline_expected
+
+    tables, _ = _serving_tables()
+    streams = [_serve_stream(tables, seed=21 + i, rate=600.0)
+               for i in range(2)]
+    wants = [offline_expected(reqs, tables) for reqs in streams]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    fes = [ServingFrontend(tables, config=FrontendConfig(
+        max_batch=4, default_slo_ms=60_000.0)) for _ in streams]
+    outs = [None, None]
+    start = threading.Barrier(2)
+
+    def drive(i):
+        start.wait(30)
+        futs = [_submit(fes[i], r) for r in streams[i]]
+        fes[i].flush()
+        outs[i] = [f.result(timeout=120) for f in futs]
+
+    threads = [threading.Thread(target=drive, args=(i,)) for i in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+    finally:
+        for fe in fes:
+            fe.close()
+    assert not any(t.is_alive() for t in threads)
+    for i in range(2):
+        bad = [j for j, g in enumerate(outs[i])
+               if not _same(g, wants[i][j])]
+        assert not bad, (i, bad[:10])
+    dec = sum(fe.decoder.stats.dispatches for fe in fes)
+    enc = sum(fe.encoder.stats.dispatches for fe in fes)
+    assert ops.LAUNCHES["symlen_decode"] == ops.LAUNCHES["lut_idct"] == dec
+    assert ops.LAUNCHES["symlen_pack"] == enc > 0
+    assert (ops.LAUNCHES["encode_levels"]
+            + ops.LAUNCHES["encode_levels_gather"]) == enc

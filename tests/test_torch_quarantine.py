@@ -27,7 +27,7 @@ from repro.serving import BatchDecoder as RefBatchDecoder
 from repro.serving import BatchEncoder as RefBatchEncoder
 from repro.serving import Transcoder as RefTranscoder
 from repro.serving import quarantine as ref_quarantine
-from repro.testing.faults import CONTAINER_FAULTS, EXPECTED_FAULT, corrupt
+from repro_torch.testing.faults import CONTAINER_FAULTS, EXPECTED_FAULT, corrupt
 from repro_torch.core.calibration import tables_from_arrays
 from repro_torch.core.container import Container
 from repro_torch.serving import (
