@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's batched decode, encode and transcode paths
-and its serving frontend on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's batched decode, encode and transcode paths,
+its workloads and its serving frontend on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--src DIR]
 
@@ -104,12 +104,36 @@ digests below must then match).  Phases, one JSON line each:
      against draining and transcoding the containers; and
      ``codec.transcode`` of one container against the host round trip
      ``encode(decode(c))`` where no level flipped (the flip rule above);
-  9. serve  — the port's ``ServingFrontend`` on the card, under the
+  9. workloads — (``workloads_phase()``) one layer of granite-8b.  The
+     KV codec: the data phase's K cache as a bf16 ``[8, 4096, 8, 128]``
+     block, ``KVCacheCodec.calibrate`` on it, ``compress`` levels equal to
+     ``encode_fixed`` of the same channel rows under the same tables
+     exactly, ``decompress`` within the KV block's relative-rms bound, then
+     (after that warm call) one ``compress`` and one ``decompress`` under
+     ``torch.cuda.set_sync_debug_mode("error")`` with every launch counter
+     set to 0: one ``dct_quant`` and one ``idct_dequant``; CUDA-event ms of
+     both beside K5's, K3's and the two transpose copies'.  The
+     checkpoint: one decoder layer's training state on the card (q, k, v,
+     o, gate, up, down and two norms, with Adam m and v, f32, and an int32
+     counter: 218.1 M parameters, 654 M f32 elements) through
+     ``save_checkpoint(compress=True)`` and ``restore_latest`` with every
+     launch counter set to 0 before each: the manifest (v2, one
+     ``state.fptc``, the counter raw), every leaf back on the card within
+     relative rms 0.02, the blob under 0.8 of the float bytes,
+     ``encode_levels`` and ``symlen_pack`` once per encode bucket and
+     ``symlen_decode`` and ``lut_idct`` once per decode bucket, every call
+     of the four (recorded where the engines call them) against its plain
+     version by the serve phase's rules, each kernel's ms and bound at
+     n = e = 64, l_max 12, and the save and restore walls split into
+     their steps;
+ 10. serve  — the port's ``ServingFrontend`` on the card, under the
      reference's serving setup: ``build_domain_tables()`` (the four paper
      domains), the mix decode 0.6 / encode 0.3 / transcode 0.1, log-normal
      sizes (median 16 windows, sigma 0.75, clip 256), SLO 250 ms, flush
      slack 50 ms, ``max_batch`` 64, queue bound 1024; the engines warmed
-     by a 0.5 s stream.  (a) with every launch counter set to 0, a 400
+     as the reference warms them (``warm_lattice``: per (domain, kind) of
+     a 0.5 s stream at 800 requests/s, one engine call at every policy
+     edge up to the fill target).  (a) with every launch counter set to 0, a 400
      requests/s stream for 2 s: every response equal to
      ``offline_expected`` (the offline engines on the card) — samples bit
      for bit, containers byte for byte — nothing shed, expired or failed,
@@ -129,10 +153,14 @@ digests below must then match).  Phases, one JSON line each:
      shapes; (b) the load sweep, arms
      ``microbatch`` (``max_batch`` 64) and ``batch1`` (``max_batch`` 1),
      at 25-800 requests/s for 2 s each and doubling past 800 while the
-     arm sustains (cap 6400): p50/p95/p99 sojourn ms, achieved
-     requests/s, shed, batches, mean batch size, deadline misses, and
-     each arm's knee (the highest load with p99 within the SLO, nothing
-     shed, every admitted request completed) — printed, not checked;
+     arm sustains (cap 6400), each ``microbatch`` point replayed once
+     through a fresh frontend before its timed replay, as the reference
+     does (its summary kept as ``cold``): p50/p95/p99 sojourn ms, achieved
+     requests/s, shed, batches, mean batch size, fill and deadline
+     dispatches and the deadline share, deadline misses, and each arm's
+     knee (the highest load with p99 within the SLO, nothing shed, every
+     admitted request completed; ``microbatch``'s also on the cold
+     passes) — printed, not checked;
      then the overload point: decode at 2000 requests/s for 0.5 s (8
      windows, ``max_batch`` 8, queue bound 16), the rate doubled until it
      sheds (cap 32000), every admitted request completed at each rate and
@@ -146,7 +174,7 @@ digests below must then match).  Phases, one JSON line each:
      transcode equal to the offline engines, one corrupt blob per
      ``CONTAINER_FAULTS`` class answered 422 with its expected fault
      class, 400s and a 404, ``/healthz`` and ``/statz``;
- 10. times  — per kernel, CUDA-event ms after warm-up beside the plain
+ 11. times  — per kernel, CUDA-event ms after warm-up beside the plain
      version's ms and the card's bound for the same work; per encode
      bucket (``k4_by_bucket``) ``encode_levels``' ms and bound beside
      ``symlen_pack``'s, chunked and exact; and per kernel the CUDA kernels
@@ -159,6 +187,7 @@ Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -520,6 +549,56 @@ def served_vs_plain(name: str, calls, plain) -> dict:
     return res
 
 
+def path_hooks(names):
+    """``(module, attribute, counter name, plain version)`` of the named
+    path kernels' wrappers, for :func:`recorded`."""
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import encode_fused as ef
+    from repro_torch.kernels import huffman_decode as hd
+
+    hooks = [(hd, "huffman_decode_dense", "symlen_decode",
+              hd.huffman_decode_plain),
+             (df, "lut_idct", "lut_idct", df.lut_idct_plain),
+             (ef, "encode_levels", "encode_levels", ef.encode_levels_plain),
+             (ef, "encode_levels_gather", "encode_levels_gather",
+              ef.encode_levels_gather_plain),
+             (ef, "symlen_pack", "symlen_pack", ef.symlen_pack_plain)]
+    return [h for h in hooks if h[2] in names]
+
+
+@contextlib.contextmanager
+def recorded(hooks):
+    """Record every call of the hooked wrappers where the engines call
+    them: its inputs (cloned before the call) and its output (cloned after
+    it), under its counter's name, to hold against the plain version once
+    the run is over.  Yields ``{name: [(args, kwargs, output), ...]}``."""
+    import torch
+
+    calls = {name: [] for _, _, name, _ in hooks}
+
+    def snap(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        return tuple(map(snap, x)) if isinstance(x, tuple) else x
+
+    def recorder(fn, name):
+        def rec(*args, **kw):
+            ins = (snap(args), {k: snap(v) for k, v in kw.items()})
+            out = fn(*args, **kw)
+            calls[name].append((*ins, snap(out)))
+            return out
+        return rec
+
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in hooks]
+    for (mod, attr, fn), (_, _, name, _) in zip(saved, hooks):
+        setattr(mod, attr, recorder(fn, name))
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
 def open_loop(fe, requests) -> list:
     """Submit ``requests`` to ``fe`` at their arrival times (open loop, as
     ``traffic.replay`` does) and return each request's future, or the
@@ -544,8 +623,46 @@ def open_loop(fe, requests) -> list:
     return futures
 
 
+def warm_lattice(tables, engines: dict, requests, max_batch: int) -> None:
+    """bench_serving's ``_warm``: per (domain, kind) of ``requests`` one
+    engine call at every policy bucket edge up to the fill target (the
+    frontend's micro-batches pad onto those edges), transcodes per (source,
+    target) pair, each drained."""
+    from repro_torch.serving import policy_fill_target
+
+    dec, enc, tr = (engines["decoder"], engines["encoder"],
+                    engines["transcoder"])
+    policy = dec.scheduler.policy
+    edges, k = [], 1
+    while k <= policy_fill_target(policy, max_batch):
+        edges.append(k)
+        k = policy.round(k + 1)
+    by_dom_c, by_dom_s, tr_pairs = {}, {}, {}
+    for r in requests:
+        if r.kind == "decode":
+            by_dom_c.setdefault(r.domain_id, []).append(r.container)
+        elif r.kind == "encode":
+            by_dom_s.setdefault(r.domain_id, []).append(r.signal)
+        else:
+            tr_pairs.setdefault((r.domain_id, r.dst_domain_id),
+                                []).append(r.container)
+    for d, cs in by_dom_c.items():
+        for k in edges:
+            if len(cs) >= k:
+                dec.decode(cs[:k], tables[d]).to_host()
+    for d, ss in by_dom_s.items():
+        for k in edges:
+            if len(ss) >= k:
+                enc.encode(ss[:k], tables[d]).to_host()
+    for (src, dst), cs in tr_pairs.items():
+        for k in edges:
+            if len(cs) >= k:
+                tr.transcode(cs[:k], tables[src], tables[dst],
+                             dst_domain_ids=[dst] * k).to_host()
+
+
 def serve_phase(smi: str) -> dict:
-    """Phase 9: the port's serving frontend on the card (see the module
+    """Phase 10: the port's serving frontend on the card (see the module
     docstring): byte identity and launch counts, the load sweep, overload,
     chaos, the watchdog, and the HTTP service.  Returns its JSON line."""
     import http.client
@@ -556,9 +673,6 @@ def serve_phase(smi: str) -> dict:
 
     from repro_torch.core import DOMAIN_DEFAULTS, calibrate, encode
     from repro_torch.data import make_signal
-    from repro_torch.kernels import decode_fused as df
-    from repro_torch.kernels import encode_fused as ef
-    from repro_torch.kernels import huffman_decode as hd
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import make_server
     from repro_torch.serving import (
@@ -604,10 +718,11 @@ def serve_phase(smi: str) -> dict:
             seed=42 + int(rps) if seed is None else seed, **traffic),
             tables)
 
-    # warm the engines: plans, pinned and device allocator pools
+    # the reference's warm-up (bench_serving._warm): one engine call at
+    # every policy edge up to the fill target, per (domain, kind) of a
+    # 0.5 s stream at the sweep's top load
     t0 = time.perf_counter()
-    with ServingFrontend(tables, config=config(), **engines) as fe:
-        replay(fe, stream(800.0, 0.5, seed=99))
+    warm_lattice(tables, engines, stream(800.0, 0.5, seed=99), 64)
     secs["warm"] = time.perf_counter() - t0
 
     # -- 9a. byte identity and launch counts ----------------------------------
@@ -629,47 +744,22 @@ def serve_phase(smi: str) -> dict:
                 d2h["calls"] += 1
 
     # every call of the five path wrappers, recorded where the engines call
-    # them: its inputs (cloned before the call) and its output (cloned after
-    # it), to hold against the plain version once the run is over
-    served = {k: [] for k in SERVE_KERNELS}
-    hooks = [(hd, "huffman_decode_dense", "symlen_decode",
-              hd.huffman_decode_plain),
-             (df, "lut_idct", "lut_idct", df.lut_idct_plain),
-             (ef, "encode_levels", "encode_levels", ef.encode_levels_plain),
-             (ef, "encode_levels_gather", "encode_levels_gather",
-              ef.encode_levels_gather_plain),
-             (ef, "symlen_pack", "symlen_pack", ef.symlen_pack_plain)]
-
-    def snap(x):
-        if isinstance(x, torch.Tensor):
-            return x.clone()
-        return tuple(map(snap, x)) if isinstance(x, tuple) else x
-
-    def recorder(fn, name):
-        def rec(*args, **kw):
-            ins = (snap(args), {k: snap(v) for k, v in kw.items()})
-            out = fn(*args, **kw)
-            served[name].append((*ins, snap(out)))
-            return out
-        return rec
-
+    # them, to hold against the plain version once the run is over
+    hooks = path_hooks(SERVE_KERNELS)
     ops.reset_launches()
     engine_mod._start_d2h = timed_d2h
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in hooks]
-    for (mod, attr, fn), (_, _, name, _) in zip(saved, hooks):
-        setattr(mod, attr, recorder(fn, name))
     try:
-        t_run = time.perf_counter()
-        with ServingFrontend(tables, config=config(), **engines) as fe:
-            futures = open_loop(fe, reqs)
-            results = [f.result(timeout=120) if not isinstance(f, Exception)
-                       else f for f in futures]
-            st = fe.stats_snapshot()
-        run_s = time.perf_counter() - t_run
+        with recorded(hooks) as served:
+            t_run = time.perf_counter()
+            with ServingFrontend(tables, config=config(), **engines) as fe:
+                futures = open_loop(fe, reqs)
+                results = [f.result(timeout=120)
+                           if not isinstance(f, Exception) else f
+                           for f in futures]
+                st = fe.stats_snapshot()
+            run_s = time.perf_counter() - t_run
     finally:
         engine_mod._start_d2h = start_d2h
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     buckets = {"decoder": dec.stats.dispatches - d0,
@@ -717,27 +807,46 @@ def serve_phase(smi: str) -> dict:
 
     # -- 9b. the load sweep, two arms, and the overload point -----------------
     t0 = time.perf_counter()
-    sweep, knees, streams = {}, {}, {}
+    sweep, knees, cold_knees, streams = {}, {}, {}, {}
+
+    def summary(fe, rep, rps):
+        st = fe.stats_snapshot()
+        point = rep.summary()
+        point.update(offered_rps=rps, fill_target=fe.fill_target,
+                     batches=st.batches, mean_batch=st.mean_batch_size,
+                     fill_dispatches=st.fill_dispatches,
+                     deadline_dispatches=st.deadline_dispatches,
+                     deadline_share=st.deadline_dispatches
+                     / max(st.batches, 1),
+                     deadline_misses=st.deadline_misses)
+        return point
+
     for arm in ("microbatch", "batch1"):
         loads, points = list(SERVE_LOADS), []
+        cfg = config(max_batch=1 if arm == "batch1" else 64)
         for rps in loads:
             if rps not in streams:
                 streams[rps] = stream(rps)
-            with ServingFrontend(
-                    tables, config=config(max_batch=1 if arm == "batch1"
-                                          else 64), **engines) as fe:
-                rep = replay(fe, streams[rps])
-                st = fe.stats_snapshot()
-            point = rep.summary()
-            point.update(offered_rps=rps, batches=st.batches,
-                         mean_batch=st.mean_batch_size,
-                         deadline_misses=st.deadline_misses)
+            cold = None
+            if arm != "batch1":
+                # bench_serving's per-point warm pass (same stream, its
+                # result discarded from the knee): micro-batch compositions
+                # are timing-dependent, so the lattice can miss a shape
+                with ServingFrontend(tables, config=cfg, **engines) as fe:
+                    cold = summary(fe, replay(fe, streams[rps]), rps)
+            with ServingFrontend(tables, config=cfg, **engines) as fe:
+                point = summary(fe, replay(fe, streams[rps]), rps)
+            if cold is not None:
+                point["cold"] = cold
             points.append(point)
             if rps == loads[-1] and sustains(point) and rps < SERVE_LOAD_CAP:
                 loads.append(2 * rps)
         sweep[arm] = points
         knees[arm] = max([p["offered_rps"] for p in points if sustains(p)],
                          default=0.0)
+        if arm != "batch1":
+            cold_knees[arm] = max([p["offered_rps"] for p in points
+                                   if sustains(p["cold"])], default=0.0)
     secs["sweep"] = time.perf_counter() - t0
     # overload: bench_serving's point (2000 requests/s of decode for 0.5 s,
     # 8 windows, max_batch 8, queue bound 16), doubled until it sheds: the
@@ -909,9 +1018,370 @@ def serve_phase(smi: str) -> dict:
                        "max_queue_depth": 1024, "duration_s": 2.0,
                        **SERVE_TRAFFIC},
             "identity": identity, "sweep": sweep, "knees_rps": knees,
+            "cold_knees_rps": cold_knees,
             "overload": overload, "chaos": chaos, "watchdog": watchdog,
             "http": statuses, "seconds_by_step": secs,
             "seconds": time.perf_counter() - t_phase}
+
+
+# the workloads phase: one decoder layer of granite-8b
+# (src/repro/configs/granite_8b.py: d_model 4096, 8 KV heads of 128, d_ff
+# 14336), its K cache at batch 8 and its training state
+GRANITE = {"d_model": 4096, "kv_heads": 8, "head_dim": 128, "d_ff": 14336}
+KV_BATCH = 8
+CKPT_KERNELS = ("encode_levels", "symlen_pack", "symlen_decode", "lut_idct")
+
+
+def kv_cache(seed: int):
+    """One layer's K cache of granite-8b at batch 8 and 4096 tokens, as
+    f32 channel rows [batch 8 x KV heads 8 x head dim 128, 4096 tokens]:
+    a random walk along the tokens plus a channel offset, from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tokens = 4096
+    channels = KV_BATCH * GRANITE["kv_heads"] * GRANITE["head_dim"]
+    kv = np.cumsum(rng.standard_normal((channels, tokens), dtype=np.float32),
+                   axis=1) * np.float32(0.05)
+    kv += rng.standard_normal((channels, 1)).astype(np.float32)
+    return kv
+
+
+def granite_layer_state(seed: int) -> dict:
+    """One granite-8b decoder layer's training state on the card, made with
+    numpy from ``seed``: its parameters ~ N(0, 0.02) with Adam m and v as
+    random walks along the flattened axis scaled to max-abs 1e-3 and 1e-6,
+    all f32, and a raw int32 step counter."""
+    import numpy as np
+    import torch
+
+    h, kv, f = (GRANITE["d_model"], GRANITE["kv_heads"] * GRANITE["head_dim"],
+                GRANITE["d_ff"])
+    shapes = {"q": (h, h), "k": (kv, h), "v": (kv, h), "o": (h, h),
+              "gate": (f, h), "up": (f, h), "down": (h, f),
+              "attn_norm": (h,), "mlp_norm": (h,)}
+    rng = np.random.default_rng(seed)
+    tree = {"params": {}, "m": {}, "v": {}}
+    for name, shape in shapes.items():
+        for part, scale in (("params", 0.02), ("m", 1e-3), ("v", 1e-6)):
+            x = rng.standard_normal(shape, dtype=np.float32)
+            if part == "params":
+                x *= np.float32(scale)
+            else:
+                flat = x.reshape(-1)
+                np.cumsum(flat, out=flat)
+                x *= np.float32(scale / float(np.abs(flat).max()))
+            tree[part][name] = torch.from_numpy(x).cuda()
+    tree["step"] = torch.tensor(1000, dtype=torch.int32, device="cuda")
+    return tree
+
+
+@contextlib.contextmanager
+def timers(specs):
+    """Accumulate the wall seconds of each ``(module, attribute, key)``
+    function's calls while the block runs.  Yields ``{key: seconds}``."""
+    secs = {key: 0.0 for _, _, key in specs}
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in specs]
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                secs[key] += time.perf_counter() - t
+        return run
+
+    for (mod, attr, fn), (_, _, key) in zip(saved, specs):
+        setattr(mod, attr, timed(fn, key))
+    try:
+        yield secs
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def path_kernel_bound(name: str, args, kw):
+    """(bytes, operations) of one path kernel call, each input read once
+    and each output written once (the times phase's counts)."""
+    if name == "encode_levels":
+        x = args[0]
+        k, wp = x.shape[0], x.shape[1] // kw["n"]
+        small = 4 * kw["n"] * kw["e"] + 8 * kw["e"] + 8 + 4 * k
+        return (4 * x.numel() + k * wp * kw["e"] + small,
+                2.0 * k * wp * kw["n"] * kw["e"])
+    if name == "symlen_pack":
+        grid, chunk = args[0], kw["chunk_size"]
+        k, sp = grid.shape[0], grid[0].numel()
+        slots = k * (-(-sp // chunk)) * chunk
+        return (grid.numel() + 4 * k + 12 * 256 + 12 * slots
+                + 4 * slots // chunk + k, 0.0)
+    if name == "symlen_decode":
+        return 9 * args[0].shape[0] + kw["num_symbols"], 0.0
+    levels, lut, basis = args  # lut_idct
+    nw, e = levels.shape
+    n = basis.shape[1]
+    return (levels.numel() + 4 * lut.numel() + 4 * e * n + 4 * nw * n,
+            2.0 * nw * e * n)
+
+
+# per row-parallel path kernel, the positional arguments whose leading axis
+# is the call's rows (the pack's zrow and zcol may be None)
+ROW_ARGS = {"encode_levels": (0, 1), "symlen_pack": (0, 1, 2, 3),
+            "lut_idct": (0,)}
+
+
+def row_slices(name: str, calls, max_elems: int = 1 << 27) -> list:
+    """The recorded ``calls`` of a row-parallel kernel as calls on blocks
+    of rows (views), each output cut the same way, so that a plain version
+    run on one block at a time stays within the card's memory at the
+    checkpoint's shapes (the plain pack alone holds several int64 copies of
+    its input).  Other kernels' calls pass through whole."""
+    if name not in ROW_ARGS:
+        return list(calls)
+    out = []
+    for args, kw, res in calls:
+        rows = args[0].shape[0]
+        step = max(1, max_elems // max(args[0][0].numel(), 1))
+        for lo in range(0, rows, step):
+            cut = slice(lo, lo + step)
+            a = tuple(x[cut] if i in ROW_ARGS[name] and x is not None else x
+                      for i, x in enumerate(args))
+            r = (tuple(None if t is None else t[cut] for t in res)
+                 if isinstance(res, tuple) else res[cut])
+            out.append((a, kw, r))
+    return out
+
+
+def workloads_phase(smi: str, kv_gpu, enc, seed: int) -> dict:
+    """Phase 9: the workloads (M8) at granite-8b's width (see the module
+    docstring): ``KVCacheCodec`` on one layer's K cache, then a compressed
+    checkpoint of one decoder layer's training state.  Returns its JSON
+    line."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import dct
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.kernels import dct_quant as dq
+    from repro_torch.kernels import idct_dequant as idq
+    from repro_torch.kernels import ops
+    from repro_torch.serving import KVCacheCodec
+    from repro_torch.serving import workloads as wl
+    from repro_torch.serving.engine import p2
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # -- the KV codec: one layer's K cache, bf16 [B, T, H, D] ---------------
+    channels, tokens = kv_gpu.shape
+    b, h, d = KV_BATCH, GRANITE["kv_heads"], GRANITE["head_dim"]
+    block = kv_gpu.reshape(b, h, d, tokens).permute(0, 3, 1, 2).to(
+        torch.bfloat16).contiguous()
+    codec = KVCacheCodec(encoder=enc)
+    t0 = time.perf_counter()
+    tab = codec.calibrate(block, layer="k")
+    calibrate_s = time.perf_counter() - t0
+    n, e = tab.config.n, tab.config.e
+    ckv = codec.compress(block, layer="k")
+    out = codec.decompress(ckv, layer="k")
+    torch.cuda.synchronize()
+    strips = block.movedim(1, -1).float().reshape(channels, tokens)
+    want = enc.encode_fixed(strips, tab)
+    check(ckv.levels.dtype == torch.uint8
+          and tuple(ckv.levels.shape) == (b, h, d, tokens // n, e)
+          and torch.equal(ckv.levels.reshape(want.shape), want),
+          "KVCacheCodec.compress levels differ from encode_fixed's")
+    check(out.dtype == torch.bfloat16 and out.shape == block.shape
+          and out.is_contiguous(), f"decompress gave {out.dtype} "
+          f"{tuple(out.shape)}")
+    kv_rel = float(torch.linalg.vector_norm((out - block).float())
+                   / torch.linalg.vector_norm(block.float()))
+    check(bool(torch.isfinite(out).all()) and kv_rel < 0.05,
+          f"KVCacheCodec reconstruction off: relative rms {kv_rel}")
+    # warm above; now one compress and one decompress with host syncs
+    # refused, each one K5 and one K3 launch
+    ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ckv2 = codec.compress(block, layer="k")
+        out2 = codec.decompress(ckv2, layer="k")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    kv_launches = dict(ops.LAUNCHES)
+    check(kv_launches == {k: int(k in ("dct_quant", "idct_dequant"))
+                          for k in kv_launches},
+          f"KV codec launch counts {kv_launches}")
+    check(torch.equal(ckv2.levels, ckv.levels) and torch.equal(out2, out),
+          "KVCacheCodec is not deterministic")
+    del ckv2, out2, want
+    plan = enc.plan_for(tab)
+    q, x = plan.tables.quant, codec.channel_strips(block)
+    lv, ibasis = ckv.levels.reshape(-1, e), dct.idct_basis(n, e,
+                                                           device="cuda")
+    xdec = codec.decoder.decode_fixed(ckv.levels, tab, length=tokens)
+    back = torch.empty_like(block)
+    kv_ms = {
+        "compress": cuda_ms(lambda: codec.compress(block, layer="k")),
+        "decompress": cuda_ms(lambda: codec.decompress(ckv, layer="k")),
+        "transpose_in": cuda_ms(lambda: codec.channel_strips(block)),
+        "dct_quant": cuda_ms(lambda: dq.dct_quant(
+            x.reshape(-1, n), q, e=e, basis=plan.basis)),
+        "idct_dequant": cuda_ms(lambda: idq.idct_dequant(lv, q, ibasis)),
+        "transpose_out": cuda_ms(lambda: back.copy_(xdec.movedim(-1, 1))),
+    }
+    # bf16 in and u8 out (or back): the codec's bytes as one function
+    cells = block.numel()
+    kv_bound = {
+        "compress": bound_ms(3 * cells, 2.0 * cells * e)[0],
+        "decompress": bound_ms(3 * cells, 2.0 * cells * e)[0],
+        "dct_quant": bound_ms(5 * cells + 4 * n * e, 2.0 * cells * e)[0],
+        "idct_dequant": bound_ms(5 * cells + 4 * n * e, 2.0 * cells * e)[0],
+    }
+    kv_line = {"shape": list(block.shape), "dtype": "bfloat16",
+               "levels": list(ckv.levels.shape), "bytes_in": 2 * cells,
+               "bytes_levels": ckv.nbytes, "ratio": ckv.ratio,
+               "calibrate_s": calibrate_s, "rel_rms_err": kv_rel,
+               "levels_equal_encode_fixed": True, "launches": kv_launches,
+               "sync_debug_mode": "error", "ms": kv_ms,
+               "bound_ms": kv_bound}
+    del block, strips, out, ckv, x, lv, xdec, back
+    torch.cuda.empty_cache()
+
+    # -- the checkpoint: one decoder layer's training state -----------------
+    t0 = time.perf_counter()
+    tree = granite_layer_state(seed)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    leaves = [(part, k, t) for part in ("params", "m", "v")
+              for k, t in tree[part].items()]
+    float_bytes = sum(t.numel() * 4 for _, _, t in leaves)
+    n_params = sum(t.numel() for t in tree["params"].values())
+    tmp = tempfile.mkdtemp(prefix="fptc_ckpt_")
+    save_specs = [(ckpt, "calibrate_train_state", "calibrate"),
+                  (wl, "shard_state", "shard"),
+                  (ckpt, "state_to_containers", "shard_encode")]
+    restore_specs = [(ckpt, "_read_containers", "read_crc"),
+                     (ckpt, "state_from_containers", "decode_unshard"),
+                     (wl, "unshard_state", "unshard"),
+                     (ckpt, "_place", "to_device")]
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with recorded(path_hooks(CKPT_KERNELS)) as calls:
+            with timers(save_specs) as ssec:
+                t0 = time.perf_counter()
+                path = ckpt.save_checkpoint(tmp, 1, tree, compress=True)
+                save_s = time.perf_counter() - t0
+            save_launches = dict(ops.LAUNCHES)
+            ops.reset_launches()
+            with timers(restore_specs) as rsec:
+                t0 = time.perf_counter()
+                step, got = ckpt.restore_latest(tmp, tree)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+            restore_launches = dict(ops.LAUNCHES)
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        files = sorted(os.listdir(path))
+        disk = {name: os.path.getsize(os.path.join(path, name))
+                for name in files}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    state = manifest["state"]
+    step_entry = manifest["leaves"]["['step']"]
+    check(manifest["version"] == 2 and state["file"] == "state.fptc"
+          and step_entry["dtype"] == "int32" and "codec" not in step_entry
+          and files == sorted(["manifest.json", "state.fptc",
+                               step_entry["file"] + ".npy"])
+          and all(manifest["leaves"][f"['{p}']['{k}']"]["codec"]
+                  == "fptc_state" for p, k, _ in leaves),
+          f"checkpoint manifest: version {manifest['version']}, files "
+          f"{files}")
+    lengths = [s for leaf in state["leaves"] for s in leaf["lengths"]]
+    enc_buckets = len({p2(-(-s // ckpt.CKPT_CODEC_CONFIG.n))
+                       for s in lengths})
+    # one plan key (the train_state tables): one decode bucket
+    want = {k: 0 for k in save_launches}
+    want.update(encode_levels=enc_buckets, symlen_pack=enc_buckets)
+    check(save_launches == want, f"save launch counts {save_launches} != "
+          f"{want}")
+    want = {k: 0 for k in restore_launches}
+    want.update(symlen_decode=1, lut_idct=1)
+    check(restore_launches == want, f"restore launch counts "
+          f"{restore_launches} != {want}")
+    check(step == 1 and int(got["step"]) == 1000 and got["step"].is_cuda,
+          f"restored step {step}, counter {got['step']}")
+    rel = {}
+    for part, k, t in leaves:
+        r = got[part][k]
+        check(r.is_cuda and r.dtype == t.dtype and r.shape == t.shape,
+              f"restored {part}.{k}: {r.device} {r.dtype} {tuple(r.shape)}")
+        rel[f"{part}.{k}"] = float(torch.linalg.vector_norm(r - t)
+                                   / torch.linalg.vector_norm(t))
+    worst = max(rel.values())
+    check(worst < 0.02, f"checkpoint leaves off: relative rms {rel}")
+    check(disk["state.fptc"] < 0.8 * float_bytes,
+          f"state.fptc {disk['state.fptc']} B of {float_bytes} float bytes")
+    del got, tree, leaves, r, t
+    torch.cuda.empty_cache()
+    # every recorded call against its plain version, after its time
+    launches = {**save_launches, **{k: v for k, v in restore_launches.items()
+                                    if v}}
+    kernels = {}
+    for mod, attr, name, plain in path_hooks(CKPT_KERNELS):
+        rows = calls.pop(name)
+        check(bool(rows), f"no {name} call recorded on the checkpoint path")
+        if not rows:
+            continue
+        fn = getattr(mod, attr)
+        per_call = []  # (ms, bytes, operations) of each call
+        for args, kw, _ in rows:
+            per_call.append((cuda_ms(lambda: fn(*args, **kw), reps=3),
+                             *path_kernel_bound(name, args, kw)))
+        res = served_vs_plain(name, row_slices(name, rows), plain)
+        res["calls"] = len(rows)
+        check(res["ok"] and res["calls"] == launches[name],
+              f"{name} at the checkpoint's shapes against its plain "
+              f"version: {res}, {launches[name]} launches")
+        total = bound_ms(sum(c[1] for c in per_call),
+                         sum(c[2] for c in per_call))
+        kernels[name] = {
+            **res, "ms": sum(c[0] for c in per_call), "bound_ms": total[0],
+            "bound_by": total[1],
+            "by_call": [{"input_shape": list(a[0].shape), "ms": c[0],
+                         "bound_ms": bound_ms(c[1], c[2])[0]}
+                        for (a, _, _), c in zip(rows, per_call)]}
+        del rows, args, kw
+        torch.cuda.empty_cache()
+    del calls
+    torch.cuda.empty_cache()
+    encode_s = ssec["shard_encode"] - ssec["shard"]
+    decode_s = rsec["decode_unshard"] - rsec["unshard"]
+    return {
+        "phase": "workloads", "nvidia_smi": smi, "kv": kv_line,
+        "checkpoint": {
+            "model": "granite-8b, one decoder layer: params, Adam m and v "
+            "(f32), an int32 step", "parameters": n_params,
+            "float_elements": float_bytes // 4, "float_bytes": float_bytes,
+            "shards": len(lengths), "encode_buckets": enc_buckets,
+            "make_s": make_s, "save_s": save_s, "restore_s": restore_s,
+            "save_split_s": {
+                "calibrate": ssec["calibrate"], "shard": ssec["shard"],
+                "encode": encode_s,
+                "write": save_s - ssec["calibrate"] - ssec["shard_encode"]},
+            "restore_split_s": {
+                "read_crc": rsec["read_crc"], "decode": decode_s,
+                "unshard": rsec["unshard"], "to_device": rsec["to_device"],
+                "other": restore_s - rsec["read_crc"]
+                - rsec["decode_unshard"] - rsec["to_device"]},
+            "disk_bytes": disk, "ratio": disk["state.fptc"] / float_bytes,
+            "rel_rms_err": rel, "max_rel_rms_err": worst,
+            "save_launches": save_launches,
+            "restore_launches": restore_launches, "kernels": kernels},
+        "seconds": time.perf_counter() - t_phase}
 
 
 def main() -> None:
@@ -1008,12 +1478,8 @@ def main() -> None:
                 archive.append(c)
                 source.append((did, i))
     n_out = sum(c.signal_length for c in archive)
-    # one layer's K cache: [batch 8, kv heads 8, head dim 128, 4096 tokens]
-    rng = np.random.default_rng(args.seed)
-    tokens, channels = 4096, 8 * 8 * 128
-    kv = np.cumsum(rng.standard_normal((channels, tokens), dtype=np.float32),
-                   axis=1) * np.float32(0.05)
-    kv += rng.standard_normal((channels, 1)).astype(np.float32)
+    kv = kv_cache(args.seed)
+    channels, tokens = kv.shape
     kv_tab = calibrate(kv.ravel(), DOMAIN_DEFAULTS["kv"], domain_id=8,
                        seed=args.seed)
     kv_gpu = torch.from_numpy(kv).cuda()
@@ -1836,10 +2302,13 @@ def main() -> None:
                               "rule": f"|d| <= 1 in at most {FLIP_SHARE} "
                               "of the cells"}})
 
-    # -- 9. serve ---------------------------------------------------------------------
+    # -- 9. workloads -----------------------------------------------------------------
+    emit(workloads_phase(smi, kv_gpu, enc, args.seed))
+
+    # -- 10. serve --------------------------------------------------------------------
     emit(serve_phase(smi))
 
-    # -- 10. times ------------------------------------------------------------------
+    # -- 11. times ------------------------------------------------------------------
     # first, the CUDA kernels one wrapper call of each kernel puts on the
     # card, on the first bucket that runs it, the profiler sessions one
     # after another (K3's session, placed after the timing loops below,
@@ -2047,7 +2516,7 @@ def main() -> None:
           **{k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
                  "bound_by": v[3]} for k, v in times.items()}})
 
-    # -- 11. the kernels line, and the last line ---------------------------------
+    # -- 12. the kernels line, and the last line ---------------------------------
     counts_of = {"main": launches, "encode": elaunches,
                  "transcode": tlaunches, "staged": slaunches}
     kernels = []

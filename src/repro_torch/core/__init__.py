@@ -15,6 +15,12 @@ from repro_torch.core.codec import (
 )
 from repro_torch.core.config import DOMAIN_DEFAULTS, PREDICTORS, CodecConfig
 from repro_torch.core.container import Container, ContainerFormatError
+from repro_torch.core.domains import (
+    KV_DOMAIN_ID,
+    TRAIN_STATE_DOMAIN_ID,
+    calibrate_kv,
+    calibrate_train_state,
+)
 
 __all__ = [
     "CodecConfig",
@@ -32,4 +38,8 @@ __all__ = [
     "decode_device",
     "encode_device",
     "transcode",
+    "KV_DOMAIN_ID",
+    "TRAIN_STATE_DOMAIN_ID",
+    "calibrate_kv",
+    "calibrate_train_state",
 ]

@@ -114,6 +114,7 @@ def calibrate(
     domain_id: int = 0,
     max_windows: Optional[int] = 65536,
     seed: int = 0,
+    scale_floor: Optional[np.ndarray] = None,
 ) -> DomainTables:
     """Calibrate quantization table + Huffman codebook on representative
     data (host, CPU tensors).
@@ -124,6 +125,9 @@ def calibrate(
       max_windows: subsample cap for calibration windows (randomly sampled,
         kept in signal order so v3 residual histograms stay faithful).
       seed: subsampling RNG seed.
+      scale_floor: per-bin lower bounds on the scales (``[E]``), for a
+        caller that knows coefficients the strip does not hold; the
+        histogram is taken under the raised scales.
     """
     signal = np.asarray(signal, dtype=np.float32).ravel()
     windows = dct.window_signal(torch.from_numpy(signal.copy()), config.n)
@@ -143,6 +147,10 @@ def calibrate(
         percentile=config.a0_percentile,
         scale_headroom=config.scale_headroom,
     )
+    if scale_floor is not None:
+        scale = np.maximum(quant.scale.numpy(), np.asarray(scale_floor))
+        quant = quant_table_from_arrays(_zones(config, config.e), scale,
+                                        config.mu, config.alpha1)
     levels = quantize(coeffs, quant)
     pred_id, bands, zplanes = config.coding
     # v3 configs entropy-code the TRANSFORMED symbols (prediction residuals,

@@ -18,7 +18,12 @@ of the cells (or one cell, at these small sizes).  Packing the same grid must gi
 The serving frontend on the card (no device given) answers byte-identically
 to the offline engines on the card, corrupt blobs included as typed
 outcomes, and two frontends serving at once on the default stream keep the
-kernels' shared state (K1's workspace, the launch counters) coherent."""
+kernels' shared state (K1's workspace, the launch counters) coherent.  The
+workloads: ``KVCacheCodec`` waits for the card nowhere and matches K5's and
+K3's plain versions; a compressed checkpoint at n = e = 64 holds every
+kernel call to its plain version and restores within relative rms 0.02."""
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1069,3 +1074,162 @@ def test_two_frontend_dispatchers_share_the_default_stream(cuda):
     assert ops.LAUNCHES["symlen_pack"] == enc > 0
     assert (ops.LAUNCHES["encode_levels"]
             + ops.LAUNCHES["encode_levels_gather"]) == enc
+
+
+# ---------------------------------------------------------------------------
+# The workloads (M8) on the card: the KV codec (K5, then K3) and a
+# compressed train-state checkpoint at n = e = 64, l_max = 12 (K4 to save,
+# K1 + lut_idct to restore).
+# ---------------------------------------------------------------------------
+def _kv_block(cuda, dtype, b=2, t=256, h=4, d=16, seed=0):
+    """A walk along the token axis per channel, [B, T, H, D] on the card."""
+    rng = np.random.default_rng(seed)
+    walk = np.cumsum(rng.standard_normal((b, t, h, d)), axis=1) * (
+        4.0 / t ** 0.5)
+    return torch.from_numpy(walk.astype(np.float32)).to(cuda, dtype)
+
+
+def test_kv_zero_host_bounces(cuda):
+    """Compress + decompress under ``set_sync_debug_mode("error")``: after
+    one warm call the codec never waits for the card, and each call is one
+    K5 and one K3 launch."""
+    from repro_torch.serving import KVCacheCodec
+
+    kv = _kv_block(cuda, torch.bfloat16)
+    codec = KVCacheCodec()
+    assert codec.encoder.device.type == codec.decoder.device.type == "cuda"
+    codec.calibrate(kv, layer="l0")
+    codec.decompress(codec.compress(kv, layer="l0"), layer="l0")  # warm
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ckv = codec.compress(kv, layer="l0")
+        out = codec.decompress(ckv, layer="l0")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    moved = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {k: int(k in ("dct_quant", "idct_dequant"))
+                     for k in before}
+    assert out.shape == kv.shape and out.dtype == kv.dtype
+    assert out.is_cuda and out.is_contiguous()
+    rel = float(torch.linalg.vector_norm((out - kv).float())
+                / torch.linalg.vector_norm(kv.float()))
+    assert rel < 0.05, rel
+
+
+def test_kv_codec_matches_plain(cuda):
+    """The codec's levels against K5's plain version on its channel strips
+    (the flip rule), its reconstruction against K3's plain version of those
+    levels, transposed back (within the float bound)."""
+    from repro_torch.serving import KVCacheCodec
+
+    kv = _kv_block(cuda, torch.float32, seed=1)
+    codec = KVCacheCodec()
+    tab = codec.calibrate(kv)
+    n, e = tab.config.n, tab.config.e
+    ckv = codec.compress(kv)
+    strips = kv.movedim(1, -1).contiguous()
+    assert torch.equal(codec.channel_strips(kv), strips)
+    plan = codec.encoder.plan_for(tab)
+    want = dq.dct_quant_plain(strips.reshape(-1, n), plan.tables.quant,
+                              plan.basis)
+    assert_flip_rule(ckv.levels.reshape(-1, e), want)
+    out = codec.decompress(ckv)
+    plain = idq.idct_dequant_plain(ckv.levels.reshape(-1, e),
+                                   plan.tables.quant,
+                                   dct.idct_basis(n, e, device=cuda))
+    assert_close(out, plain.reshape(strips.shape).movedim(-1, 1))
+
+
+def _recording(monkeypatch, calls):
+    """Record every call of the train-state path's four kernel wrappers
+    (inputs cloned before, output after), as chip_smoke's phases do."""
+    def snap(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        return tuple(map(snap, x)) if isinstance(x, tuple) else x
+
+    for mod, attr in ((ef, "encode_levels"), (ef, "symlen_pack"),
+                      (hd, "huffman_decode_dense"), (df, "lut_idct")):
+        fn = getattr(mod, attr)
+
+        def rec(*args, _fn=fn, _name=attr, **kw):
+            ins = (snap(args), {k: snap(v) for k, v in kw.items()})
+            out = _fn(*args, **kw)
+            calls.setdefault(_name, []).append((*ins, snap(out)))
+            return out
+
+        monkeypatch.setattr(mod, attr, rec)
+
+
+def test_train_state_checkpoint_on_card(cuda, tmp_path, monkeypatch):
+    """A small train state through ``save_checkpoint(compress=True)`` and
+    ``restore_latest`` on the card, at the checkpoint's n = e = 64 and
+    l_max = 12 with 1024-symbol chunks: one ``encode_levels`` +
+    ``symlen_pack`` per encode bucket, one ``symlen_decode`` + ``lut_idct``
+    per decode bucket, every call held to its plain version (levels by the
+    flip rule, the pack and K1 exactly, ``lut_idct`` within the float
+    bound), every leaf within relative rms 0.02 on the card, and equal to
+    the CPU's restore of the same blob within the float bound."""
+    from repro_torch.distributed import checkpoint as ckpt
+
+    rng = np.random.default_rng(7)
+
+    def walk(shape, scale):
+        t = np.cumsum(rng.standard_normal(shape), axis=0).astype(np.float32)
+        return torch.from_numpy(t / np.abs(t).max() * scale).to(cuda)
+
+    tree = {
+        "p": {"w": torch.from_numpy(rng.standard_normal(
+            (512, 320)).astype(np.float32) * np.float32(0.02)).to(cuda),
+              "norm": 1.0 + walk((4096,), 0.1)},
+        "m": {"w": walk((512, 320), 1e-3)},
+        "v": {"w": walk((512, 320), 1e-6)},
+        "step": torch.tensor(3, dtype=torch.int32, device=cuda),
+    }
+    calls = {}
+    _recording(monkeypatch, calls)
+    before = dict(ops.LAUNCHES)
+    path = ckpt.save_checkpoint(str(tmp_path), 1, tree, compress=True)
+    saved = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    manifest = json.load(open(f"{path}/manifest.json"))
+    lengths = [n for leaf in manifest["state"]["leaves"]
+               for n in leaf["lengths"]]
+    enc_buckets = len({p2(-(-n // 64)) for n in lengths})
+    assert saved["encode_levels"] == saved["symlen_pack"] == enc_buckets
+    before = dict(ops.LAUNCHES)
+    step, got = ckpt.restore_latest(str(tmp_path), tree)
+    restored = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    assert step == 1
+    assert restored["symlen_decode"] == restored["lut_idct"] == 1
+    for name, rows in calls.items():
+        assert len(rows) == (saved if name.startswith(("encode", "symlen_p"))
+                             else restored)[
+            "symlen_decode" if name == "huffman_decode_dense" else name]
+        for args, kw, out in rows:
+            if name == "encode_levels":
+                assert kw["n"] == kw["e"] == 64
+                want = ef.encode_levels_plain(*args, **kw)
+                assert_flip_rule(out[0], want[0])
+            elif name == "symlen_pack":
+                assert kw["chunk_size"] == 1024
+                want = ef.symlen_pack_plain(*args, **kw)
+                assert all(torch.equal(g, w) for g, w in zip(out, want))
+            elif name == "huffman_decode_dense":
+                assert kw["l_max"] == 12
+                assert torch.equal(out, hd.huffman_decode_plain(*args, **kw))
+            else:
+                assert args[0].shape[1] == args[2].shape[1] == 64
+                assert_close(out, df.lut_idct_plain(*args, **kw))
+    _, host = ckpt.restore_latest(str(tmp_path), tree, device="cpu")
+    for key in (("p", "w"), ("p", "norm"), ("m", "w"), ("v", "w")):
+        a, b, c = tree[key[0]][key[1]], got[key[0]][key[1]], host[
+            key[0]][key[1]]
+        assert b.is_cuda and b.dtype == a.dtype and b.shape == a.shape
+        rel = float(torch.linalg.vector_norm(b - a)
+                    / torch.linalg.vector_norm(a))
+        assert rel < 0.02, (key, rel)
+        assert_close(b, c)
+    assert int(got["step"]) == 3 and got["step"].is_cuda
