@@ -104,6 +104,8 @@ digests below must then match).  Phases, one JSON line each:
      against draining and transcoding the containers; and
      ``codec.transcode`` of one container against the host round trip
      ``encode(decode(c))`` where no level flipped (the flip rule above);
+     the main, encode and transcode lines carry a ``sha256`` of their
+     drained results;
   9. workloads — (``workloads_phase()``) one layer of granite-8b.  The
      KV codec: the data phase's K cache as a bf16 ``[8, 4096, 8, 128]``
      block, ``KVCacheCodec.calibrate`` on it, ``compress`` levels equal to
@@ -157,7 +159,9 @@ digests below must then match).  Phases, one JSON line each:
      through a fresh frontend before its timed replay, as the reference
      does (its summary kept as ``cold``): p50/p95/p99 sojourn ms, achieved
      requests/s, shed, batches, mean batch size, fill and deadline
-     dispatches and the deadline share, deadline misses, and each arm's
+     dispatches and the deadline share, deadline misses, p50/p99 of each
+     request's admission lag (scheduled arrival to the return of its
+     submit) and flush-to-result time, and each arm's
      knee (the highest load with p99 within the SLO, nothing shed, every
      admitted request completed; ``microbatch``'s also on the cold
      passes) — printed, not checked;
@@ -181,6 +185,30 @@ digests below must then match).  Phases, one JSON line each:
      one wrapper call puts on the card (``grids_per_call``), counted by
      ``torch.profiler`` over one call on the first bucket that runs it.
 
+ 12. tune   — (``tune_phase()``; skipped under ``--src``, whose port may
+     predate it; last, so that the phases before it, the times among
+     them, run in the process state they ran in before the phase was
+     added) the host's copy of the launchers' tile rules
+     (``kernels/tiles.py``) against the built library's at every (E, N)
+     from 1 to 128 and every register tile, and every v3 tile at every
+     E; with a fresh ``TuningCache`` in a temporary directory,
+     ``tune_decode_bucket`` on one v2 and one v3 archive bucket and
+     ``tune_encode_bucket`` on one archive encode bucket: every candidate
+     launch shape's CUDA-event ms beside the cost model's prediction, its
+     outputs' ``sha256`` equal to the kernels' own picks', the winner
+     beside the pick; every archive bucket under every legal shape equal
+     to its pick on the card (``lut_idct``, the v3 stage,
+     ``encode_levels``); then that cache as the default, with a shape other
+     than the pick stored under every other key the engines consult: the
+     archive decode, encode and transcode with the main, encode and
+     transcode phases' ``sha256`` and launch counts, and the cache hit;
+     then cold again: the decode and encode under ``policy=
+     "cost-balanced"`` with ``p2``'s digests, decode, encode and transcode
+     over ``devices=(cuda:0, cuda:0)`` with one shard's (the encoder's
+     ``stats.dispatches`` twice one shard's), and a new bucket shape's
+     first call less its warm call (``compile_cost_s``), on slices of one
+     plan key.
+
 Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
 ...}``.  Any failed check exits non-zero before the last line.
 """
@@ -188,6 +216,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -452,6 +481,20 @@ def digest(tensors) -> str:
     return h.hexdigest()
 
 
+def host_digest(items) -> str:
+    """sha256 of host results' bytes in order: decoded numpy signals, or
+    containers (their wire bytes)."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for x in items:
+        h.update(x.to_bytes() if hasattr(x, "to_bytes")
+                 else np.ascontiguousarray(x).tobytes())
+    return h.hexdigest()
+
+
 def outputs_equal(got, want) -> bool:
     """Tuples of tensors (or None) equal element for element."""
     import torch
@@ -571,7 +614,9 @@ def recorded(hooks):
     """Record every call of the hooked wrappers where the engines call
     them: its inputs (cloned before the call) and its output (cloned after
     it), under its counter's name, to hold against the plain version once
-    the run is over.  Yields ``{name: [(args, kwargs, output), ...]}``."""
+    the run is over.  Yields ``{name: [(args, kwargs, output), ...]}``;
+    the kwargs leave out the launch shape (``rw``), which the plain
+    versions do not take."""
     import torch
 
     calls = {name: [] for _, _, name, _ in hooks}
@@ -583,7 +628,8 @@ def recorded(hooks):
 
     def recorder(fn, name):
         def rec(*args, **kw):
-            ins = (snap(args), {k: snap(v) for k, v in kw.items()})
+            ins = (snap(args),
+                   {k: snap(v) for k, v in kw.items() if k != "rw"})
             out = fn(*args, **kw)
             calls[name].append((*ins, snap(out)))
             return out
@@ -686,6 +732,7 @@ def serve_phase(smi: str) -> dict:
         build_domain_tables,
         generate,
         replay,
+        settle_heap,
     )
     from repro_torch.serving import engine as engine_mod
     from repro_torch.testing.faults import (
@@ -723,6 +770,10 @@ def serve_phase(smi: str) -> dict:
     # 0.5 s stream at the sweep's top load
     t0 = time.perf_counter()
     warm_lattice(tables, engines, stream(800.0, 0.5, seed=99), 64)
+    # as launch.serve does once warm: full collections skip the heap built
+    # so far (their 140-170 ms stop-the-world pauses broke the SLO below
+    # the knee, F2); undone at the phase's end
+    frozen = settle_heap()
     secs["warm"] = time.perf_counter() - t0
 
     # -- 9a. byte identity and launch counts ----------------------------------
@@ -812,6 +863,7 @@ def serve_phase(smi: str) -> dict:
     def summary(fe, rep, rps):
         st = fe.stats_snapshot()
         point = rep.summary()
+        point.update(rep.timings())
         point.update(offered_rps=rps, fill_target=fe.fill_target,
                      batches=st.batches, mean_batch=st.mean_batch_size,
                      fill_dispatches=st.fill_dispatches,
@@ -1012,7 +1064,8 @@ def serve_phase(smi: str) -> dict:
         fe.close()
     secs["http"] = time.perf_counter() - t0
     engines["transcoder"].close()
-    return {"phase": "serve", "nvidia_smi": smi,
+    gc.unfreeze()
+    return {"phase": "serve", "nvidia_smi": smi, "heap_frozen": frozen,
             "config": {"slo_ms": SERVE_SLO_MS,
                        "flush_slack_ms": SERVE_SLACK_MS, "max_batch": 64,
                        "max_queue_depth": 1024, "duration_s": 2.0,
@@ -1022,6 +1075,279 @@ def serve_phase(smi: str) -> dict:
             "overload": overload, "chaos": chaos, "watchdog": watchdog,
             "http": statuses, "seconds_by_step": secs,
             "seconds": time.perf_counter() - t_phase}
+
+
+# the tune phase: the tuning cache's sweeps on archive buckets, the engines
+# with a warm cache, the cost-balanced ladder, and two shards on one card
+def tune_phase(tables, archive, signals, doms, twin, buckets, ebuckets, dec,
+               enc, ref) -> dict:
+    """The tuning layer on the card (the phases' docstring, phase 12).
+    ``ref`` maps "main", "encode" and "transcode" to that phase's
+    (sha256 of its drained results, launch counts)."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import encode_fused as ef
+    from repro_torch.kernels import ops, tiles
+    from repro_torch.serving import BatchDecoder, BatchEncoder, Transcoder
+    from repro_torch.tuning import autotune, default_cost_model
+
+    t_phase = time.perf_counter()
+    cm = default_cost_model("cuda")
+    cache = autotune.TuningCache(tempfile.mkdtemp(prefix="fptc_tune_"))
+    backend = autotune.backend_key("cuda")
+
+    # -- the host's copy of the launchers' tile rules (kernels/tiles.py,
+    # which the cost model charges and the CPU's tests use) against the
+    # built library's, at every (E, N) and tile the launchers take
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    rules = {"idct": 0, "levels": 0, "v3": 0}
+    for e in range(1, 129):
+        for n in range(1, 129):
+            for rw in (0, 4, 8, 2):
+                got = tiles.launcher_idct_tile(e, n, rw, optin)
+                want = tiles.idct_tile_shape(e, n, rw, optin)
+                check(got == want, f"lut_idct's tile at E={e}, N={n}, "
+                      f"rw={rw}: the library's {got}, tiles.py's {want}")
+                rules["idct"] += 1
+            for rw in (0, 1, 2, 4, 8):
+                got = tiles.launcher_dct_tile(n, e, rw)
+                want = tiles.dct_tile_shape(n, e, rw)
+                check(got == want, f"levels_kernel's tile at N={n}, E={e}, "
+                      f"rw={rw}: the library's {got}, tiles.py's {want}")
+                rules["levels"] += 1
+        for t in (*range(0, 4097, 128), 300, -256):
+            check(tiles.launcher_v3_tile_ok(t, e) == tiles.v3_tile_ok(t, e),
+                  f"the v3 tile {t} at E={e}: the library and tiles.py "
+                  "disagree")
+            rules["v3"] += 1
+
+    def label(b):
+        return "/".join(f"{k}={v}" for k, v in sorted(b.items()))
+
+    # -- (a) the sweeps: every candidate timed, predicted, and its outputs
+    # held to the cold default's (the kernels' own picks) by sha256
+    sweeps = []
+    v2 = next(b for b in buckets if b["v3"] is None)
+    v3 = next(b for b in buckets if b["v3"] is not None)
+    for b in (v2, v3):
+        p = b["plan"]
+        bucket = {"args": (b["words"], b["symlen"], p.tables, p.lut,
+                           p.basis, b["v3"]),
+                  "kw": dict(l_max=p.l_max, max_symlen=b["ms"],
+                             num_windows=b["nw"], n=p.n, e=p.e,
+                             coding=p.coding)}
+        words = int(b["words"].shape[0])
+
+        def run(blocks, bucket=bucket):
+            return df.decode_fused(
+                *bucket["args"], **bucket["kw"], idct_rw=blocks["idct_rw"],
+                v3_tile_windows=blocks.get("v3_tile_windows", 0))
+
+        cold = digest([run({"idct_rw": 0})])
+        timed = {}
+        best = autotune.tune_decode_bucket(
+            tables[p.domain_id], num_words=words, num_windows=b["nw"],
+            bucket=bucket, cache=cache, trials=5,
+            record=lambda bl, t: timed.__setitem__(label(bl), t))
+        cands = []
+        for blocks in autotune.decode_block_candidates(p.n, p.e, p.coding):
+            sha = digest([run(blocks)])
+            check(sha == cold, f"decode {p.coding} at {blocks}: outputs "
+                  "differ from the kernels' own picks")
+            cands.append({"blocks": blocks, "ms": timed[label(blocks)] * 1e3,
+                          "predicted_ms": 1e3 * cm.decode_bucket_cost(
+                              words, b["nw"], e=p.e, n=p.n,
+                              max_symlen=b["ms"], **blocks),
+                          "sha256_equal": True})
+        pick = {"idct_rw": tiles.idct_tile_shape(p.e, p.n).rw}
+        if b["v3"] is not None:
+            pick["v3_tile_windows"] = tiles.v3_tile_windows(p.e)
+        sweeps.append({"kind": "decode", "plan_key": str(b["grp"].plan_key),
+                       "shape": [words, b["nw"]], "candidates": cands,
+                       "winner": best, "pick": pick,
+                       "pick_ms": timed[label(pick)] * 1e3})
+    eb = ebuckets[0]
+    p = eb["plan"]
+    wpr = eb["x"].shape[1] // p.n
+    bucket = {"args": (eb["x"], eb["counts"], p.tables, p.basis),
+              "kw": dict(n=p.n, e=p.e, chunk_size=eb["chunk"],
+                         check_gaps=p.has_gaps, coding=p.coding)}
+    timed = {}
+    best = autotune.tune_encode_bucket(
+        tables[p.domain_id], rows=eb["x"].shape[0], num_windows=wpr,
+        chunk_size=eb["chunk"], bucket=bucket, cache=cache, trials=5,
+        record=lambda bl, t: timed.__setitem__(label(bl), t))
+    cold = digest(ef.encode_fused(*bucket["args"], **bucket["kw"],
+                                  levels_rw=0))
+    cands = []
+    for blocks in autotune.encode_block_candidates(p.n, p.e):
+        sha = digest(ef.encode_fused(*bucket["args"], **bucket["kw"],
+                                     levels_rw=blocks["levels_rw"]))
+        check(sha == cold, f"encode at {blocks}: outputs differ from the "
+              "kernel's own pick")
+        cands.append({"blocks": blocks, "ms": timed[label(blocks)] * 1e3,
+                      "predicted_ms": 1e3 * cm.encode_bucket_cost(
+                          eb["x"].shape[0], wpr, e=p.e, n=p.n,
+                          levels_rw=blocks["levels_rw"]),
+                      "sha256_equal": True})
+    pick = {"levels_rw": tiles.dct_tile_shape(p.n, p.e).rw}
+    sweeps.append({"kind": "encode", "plan_key": str(
+        (p.domain_id, p.n, p.e, p.l_max, p.coding)),
+        "shape": list(eb["x"].shape), "candidates": cands, "winner": best,
+        "pick": pick, "pick_ms": timed[label(pick)] * 1e3})
+    # every archive bucket under every legal shape, against the pick, on
+    # the card: lut_idct (its bit contract) and levels_kernel
+    same = {"lut_idct": True, "encode_levels": True, "v3_unpredict": True}
+    for b in buckets:
+        p = b["plan"]
+        lv = df.bucket_levels(b["words"], b["symlen"], p.tables, b["v3"],
+                              l_max=p.l_max, max_symlen=b["ms"],
+                              num_windows=b["nw"], e=p.e, coding=p.coding)
+        want = df.lut_idct(lv, p.lut, p.basis)
+        for rw in tiles.idct_rws(p.e, p.n):
+            same["lut_idct"] &= bool(torch.equal(
+                df.lut_idct(lv, p.lut, p.basis, rw=rw), want))
+        if b["v3"] is not None:
+            for t in tiles.v3_tiles(p.e):
+                same["v3_unpredict"] &= bool(torch.equal(df.bucket_levels(
+                    b["words"], b["symlen"], p.tables, b["v3"], l_max=p.l_max,
+                    max_symlen=b["ms"], num_windows=b["nw"], e=p.e,
+                    coding=p.coding, v3_tile_windows=t), lv))
+    for b in ebuckets:
+        p = b["plan"]
+        kw = dict(n=p.n, e=p.e, coding=p.coding)
+        want = ef.encode_levels(b["x"], b["counts"], p.tables.quant, p.basis,
+                                **kw)
+        for rw in tiles.levels_rws(p.n, p.e):
+            got = ef.encode_levels(b["x"], b["counts"], p.tables.quant,
+                                   p.basis, rw=rw, **kw)
+            same["encode_levels"] &= outputs_equal(got, want)
+    check(all(same.values()), f"a launch shape changes outputs: {same}")
+
+    # -- (b) the engines with that cache as the default, and a shape other
+    # than the kernels' pick under every other key they consult: the
+    # phases' results and launch counts
+    forced = 0
+    for b in buckets:
+        p = b["plan"]
+        key = df.tuning_plan_key(p.n, p.e, p.l_max, b["ms"], p.coding)
+        shape = (int(b["words"].shape[0]), b["nw"])
+        if cache.lookup("decode", backend, key, shape) is None:
+            pick = tiles.idct_tile_shape(p.e, p.n).rw
+            blocks = {"idct_rw": next(
+                (r for r in tiles.idct_rws(p.e, p.n) if r != pick), pick)}
+            if b["v3"] is not None:
+                pick = tiles.v3_tile_windows(p.e)
+                blocks["v3_tile_windows"] = next(
+                    t for t in tiles.v3_tiles(p.e) if t != pick)
+            cache.store("decode", backend, key, shape, blocks)
+            forced += 1
+    for b in ebuckets:
+        p = b["plan"]
+        key = ef.tuning_plan_key(p.n, p.e, b["chunk"], p.coding)
+        shape = tuple(b["x"].shape)
+        rws = [r for r in tiles.levels_rws(p.n, p.e)
+               if r != tiles.dct_tile_shape(p.n, p.e).rw]
+        if cache.lookup("encode", backend, key, shape) is None and rws:
+            cache.store("encode", backend, key, shape, {"levels_rw": rws[0]})
+            forced += 1
+    autotune.set_default_cache(cache)
+    hits0 = cache.hits
+    warm = {}
+    tc = Transcoder(decoder=dec, encoder=enc)
+    for name, fn in (
+        ("main", lambda: dec.decode(archive, tables).to_host()),
+        ("encode", lambda: enc.encode(signals, tables,
+                                      domain_ids=doms).to_host()),
+        ("transcode", lambda: tc.transcode(archive, tables, tables,
+                                           dst_domain_ids=twin).to_host()),
+    ):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        sha = host_digest(fn())
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        want = {k: v for k, v in ref[name][1].items()
+                if v and k not in ("idct_dequant", "dct_quant")}
+        check(sha == ref[name][0], f"warm-cache {name} differs from the "
+              "cold phase's results")
+        check(got == want, f"warm-cache {name} launches {got} != {want}")
+        warm[name] = {"wall_s": time.perf_counter() - t0, "sha256": sha,
+                      "launches": got}
+    warm_hits = cache.hits - hits0
+    check(warm_hits > 0, "the engines never consulted the warm cache")
+
+    # -- (c) cold again: the cost-balanced ladder and two shards on one card
+    autotune.set_default_cache(None)
+    policy = {}
+    cb_dec = BatchDecoder(policy="cost-balanced")
+    cb_enc = BatchEncoder(policy="cost-balanced")
+    for name, fn in (
+        ("main", lambda: cb_dec.decode(archive, tables).to_host()),
+        ("encode", lambda: cb_enc.encode(signals, tables,
+                                         domain_ids=doms).to_host()),
+    ):
+        sha = host_digest(fn())
+        check(sha == ref[name][0], f"cost-balanced {name} differs from p2")
+        policy[name] = sha
+    policy["multipliers"] = list(cb_dec.scheduler.policy.multipliers)
+    cb_dec.close()
+    cb_enc.close()
+    two = ("cuda:0", "cuda:0")
+    sh_dec, sh_enc = BatchDecoder(devices=two), BatchEncoder(devices=two)
+    sh_tc = Transcoder(decoder=sh_dec, encoder=sh_enc)
+    shards = {}
+    for name, fn in (
+        ("main", lambda: sh_dec.decode(archive, tables).to_host()),
+        ("encode", lambda: sh_enc.encode(signals, tables,
+                                         domain_ids=doms).to_host()),
+        ("transcode", lambda: sh_tc.transcode(archive, tables, tables,
+                                              dst_domain_ids=twin).to_host()),
+    ):
+        t0 = time.perf_counter()
+        sha = host_digest(fn())
+        check(sha == ref[name][0], f"two shards' {name} differs from one's")
+        shards[name] = {"wall_s": time.perf_counter() - t0, "sha256": sha}
+    n_buckets = len(buckets)
+    shards["decode_dispatches"] = sh_dec.stats.dispatches
+    shards["encode_dispatches"] = sh_enc.stats.dispatches
+    check(sh_enc.stats.dispatches == 2 * 2 * n_buckets,
+          f"two shards ran {sh_enc.stats.dispatches} encode buckets for "
+          f"{n_buckets} keys (encode and transcode)")
+    sh_dec.close()
+    sh_enc.close()
+    # a new bucket shape's first call less its warm call (the cost the
+    # cost-balanced ladder trades padding against): decodes of slices of
+    # one plan key at bucket edges the archive never made
+    firsts = []
+    for size in (3, 5, 9, 17):
+        sub = [c for c in archive if c.domain_id == 2][:size]
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            dec.decode(sub, tables).to_host()
+            walls.append(time.perf_counter() - t0)
+        firsts.append({"containers": size, "first_s": walls[0],
+                       "warm_s": walls[1]})
+    compile_cost_s = statistics.median(
+        f["first_s"] - f["warm_s"] for f in firsts)
+    prof = cm.profile
+    return {"phase": "tune", "seconds": time.perf_counter() - t_phase,
+            "tile_rules_equal": rules, "sweeps": sweeps, "same_under_every_shape": same,
+            "cache_entries": len(cache), "forced_entries": forced,
+            "warm": warm, "warm_hits": warm_hits, "policy": policy,
+            "shards": shards, "compile_cost_s": compile_cost_s,
+            "new_shape_calls": firsts,
+            "cost_model": {"peak_flops": prof.peak_flops,
+                           "hbm_bps": prof.hbm_bps,
+                           "dispatch_overhead_s": prof.dispatch_overhead_s,
+                           "step_overhead_s": prof.step_overhead_s,
+                           "compile_cost_s": prof.compile_cost_s,
+                           "edges_per_octave": cm.edges_per_octave()}}
 
 
 # the workloads phase: one decoder layer of granite-8b
@@ -2008,6 +2334,7 @@ def main() -> None:
     t_decode = time.perf_counter() - t0
     out = batch.to_host()
     wall = time.perf_counter() - t0
+    main_sha = host_digest(out)
     upload_s = dec.executor.stats.upload_s - up0
     dispatch_s = dec.executor.stats.dispatch_s - disp0
     t1 = time.perf_counter()
@@ -2061,7 +2388,7 @@ def main() -> None:
           "decoded_GB_per_s": 4 * n_out / wall / 1e9,
           "kv_decode_fixed_s": kv_wall, "kv_rel_rms_err": kv_rel,
           "launches": launches, "max_rel_err_vs_host": max(errs),
-          "v3_equals_v2": v3_same})
+          "v3_equals_v2": v3_same, "sha256": main_sha})
 
     # -- 6. the encode path ------------------------------------------------------
     # the archive's 1024 signals (the replicas of the 32 distinct ones, in
@@ -2094,6 +2421,7 @@ def main() -> None:
     t_encode = time.perf_counter() - t0
     econt = ebatch.to_host()
     ewall = time.perf_counter() - t0
+    enc_sha = host_digest(econt)
     e_upload = enc.executor.stats.upload_s - up0
     e_dispatch = enc.executor.stats.dispatch_s - disp0
     t1 = time.perf_counter()
@@ -2162,7 +2490,7 @@ def main() -> None:
           "max_rel_err_vs_host_unflipped": max(eerrs),
           "exact_mode": {"signals": len(keys32), "wall_s": exact_wall,
                          "bytes_equal_host": n_equal,
-                         "with_flips": n_flip}})
+                         "with_flips": n_flip}, "sha256": enc_sha})
 
     # -- 7. the staged decode: K6's path ---------------------------------------------
     # K6 serves no path of the engines: its path is the staged decode (tile,
@@ -2226,6 +2554,7 @@ def main() -> None:
         if rep_i == 0:
             tlaunches = dict(ops.LAUNCHES)
             t_buckets = enc.stats.dispatches - d0
+            tc_sha = host_digest(tout)
         del tbatch
         same = sum(a.to_bytes() == b.to_bytes()
                    for a, b in zip(tout, want_tc))
@@ -2295,6 +2624,7 @@ def main() -> None:
           ".to_host() on the card",
           "bytes_equal_round_trip": len(archive),
           "compressed_bytes": tc_bytes, "launches": tlaunches,
+          "sha256": tc_sha,
           "encoded_batch_source": {"signals": len(v2_sigs),
                                    "wall_s": eb_wall, "bytes_equal": True,
                                    "source_consumed": True},
@@ -2302,7 +2632,7 @@ def main() -> None:
                               "rule": f"|d| <= 1 in at most {FLIP_SHARE} "
                               "of the cells"}})
 
-    # -- 9. workloads -----------------------------------------------------------------
+    # -- 9. workloads ----------------------------------------------------------------
     emit(workloads_phase(smi, kv_gpu, enc, args.seed))
 
     # -- 10. serve --------------------------------------------------------------------
@@ -2516,7 +2846,16 @@ def main() -> None:
           **{k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
                  "bound_by": v[3]} for k, v in times.items()}})
 
-    # -- 12. the kernels line, and the last line ---------------------------------
+    # -- 12. tune ----------------------------------------------------------------------
+    if src == os.path.join(HERE, "src"):
+        emit(tune_phase(
+            tables, archive, signals, doms, twin, buckets, ebuckets, dec,
+            enc, {"main": (main_sha, launches), "encode": (enc_sha, elaunches),
+                  "transcode": (tc_sha, tlaunches)}))
+    else:  # another checkout's port may predate the tuning cache
+        emit({"phase": "tune", "skipped": "--src drives another checkout"})
+
+    # -- 13. the kernels line, and the last line ---------------------------------
     counts_of = {"main": launches, "encode": elaunches,
                  "transcode": tlaunches, "staged": slaunches}
     kernels = []

@@ -193,7 +193,7 @@ def main() -> None:
             rc = lib.fptc_lut_idct(
                 b["levels"].data_ptr(), b["levels"].shape[0], b["e"],
                 b["n"], b["lut"].data_ptr(), b["basis"].data_ptr(),
-                out.data_ptr(), stream)
+                out.data_ptr(), 0, stream)
             if rc != 0:
                 sys.exit(f"idct_profile: lut_idct launch failed ({rc})")
         return run

@@ -171,7 +171,7 @@ def main() -> None:
                 b["cfg"].n, b["cfg"].e, b["basis"].data_ptr(),
                 q.zone.data_ptr(), q.scale.data_ptr(), q.mu.data_ptr(),
                 q.alpha1.data_ptr(), pred_id, bands, int(zplanes), *ptrs,
-                scratch.data_ptr() if zplanes else None, stream)
+                scratch.data_ptr() if zplanes else None, 0, stream)
             if rc != 0:
                 sys.exit(f"levels_profile: launch failed ({rc})")
         return run, out

@@ -44,5 +44,5 @@ FPTC_EXPORT int fptc_dct_quant(const void* windows, int64_t num_windows,
                       static_cast<const float*>(mu),
                       static_cast<const float*>(alpha1)},
       fptc::Coding{0, 0, 0}, static_cast<uint8_t*>(out), nullptr, nullptr,
-      nullptr, nullptr, static_cast<cudaStream_t>(stream));
+      nullptr, nullptr, 0, static_cast<cudaStream_t>(stream));
 }

@@ -196,23 +196,31 @@ struct DctTile {
 };
 
 // rw = 4 and every thread busy, halved (rw, then wg) until the two staging
-// buffers of bw + 2 windows (a block and its history) fit kStageBudget.
-inline DctTile dct_tile_shape(int n, int e) {
+// buffers of bw + 2 windows (a block and its history) fit kStageBudget.  A
+// forced `rw` (1, 2 or 4; 0 picks as above; the tuning cache's choice,
+// repro_torch/tuning/autotune.py) skips the halving of rw: it must fit with
+// every thread busy, except rw = 1, which halves wg as the pick does.
+// Returns false for an rw it refuses (the tuning cache's legality rule,
+// mirrored in repro_torch/kernels/tiles.py).
+inline bool dct_tile_shape(int n, int e, int rw, DctTile* out) {
+  if (rw != 0 && rw != 1 && rw != 2 && rw != 4) return false;
   DctTile t;
   t.kg = (e + 3) / 4;
   t.ep = 4 * t.kg;
   t.stride = 4 * (((n + 3) / 4) | 1);
   t.wg = kDctThreads / t.kg;
-  t.rw = 4;
+  t.rw = rw != 0 ? rw : 4;
   while (2L * (t.wg * t.rw + 2) * t.stride * 4 > kStageBudget) {
     if (t.rw > 1) {
+      if (rw != 0) return false;  // a forced rw > 1 that does not fit
       t.rw /= 2;
     } else {
       t.wg /= 2;
     }
   }
   t.bw = t.wg * t.rw;
-  return t;
+  *out = t;
+  return true;
 }
 
 // The thread's band group `kg` and window group `wg`.  Where the band
@@ -606,13 +614,16 @@ inline LevelsKernel<kGather> levels_kernel_for(int rw) {
 }
 
 // The block shape, its shared memory and the resident-CTA count, once per
-// (device, N, E) and arm.
+// (device, kernel, N, E) and arm.  `rw` as dct_tile_shape takes it; a
+// refused rw is cudaErrorInvalidValue.  A kernel serves one RW, and at one
+// (N, E) a forced RW gives the tile the pick gives for that RW, so the
+// cache's key needs no rw of its own.
 template <bool kGather>
-inline cudaError_t levels_geometry(int n, int e, LevelsGeometry* g) {
+inline cudaError_t levels_geometry(int n, int e, int rw, LevelsGeometry* g) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  g->t = dct_tile_shape(n, e);
+  if (!dct_tile_shape(n, e, rw, &g->t)) return cudaErrorInvalidValue;
   g->smem = levels_carve(n, e, g->t).total;
   const void* k =
       reinterpret_cast<const void*>(levels_kernel_for<kGather>(g->t.rw));
@@ -636,17 +647,18 @@ inline cudaError_t levels_geometry(int n, int e, LevelsGeometry* g) {
 }
 
 // Launch levels_kernel over k rows of wp windows: one CTA per resident
-// slot, or one per tile where there are fewer tiles.
+// slot, or one per tile where there are fewer tiles.  `rw`: 0 picks the
+// register tile, 1, 2 or 4 forces it.
 template <bool kGather>
 inline int launch_levels(const float* signals, const int32_t* starts,
                          const int32_t* lens, const int32_t* counts,
                          int64_t k, int64_t wp, int n, int e,
                          const float* basis, QuantArgs q, Coding coding,
                          uint8_t* grid, uint8_t* zrow, uint8_t* zcol,
-                         int32_t* ncoded, int32_t* scratch,
+                         int32_t* ncoded, int32_t* scratch, int rw,
                          cudaStream_t stream) {
   LevelsGeometry g;
-  cudaError_t err = levels_geometry<kGather>(n, e, &g);
+  cudaError_t err = levels_geometry<kGather>(n, e, rw, &g);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t tiles = k * ((wp + g.t.bw - 1) / g.t.bw);
   const int64_t ctas = tiles < g.resident ? tiles : g.resident;

@@ -16,7 +16,8 @@
 // of f32 per window.
 //
 // Design of the v3 stage, three launches in one exported call:
-//  1. v3_tile: a CTA takes a tile of T windows x all e bands.  It reads idx
+//  1. v3_tile: a CTA takes a tile of T windows x all e bands (T: the
+//     caller's, kernels/tiles.py's pick or the tuning cache's).  It reads idx
 //     coalesced (16 bytes a thread), gathers the coded symbols into the
 //     tile in shared memory (so the grid is written once, in wide stores),
 //     and, for each band < predict_bands, runs a block-wide segmented scan
@@ -194,6 +195,14 @@ v3_carry_apply(uint8_t* __restrict__ grid, const uint32_t* __restrict__ carry,
   }
 }
 
+// The v3 stage's tile rule: a positive multiple of the CTA's 256 threads
+// whose tile and head flags fit 44 KiB of shared memory (under the 48 KiB a
+// block gets without opting in).
+inline bool v3_tile_legal(int64_t e, int64_t tile_windows) {
+  return tile_windows > 0 && tile_windows % kThreads == 0 &&
+         tile_windows * (e + 1) <= 44 * 1024;
+}
+
 }  // namespace
 
 // dense u8[dense_len] coded symbols, idx i32[num_windows * e] (16-byte
@@ -212,8 +221,7 @@ FPTC_EXPORT int fptc_v3_expand_unpredict(const void* dense, int64_t dense_len,
   const bool aligned = reinterpret_cast<uintptr_t>(idx) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(grid) % 16 == 0;
   if (dense_len <= 0 || bands < 0 || bands > e || !aligned ||
-      tile_windows <= 0 || tile_windows % kThreads != 0 ||
-      tile_windows * (e + 1) > 44 * 1024) {
+      !v3_tile_legal(e, tile_windows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (pred_id == 0) bands = 0;
@@ -242,13 +250,56 @@ FPTC_EXPORT int fptc_v3_expand_unpredict(const void* dense, int64_t dense_len,
 }
 
 // levels u8[num_windows, e], lut f32[e, 256], basis f32[e, n]
-// -> out f32[num_windows, n].
+// -> out f32[num_windows, n].  rw: the register tile's windows a thread, 0
+// to pick it (idct_tile_shape), 4 or 8 to force it; a refused rw returns
+// cudaErrorInvalidValue.
 FPTC_EXPORT int fptc_lut_idct(const void* levels, int64_t num_windows,
                               int64_t e, int64_t n, const void* lut,
-                              const void* basis, void* out, void* stream) {
+                              const void* basis, void* out, int64_t rw,
+                              void* stream) {
   fptc::LutDequant dq{static_cast<const float*>(lut)};
   return fptc::launch_dequant_idct(
       static_cast<const uint8_t*>(levels), num_windows, static_cast<int>(e),
       static_cast<int>(n), static_cast<const float*>(basis), dq,
-      static_cast<float*>(out), static_cast<cudaStream_t>(stream));
+      static_cast<float*>(out), static_cast<int>(rw),
+      static_cast<cudaStream_t>(stream));
+}
+
+// The launch shapes the two launchers above accept, for the tuner: the
+// tuning cache offers and keeps only what these accept
+// (repro_torch/tuning/autotune.py; repro_torch/kernels/tiles.py mirrors
+// them for machines without the library, held to these by a card test).
+// fptc_idct_tile: the tile fptc_lut_idct launches at (e, n) for rw (0: its
+// own pick) under max_smem bytes of shared memory a block (0: the current
+// device's opt-in maximum): out i64[4] = {rw, bw, aw, smem}; a refused rw
+// returns cudaErrorInvalidValue.
+FPTC_EXPORT int fptc_idct_tile(int64_t e, int64_t n, int64_t rw,
+                               int64_t max_smem, int64_t* out) {
+  if (max_smem <= 0) {
+    int device = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    max_smem = optin;
+  }
+  fptc::IdctTile t;
+  if (!fptc::idct_tile_shape(static_cast<int>(e), static_cast<int>(n),
+                             static_cast<size_t>(max_smem),
+                             static_cast<int>(rw), &t)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  out[0] = t.rw;
+  out[1] = t.bw;
+  out[2] = t.aw;
+  out[3] = static_cast<int64_t>(fptc::idct_carve(static_cast<int>(e), t)
+                                    .total);
+  return 0;
+}
+
+// 1 where fptc_v3_expand_unpredict accepts tile_windows at e bands, else 0.
+FPTC_EXPORT int fptc_v3_tile_ok(int64_t e, int64_t tile_windows) {
+  return v3_tile_legal(e, tile_windows) ? 1 : 0;
 }

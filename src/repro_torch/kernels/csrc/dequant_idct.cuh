@@ -44,7 +44,9 @@
 //     column groups allow, so a warp's basis read is one 128-byte
 //     wavefront and its coefficient read one more): at RW = 8, 12 shared
 //     wavefronts a warp per 128 FFMAs.  RW is 8 where the buffers fit,
-//     else 4 (idct_tile_shape).
+//     else 4 (idct_tile_shape); the caller may force RW = 4 or 8 (the
+//     tuning cache's choice, repro_torch/tuning/autotune.py), and a forced
+//     RW = 8 that does not fit with every warp buffered is refused.
 //  5. Stores: each (window, column group) a float4 streaming store
 //     (__stcs), so a warp writes whole rows (cgw = 8: 4 windows of 128
 //     bytes at N = 32); N % 4 != 0 (or an output off a 16-byte boundary)
@@ -193,7 +195,13 @@ __host__ __device__ inline IdctCarve idct_carve(int e, const IdctTile& t) {
 // warp a tile; rw halved, then the warps with buffers, until the shared
 // memory fits `max_smem`.  The coefficient buffers (sw >= 16 windows of
 // ep >= E floats) always hold ZoneDequant's 2 E + 3 staged parameters.
-inline IdctTile idct_tile_shape(int e, int n, size_t max_smem) {
+// A forced `rw` (4 or 8; 0 picks as above) skips the halving of rw: a
+// forced 8 must fit with all 8 warps buffered, a forced 4 halves the warps
+// with buffers as the pick does.  Returns false for an rw it refuses (the
+// tuning cache's legality rule, mirrored in repro_torch/kernels/tiles.py).
+inline bool idct_tile_shape(int e, int n, size_t max_smem, int rw,
+                            IdctTile* out) {
+  if (rw != 0 && rw != 4 && rw != 8) return false;
   IdctTile t;
   const int cg = (n + 3) / 4;
   t.cgt = cg <= 2 ? cg : 4 * ((cg + 3) / 4);
@@ -202,7 +210,7 @@ inline IdctTile idct_tile_shape(int e, int n, size_t max_smem) {
   t.cb = t.cgt / t.cgw;
   t.np = 4 * t.cgt;
   t.ep = 4 * (((e + 3) / 4) | 1);
-  t.rw = 8;
+  t.rw = rw != 0 ? rw : 8;
   t.sets = kIdctWarps / t.cb > 1 ? kIdctWarps / t.cb : 1;
   t.aw = kIdctWarps;
   for (;;) {
@@ -210,6 +218,7 @@ inline IdctTile idct_tile_shape(int e, int n, size_t max_smem) {
     t.bw = t.sets * t.sw;
     if (idct_carve(e, t).total <= max_smem) break;
     if (t.rw > 4) {
+      if (rw != 0) return false;  // a forced 8 that does not fit
       t.rw = 4;
     } else if (t.aw > 1) {
       t.aw /= 2;
@@ -217,7 +226,8 @@ inline IdctTile idct_tile_shape(int e, int n, size_t max_smem) {
       break;  // the launch reports the shared memory it cannot get
     }
   }
-  return t;
+  *out = t;
+  return true;
 }
 
 // Start copying the `bytes` level bytes at `src` into `buf` at
@@ -397,9 +407,12 @@ struct IdctGeometry {
 };
 
 // Computed once per (device, kernel, E, N), raising the kernel's dynamic
-// shared-memory limit on the device where it needs more than 48 KiB.
+// shared-memory limit on the device where it needs more than 48 KiB.  `rw`
+// as idct_tile_shape takes it; a refused rw is cudaErrorInvalidValue.  A
+// kernel serves one RW, and at one (E, N) a forced RW gives the tile the
+// pick gives for that RW, so the cache's key needs no rw of its own.
 template <class Dequant>
-inline cudaError_t idct_geometry(int e, int n, IdctGeometry* g) {
+inline cudaError_t idct_geometry(int e, int n, int rw, IdctGeometry* g) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -407,7 +420,9 @@ inline cudaError_t idct_geometry(int e, int n, IdctGeometry* g) {
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  g->t = idct_tile_shape(e, n, static_cast<size_t>(max_smem));
+  if (!idct_tile_shape(e, n, static_cast<size_t>(max_smem), rw, &g->t)) {
+    return cudaErrorInvalidValue;
+  }
   g->smem = idct_carve(e, g->t).total;
   const void* k = reinterpret_cast<const void*>(idct_kernel_for<Dequant>(
       g->t.rw));
@@ -432,17 +447,18 @@ inline cudaError_t idct_geometry(int e, int n, IdctGeometry* g) {
 
 // Launch over `levels` u8[num_windows, e] -> out f32[num_windows, n] on the
 // current device: one CTA per resident slot, or one per tile where there
-// are fewer tiles.
+// are fewer tiles.  `rw`: 0 picks the register tile, 4 or 8 forces it.
 template <class Dequant>
 int launch_dequant_idct(const uint8_t* levels, int64_t num_windows, int e,
                         int n, const float* basis, Dequant dq, float* out,
-                        cudaStream_t stream) {
-  if (num_windows <= 0) return 0;
-  if (e < 1 || n < 1 || e > kMaxDim || n > kMaxDim) {
+                        int rw, cudaStream_t stream) {
+  if (e < 1 || n < 1 || e > kMaxDim || n > kMaxDim ||
+      (rw != 0 && rw != 4 && rw != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (num_windows <= 0) return 0;
   IdctGeometry g;
-  cudaError_t err = idct_geometry<Dequant>(e, n, &g);
+  cudaError_t err = idct_geometry<Dequant>(e, n, rw, &g);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t tiles = (num_windows + g.t.bw - 1) / g.t.bw;
   const int64_t ctas = tiles < g.resident ? tiles : g.resident;

@@ -13,8 +13,9 @@
 //     runs it too).  Persistent CTAs walk contiguous ranges of (row, block
 //     of bw windows) tiles: the basis and quant table staged once a CTA,
 //     each tile copied by cp.async while the one before is transformed in
-//     RW x 4 register tiles (bw x RW: 128 x 4 at E = 32, 256 x 4 at
-//     E = 16, 256 x 2 at E = 8 and 6), quantized a band at a time, then
+//     RW x 4 register tiles (the pick, bw x RW: 128 x 4 at E = 32,
+//     256 x 4 at E = 16, 256 x 2 at E = 8 and 6; the tuning cache may force
+//     another RW the buffers hold), quantized a band at a time, then
 //     the prediction against the previous one or two windows.  A tile's
 //     history (the two windows before its block; before window 0 the
 //     virtual all-128 one) is the tile before's last levels, carried in
@@ -419,11 +420,13 @@ int launch_encode_levels(const void* signals, const void* starts,
                          const void* zone, const void* scale, const void* mu,
                          const void* alpha1, int64_t pred_id, int64_t bands,
                          int64_t zplanes, void* grid, void* zrow, void* zcol,
-                         void* ncoded, void* scratch, void* stream) {
-  if (k <= 0 || wp <= 0) return 0;
-  if (n < 1 || e < 1 || e > n || n > fptc::kDctMaxDim || k > 65535) {
+                         void* ncoded, void* scratch, int64_t rw,
+                         void* stream) {
+  if (n < 1 || e < 1 || e > n || n > fptc::kDctMaxDim || k > 65535 ||
+      (rw != 0 && rw != 1 && rw != 2 && rw != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (k <= 0 || wp <= 0) return 0;
   if (kGather && (starts == nullptr || lens == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -444,7 +447,8 @@ int launch_encode_levels(const void* signals, const void* starts,
                    static_cast<int>(zplanes)},
       static_cast<uint8_t*>(grid), static_cast<uint8_t*>(zrow),
       static_cast<uint8_t*>(zcol), static_cast<int32_t*>(ncoded),
-      static_cast<int32_t*>(scratch), static_cast<cudaStream_t>(stream));
+      static_cast<int32_t*>(scratch), static_cast<int>(rw),
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -453,7 +457,9 @@ int launch_encode_levels(const void* signals, const void* starts,
 // scale f32[e], mu f32[1], alpha1 f32[1] -> grid u8[k, wp, e]; with a v3
 // coding also ncoded i32[k], and with zero planes zrow u8[k, wp] and
 // zcol u8[k, e] (null pointers otherwise), which also need scratch
-// i32[k, e + 2], zeroed by the caller.
+// i32[k, e + 2], zeroed by the caller.  rw: the register tile's windows a
+// thread, 0 to pick it (dct_tile_shape), 1, 2 or 4 to force it; a refused
+// rw returns cudaErrorInvalidValue.
 FPTC_EXPORT int fptc_encode_levels(const void* signals, const void* counts,
                                    int64_t k, int64_t wp, int64_t n, int64_t e,
                                    const void* basis, const void* zone,
@@ -461,10 +467,10 @@ FPTC_EXPORT int fptc_encode_levels(const void* signals, const void* counts,
                                    const void* alpha1, int64_t pred_id,
                                    int64_t bands, int64_t zplanes, void* grid,
                                    void* zrow, void* zcol, void* ncoded,
-                                   void* scratch, void* stream) {
+                                   void* scratch, int64_t rw, void* stream) {
   return launch_encode_levels<false>(
       signals, nullptr, nullptr, counts, k, wp, n, e, basis, zone, scale, mu,
-      alpha1, pred_id, bands, zplanes, grid, zrow, zcol, ncoded, scratch,
+      alpha1, pred_id, bands, zplanes, grid, zrow, zcol, ncoded, scratch, rw,
       stream);
 }
 
@@ -477,10 +483,10 @@ FPTC_EXPORT int fptc_encode_levels_gather(
     int64_t k, int64_t wp, int64_t n, int64_t e, const void* basis,
     const void* zone, const void* scale, const void* mu, const void* alpha1,
     int64_t pred_id, int64_t bands, int64_t zplanes, void* grid, void* zrow,
-    void* zcol, void* ncoded, void* scratch, void* stream) {
+    void* zcol, void* ncoded, void* scratch, int64_t rw, void* stream) {
   return launch_encode_levels<true>(
       flat, starts, lens, counts, k, wp, n, e, basis, zone, scale, mu, alpha1,
-      pred_id, bands, zplanes, grid, zrow, zcol, ncoded, scratch, stream);
+      pred_id, bands, zplanes, grid, zrow, zcol, ncoded, scratch, rw, stream);
 }
 
 // grid u8[k, wp, e], zrow u8[k, wp] / zcol u8[k, e] (null without zero
@@ -512,5 +518,24 @@ FPTC_EXPORT int fptc_symlen_pack(const void* grid, const void* zrow,
       static_cast<uint32_t*>(lo), static_cast<int32_t*>(sl),
       static_cast<int32_t*>(wpc), static_cast<uint8_t*>(bad));
   FPTC_CHECK_LAUNCH();
+  return 0;
+}
+
+// The tile fptc_encode_levels and fptc_encode_levels_gather launch at
+// (n, e) for rw (0: the kernel's own pick), for the tuner (see
+// fptc_idct_tile in decode_fused.cu): out i64[4] = {rw, wg, bw, smem}; a
+// refused rw returns cudaErrorInvalidValue.
+FPTC_EXPORT int fptc_levels_tile(int64_t n, int64_t e, int64_t rw,
+                                 int64_t* out) {
+  fptc::DctTile t;
+  if (!fptc::dct_tile_shape(static_cast<int>(n), static_cast<int>(e),
+                            static_cast<int>(rw), &t)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  out[0] = t.rw;
+  out[1] = t.wg;
+  out[2] = t.bw;
+  out[3] = static_cast<int64_t>(
+      fptc::levels_carve(static_cast<int>(n), static_cast<int>(e), t).total);
   return 0;
 }

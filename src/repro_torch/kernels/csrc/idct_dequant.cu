@@ -31,5 +31,5 @@ FPTC_EXPORT int fptc_idct_dequant(const void* levels, int64_t num_windows,
   return fptc::launch_dequant_idct(
       static_cast<const uint8_t*>(levels), num_windows, static_cast<int>(e),
       static_cast<int>(n), static_cast<const float*>(basis), dq,
-      static_cast<float*>(out), static_cast<cudaStream_t>(stream));
+      static_cast<float*>(out), 0, static_cast<cudaStream_t>(stream));
 }

@@ -14,6 +14,15 @@ Plain version: :func:`decode_fused_plain`, the math of the reference's XLA
 arm (``serving/batch_decode.py::_decode_bucket_math(use_kernels=False)``).
 Each wrapper here takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors.
+
+Two launch shapes are tunable (:mod:`repro_torch.kernels.tiles`):
+``lut_idct``'s register tile (``rw``) and the v3 stage's tile
+(``tile_windows``).  Their wrappers take the shape they are given (0 or
+None: the kernels' own pick); :func:`decode_fused` resolves both from the
+tuning cache (``tuned_blocks("decode", ...)``, the reference's
+``ops.decode_bucket_fused`` consult, through this module's memo) unless
+the caller pins them, as the sweep does.  No shape changes an output
+bit.
 """
 from __future__ import annotations
 
@@ -25,6 +34,8 @@ from repro_torch.core.calibration import DeviceTables
 from repro_torch.core.quantize import expand_coded_stream, unpredict_levels
 from repro_torch.kernels import huffman_decode as _hd
 from repro_torch.kernels import ops
+from repro_torch.kernels.tiles import coding_key, v3_tile_windows
+from repro_torch.tuning.autotune import BlockMemo
 
 __all__ = [
     "TRIVIAL",
@@ -37,12 +48,12 @@ __all__ = [
     "lut_idct_plain",
     "decode_fused",
     "decode_fused_plain",
+    "tuning_plan_key",
 ]
 
 TRIVIAL = (0, 0, False)  # no predictor, no zero planes: the v1/v2 stream
 
 V3 = Optional[Tuple[torch.Tensor, torch.Tensor]]
-
 
 def _v3_arrays(v3: V3, coding) -> Tuple[torch.Tensor, torch.Tensor]:
     if v3 is None:
@@ -79,20 +90,14 @@ def v3_expand_unpredict_plain(dense, idx, seg, *, num_windows: int, e: int,
     return unpredict_levels(grid, seg, pred_id, bands)
 
 
-def v3_tile_windows(e: int) -> int:
-    """Windows per tile of the v3 stage's kernel for ``e`` bands: a
-    multiple of 256 (the scan's rounds), about 8 KiB of levels a tile, at
-    most 1024 windows."""
-    if not 1 <= e <= 128:
-        raise ValueError(f"the v3 stage takes 1 <= e <= 128 bands, got {e}")
-    return 256 * min(4, max(1, 8192 // (256 * e)))
-
-
 def v3_expand_unpredict_cuda(dense, idx, seg, *, num_windows: int, e: int,
-                             pred_id: int, bands: int) -> torch.Tensor:
+                             pred_id: int, bands: int,
+                             tile_windows: int = 0) -> torch.Tensor:
     """Launch K2's v3 stage on CUDA tensors: dense coded symbols uint8,
     idx int32[num_windows * e], seg int32[num_windows] -> uint8 levels
-    ``[num_windows, e]``."""
+    ``[num_windows, e]``.  ``tile_windows``: windows a tile, 0 for the
+    stage's own pick (:func:`~repro_torch.kernels.tiles.v3_tile_windows`);
+    the launcher refuses a tile it cannot hold."""
     dev = dense.device
     if dense.dtype != torch.uint8 or dense.dim() != 1:
         raise TypeError("v3 dense symbols must be a flat uint8 tensor")
@@ -107,7 +112,7 @@ def v3_expand_unpredict_cuda(dense, idx, seg, *, num_windows: int, e: int,
         )
     if idx.device != dev or seg.device != dev:
         raise ValueError("v3 inputs must share the levels' CUDA device")
-    tile = v3_tile_windows(e)
+    tile = int(tile_windows) or v3_tile_windows(e)
     dense = dense.contiguous()
     idx = idx.contiguous()
     if idx.data_ptr() % 16:  # the kernel reads idx 16 bytes at a time
@@ -127,10 +132,11 @@ def v3_expand_unpredict_cuda(dense, idx, seg, *, num_windows: int, e: int,
 
 def bucket_levels(words, symlen, tables: DeviceTables, v3: V3 = None, *,
                   l_max: int, max_symlen: int, num_windows: int, e: int,
-                  coding=TRIVIAL) -> torch.Tensor:
+                  coding=TRIVIAL, v3_tile_windows: int = 0) -> torch.Tensor:
     """K1's decode, then (v3) expansion + un-prediction: uint8 levels
     ``[num_windows, e]``.  ``v3`` is ``(idx, seg)`` from
-    ``symlen.v3_expand_index`` at this bucket's window count."""
+    ``symlen.v3_expand_index`` at this bucket's window count;
+    ``v3_tile_windows`` the v3 stage's tile (0: its own pick)."""
     coding = tuple(coding)
     kw = dict(l_max=l_max, max_symlen=max_symlen, num_windows=num_windows,
               e=e, coding=coding)
@@ -145,7 +151,8 @@ def bucket_levels(words, symlen, tables: DeviceTables, v3: V3 = None, *,
     idx, seg = _v3_arrays(v3, coding)
     pred_id, bands, _ = coding
     return v3_expand_unpredict_cuda(dense, idx, seg, num_windows=num_windows,
-                                    e=e, pred_id=pred_id, bands=bands)
+                                    e=e, pred_id=pred_id, bands=bands,
+                                    tile_windows=v3_tile_windows)
 
 
 # ---------------------------------------------------------------------------
@@ -159,8 +166,11 @@ def lut_idct_plain(levels, lut, basis) -> torch.Tensor:
     return coeffs @ basis
 
 
-def lut_idct(levels, lut, basis) -> torch.Tensor:
-    """levels uint8[W, E], lut f32[E, 256], basis f32[E, N] -> f32[W, N]."""
+def lut_idct(levels, lut, basis, rw: int = 0) -> torch.Tensor:
+    """levels uint8[W, E], lut f32[E, 256], basis f32[E, N] -> f32[W, N].
+    ``rw``: the kernel's register tile, windows a thread (4 or 8; 0 for its
+    own pick, :func:`~repro_torch.kernels.tiles.idct_tile_shape`); the
+    launcher refuses an rw whose buffers do not fit."""
     if not ops.is_cuda(levels):
         return lut_idct_plain(levels, lut, basis)
     dev = levels.device
@@ -184,7 +194,7 @@ def lut_idct(levels, lut, basis) -> torch.Tensor:
     ops.launch(
         "lut_idct", "fptc_lut_idct", dev,
         levels.data_ptr(), w, e, n, lut.data_ptr(), basis.data_ptr(),
-        out.data_ptr(),
+        out.data_ptr(), int(rw),
     )
     return out
 
@@ -205,10 +215,26 @@ def decode_fused_plain(words, symlen, tables: DeviceTables, lut, basis,
     return lut_idct_plain(levels, lut, basis)
 
 
+def tuning_plan_key(n: int, e: int, l_max: int, max_symlen: int,
+                    coding=TRIVIAL) -> tuple:
+    """The tuning cache's plan key of a bucket decode (the reference's
+    ``ops.decode_bucket_fused`` key): ``(n, e, l_max, max_symlen)``, then
+    a non-trivial coding's three ints; the bucket shape ``(words,
+    num_windows)`` completes the entry's key."""
+    return (int(n), int(e), int(l_max), int(max_symlen)) + coding_key(coding)
+
+
+# the launch shapes of the bucket decodes that do not pin them (the
+# engines' among them), read from the tuning cache once per bucket shape
+# and epoch
+_BLOCKS = BlockMemo(tuning_plan_key)
+
+
 def decode_fused(words, symlen, tables: DeviceTables, lut, basis,
                  v3: V3 = None, *, l_max: int, max_symlen: int,
-                 num_windows: int, n: int, e: int,
-                 coding=TRIVIAL) -> torch.Tensor:
+                 num_windows: int, n: int, e: int, coding=TRIVIAL,
+                 idct_rw: Optional[int] = None,
+                 v3_tile_windows: Optional[int] = None) -> torch.Tensor:
     """Packed bucket -> windows f32[num_windows, N] (Huffman + compaction +
     v3 expansion/un-prediction + LUT dequant + iDCT).
 
@@ -216,11 +242,25 @@ def decode_fused(words, symlen, tables: DeviceTables, lut, basis,
     symbol total read as level 0, so padding windows dequantize
     ``lut[:, 0]`` in both arms — the whole outputs compare, not only the
     live rows.
+
+    ``idct_rw`` / ``v3_tile_windows`` pin the launch shapes (0: the
+    kernels' own pick); left None on the card they come from the tuning
+    cache's entry for this plan key and bucket shape, or the kernels' own
+    pick where it has none.  They change no output bit.
     """
     ops.check_i32_offsets(num_windows * e, max_symlen)
     if basis.shape != (e, n):
         raise ValueError(f"basis {tuple(basis.shape)} is not [{e}, {n}]")
+    coding = tuple(coding)
+    if (idct_rw is None or v3_tile_windows is None) and ops.is_cuda(words):
+        blocks = _BLOCKS.get("decode", (n, e, l_max, max_symlen, coding),
+                             (words.shape[0], num_windows), words.device)
+        if idct_rw is None:
+            idct_rw = blocks.get("idct_rw", 0)
+        if v3_tile_windows is None:
+            v3_tile_windows = blocks.get("v3_tile_windows", 0)
     levels = bucket_levels(words, symlen, tables, v3, l_max=l_max,
                            max_symlen=max_symlen, num_windows=num_windows,
-                           e=e, coding=coding)
-    return lut_idct(levels, lut, basis)
+                           e=e, coding=coding,
+                           v3_tile_windows=v3_tile_windows or 0)
+    return lut_idct(levels, lut, basis, rw=idct_rw or 0)

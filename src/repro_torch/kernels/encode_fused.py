@@ -18,6 +18,14 @@ place of a materialized ``f32[K, Wp * N]`` matrix; its levels equal
 says what bounds each on the H100 and what its design does about it.  Packed words come back as ``(hi, lo)`` uint32 halves held
 as the bit patterns of ``int32`` tensors.
 
+``levels_kernel``'s register tile is tunable (``rw``, windows a thread;
+:mod:`repro_torch.kernels.tiles`): the level wrappers take the tile they
+are given (0: the kernel's own pick), and :func:`encode_fused` /
+:func:`encode_fused_gather` resolve it from the tuning cache
+(``tuned_blocks("encode", ...)``, the reference's
+``ops.encode_bucket_fused`` consult, through this module's memo) unless
+the caller pins it, as the sweep does.  No tile changes a level.
+
 Plain versions: :func:`encode_levels_plain` and :func:`symlen_pack_plain`,
 the math of the reference's XLA arm (``serving/batch_encode.py::
 _encode_bucket_math(use_kernels=False)``), :func:`encode_fused_plain`, the
@@ -36,6 +44,8 @@ from repro_torch.core.calibration import DeviceTables
 from repro_torch.core.quantize import QuantTable, predict_levels, quantize
 from repro_torch.kernels import ops
 from repro_torch.kernels.dct_quant import check_quant_args
+from repro_torch.kernels.tiles import coding_key
+from repro_torch.tuning.autotune import BlockMemo
 
 __all__ = [
     "TRIVIAL",
@@ -49,6 +59,7 @@ __all__ = [
     "encode_levels_gather",
     "encode_levels_gather_plain",
     "encode_fused_gather",
+    "tuning_plan_key",
 ]
 
 TRIVIAL = (0, 0, False)  # no predictor, no zero planes: the v2 stream
@@ -96,10 +107,12 @@ def encode_levels_plain(signals, counts, quant: QuantTable, basis, *, n: int,
 
 
 def encode_levels(signals, counts, quant: QuantTable, basis, *, n: int,
-                  e: int, coding=TRIVIAL) -> Levels:
+                  e: int, coding=TRIVIAL, rw: int = 0) -> Levels:
     """Signal rows f32[K, Wp * N] and true symbol counts int32[K] -> the
     coded grid and, under v3, ``(zrow, zcol, ncoded)`` (see
-    :func:`encode_levels_plain`)."""
+    :func:`encode_levels_plain`).  ``rw``: the kernel's register tile (1,
+    2 or 4; 0 for its own pick, :func:`~repro_torch.kernels.tiles.
+    dct_tile_shape`); the launcher refuses one that does not fit."""
     coding = tuple(coding)
     if not ops.is_cuda(signals):
         return encode_levels_plain(signals, counts, quant, basis, n=n, e=e,
@@ -111,12 +124,13 @@ def encode_levels(signals, counts, quant: QuantTable, basis, *, n: int,
         )
     k, width = signals.shape
     return _launch_levels("encode_levels", (signals.contiguous(),), k, width,
-                          counts, quant, basis, n=n, e=e, coding=coding)
+                          counts, quant, basis, n=n, e=e, coding=coding,
+                          rw=rw)
 
 
 def _launch_levels(name: str, rows, k: int, width: int, counts,
                    quant: QuantTable, basis, *, n: int, e: int,
-                   coding) -> Levels:
+                   coding, rw: int) -> Levels:
     """Check the arguments ``encode_levels`` and ``encode_levels_gather``
     share, allocate the outputs, and launch ``name``'s kernel on ``rows``
     (the signal matrix, or the flat tensor with its starts and lens)."""
@@ -160,6 +174,7 @@ def _launch_levels(name: str, rows, k: int, width: int, counts,
         quant.scale.contiguous().data_ptr(), quant.mu.data_ptr(),
         quant.alpha1.data_ptr(), pred_id, bands, int(bool(zplanes)),
         grid.data_ptr(), ptr(zrow), ptr(zcol), ptr(ncoded), ptr(scratch),
+        int(rw),
     )
     return grid, zrow, zcol, ncoded
 
@@ -197,11 +212,12 @@ def encode_levels_gather_plain(flat, starts, lens, counts, quant: QuantTable,
 
 def encode_levels_gather(flat, starts, lens, counts, quant: QuantTable,
                          basis, *, width: int, n: int, e: int,
-                         coding=TRIVIAL) -> Levels:
+                         coding=TRIVIAL, rw: int = 0) -> Levels:
     """:func:`encode_levels` of the rows :func:`gather_rows` describes —
     flat f32[T], starts int32[K], lens int32[K] — without materializing
     them: the kernel stages each window block straight from ``flat``, and
-    reads no sample past a row's ``lens``."""
+    reads no sample past a row's ``lens``.  ``rw`` as
+    :func:`encode_levels` takes it."""
     coding = tuple(coding)
     if not ops.is_cuda(flat):
         return encode_levels_gather_plain(flat, starts, lens, counts, quant,
@@ -221,7 +237,7 @@ def encode_levels_gather(flat, starts, lens, counts, quant: QuantTable,
                           (flat.contiguous(), starts.contiguous(),
                            lens.contiguous()),
                           k, width, counts, quant, basis, n=n, e=e,
-                          coding=coding)
+                          coding=coding, rw=rw)
 
 
 # ---------------------------------------------------------------------------
@@ -324,11 +340,34 @@ def symlen_pack(grid, zrow, zcol, counts, codes, lengths, *,
 # ---------------------------------------------------------------------------
 # The whole bucket encode.
 # ---------------------------------------------------------------------------
+def tuning_plan_key(n: int, e: int, chunk_size: int, coding=TRIVIAL) -> tuple:
+    """The tuning cache's plan key of a bucket encode (the reference's
+    ``ops.encode_bucket_fused`` key): ``(n, e, chunk_size)``, then a
+    non-trivial coding's three ints; the bucket shape ``(rows, width)``
+    completes the entry's key."""
+    return (int(n), int(e), int(chunk_size)) + coding_key(coding)
+
+
+# the register tiles of the bucket encodes that do not pin them (the
+# engines' among them), read from the tuning cache once per bucket shape
+# and epoch
+_BLOCKS = BlockMemo(tuning_plan_key)
+
+
+def _tuned_rw(rows: int, width: int, device, *, n, e, chunk_size,
+              coding) -> int:
+    """The encode entry's ``levels_rw`` for this bucket on ``device``
+    (0, the kernel's own pick, where the cache has none)."""
+    blocks = _BLOCKS.get("encode", (n, e, chunk_size, tuple(coding)),
+                         (rows, width), device)
+    return blocks.get("levels_rw", 0)
+
+
 def _compose(levels_fn, pack_fn, signals, counts, tables: DeviceTables,
-             basis, *, n, e, chunk_size, check_gaps, coding):
+             basis, *, n, e, chunk_size, check_gaps, coding, **levels_kw):
     coding = tuple(coding)
     grid, zrow, zcol, ncoded = levels_fn(signals, counts, tables.quant, basis,
-                                         n=n, e=e, coding=coding)
+                                         n=n, e=e, coding=coding, **levels_kw)
     hi, lo, sl, wpc, bad = pack_fn(
         grid, zrow, zcol, counts, tables.codes, tables.lengths,
         chunk_size=chunk_size, coding=coding, check_gaps=check_gaps,
@@ -348,28 +387,46 @@ def encode_fused_plain(signals, counts, tables: DeviceTables, basis, *,
 
 
 def encode_fused(signals, counts, tables: DeviceTables, basis, *, n: int,
-                 e: int, chunk_size: int, check_gaps: bool, coding=TRIVIAL):
+                 e: int, chunk_size: int, check_gaps: bool, coding=TRIVIAL,
+                 levels_rw: Optional[int] = None):
     """Bucket encode: signal rows f32[K, Wp * N] (zero-padded) and true
     symbol counts int32[K] -> ``(hi, lo, symlen [K, B, C], words_per_chunk
     [K, B], bad bool[K])``, the reference's contract (``hi``/``lo`` as int32
     bit patterns of the uint32 halves).  A v3 ``coding`` appends ``ncoded
     int32[K]`` and, with zero planes, ``zrow bool[K, Wp]`` / ``zcol bool[K,
-    E]`` (``None`` without)."""
+    E]`` (``None`` without).  ``levels_rw`` pins ``encode_levels``'
+    register tile (0: its own pick); left None on the card it comes from
+    the tuning cache's entry for this plan key and bucket shape."""
+    if levels_rw is None:
+        levels_rw = 0
+        if ops.is_cuda(signals):
+            levels_rw = _tuned_rw(*signals.shape, signals.device, n=n, e=e,
+                                  chunk_size=chunk_size, coding=coding)
     return _compose(encode_levels, symlen_pack, signals, counts, tables,
                     basis, n=n, e=e, chunk_size=chunk_size,
-                    check_gaps=check_gaps, coding=coding)
+                    check_gaps=check_gaps, coding=coding, rw=levels_rw)
 
 
 def encode_fused_gather(flat, starts, lens, counts, tables: DeviceTables,
                         basis, *, width: int, n: int, e: int,
-                        chunk_size: int, check_gaps: bool, coding=TRIVIAL):
+                        chunk_size: int, check_gaps: bool, coding=TRIVIAL,
+                        levels_rw: Optional[int] = None):
     """Bucket encode of gathered rows (see :func:`gather_rows`):
     ``encode_levels_gather`` then ``symlen_pack`` on the card, the same
-    outputs as :func:`encode_fused` on the gathered matrix."""
-    def levels(_, counts, quant, basis, *, n, e, coding):
+    outputs as :func:`encode_fused` on the gathered matrix.  ``levels_rw``
+    as :func:`encode_fused` takes it (the same cache entry: the bucket's
+    shape is ``(rows, width)`` either way)."""
+    if levels_rw is None:
+        levels_rw = 0
+        if ops.is_cuda(flat):
+            levels_rw = _tuned_rw(starts.shape[0], width, flat.device, n=n,
+                                  e=e, chunk_size=chunk_size, coding=coding)
+
+    def levels(_, counts, quant, basis, *, n, e, coding, rw):
         return encode_levels_gather(flat, starts, lens, counts, quant, basis,
-                                    width=width, n=n, e=e, coding=coding)
+                                    width=width, n=n, e=e, coding=coding,
+                                    rw=rw)
 
     return _compose(levels, symlen_pack, None, counts, tables, basis, n=n,
                     e=e, chunk_size=chunk_size, check_gaps=check_gaps,
-                    coding=coding)
+                    coding=coding, rw=levels_rw)

@@ -131,16 +131,21 @@ _SIGNATURES = {
     "fptc_symlen_lut": [_P, _P, _P, _P, _I, _P, _P],
     "fptc_v3_expand_unpredict": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                                  _P],
-    "fptc_lut_idct": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "fptc_lut_idct": [_P, _I, _I, _I, _P, _P, _P, _I, _P],
     "fptc_idct_dequant": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "fptc_dct_quant": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "fptc_encode_levels": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
-                           _I, _I, _P, _P, _P, _P, _P, _P],
+                           _I, _I, _P, _P, _P, _P, _P, _I, _P],
     "fptc_encode_levels_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                                  _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+                                  _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                                  _P],
     "fptc_symlen_pack": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
                          _P, _P, _P, _P, _P, _P],
     "fptc_symlen_tile": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
+    # the launchers' tile rules, asked by the tuner (no launch)
+    "fptc_idct_tile": [_I, _I, _I, _I, _P],
+    "fptc_levels_tile": [_I, _I, _I, _P],
+    "fptc_v3_tile_ok": [_I, _I],
 }
 
 _lib_lock = threading.Lock()

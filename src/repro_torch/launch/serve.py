@@ -1,10 +1,12 @@
 """FPTC archive service: the serving front-end as a long-lived process.
-Port of ``repro/launch/serve.py``, on one device.
+Port of ``repro/launch/serve.py``.
 
 Two modes over the same :class:`~repro_torch.serving.frontend.ServingFrontend`
 (tables for all four paper domains, deadline micro-batching, bounded
-queues with explicit shedding), its engines on the card unless
-``--device cpu`` asks for the plain PyTorch versions:
+queues with explicit shedding), its engines sharded over every visible
+card (``devices="auto"``, as the reference serves) unless ``--device``
+names one device (``--device cpu``: the plain PyTorch versions), under
+the ``--policy`` bucket ladder:
 
   * **replay** — drive the front-end with synthetic open-loop traffic
     (:mod:`repro_torch.serving.traffic`) and print the latency/goodput
@@ -65,6 +67,7 @@ from repro_torch.serving.frontend import (
     QueueFullError,
     RetryPolicy,
     ServingFrontend,
+    settle_heap,
 )
 from repro_torch.serving.quarantine import PoisonedContainerError
 from repro_torch.serving.traffic import (
@@ -73,6 +76,7 @@ from repro_torch.serving.traffic import (
     generate,
     replay,
 )
+from repro_torch.tuning.policy import POLICY_NAMES
 
 
 def build_frontend(args, fault_injector=None) -> ServingFrontend:
@@ -90,6 +94,10 @@ def build_frontend(args, fault_injector=None) -> ServingFrontend:
         ),
         pipeline=not args.no_pipeline,
         device=args.device,
+        # every visible card, as the reference serves; an explicit
+        # --device runs on that device alone
+        devices="auto" if args.device is None else None,
+        policy=getattr(args, "policy", None),
         fault_injector=fault_injector,
     )
 
@@ -307,14 +315,18 @@ def main(argv=None):
     ap.add_argument("--watchdog-ms", type=float, default=10_000.0,
                     help="dispatcher watchdog timeout (0 disables)")
     ap.add_argument("--device", default=None,
-                    help="the engines' device: the card when omitted, "
-                    "'cpu' for the plain PyTorch versions")
+                    help="the engines' device: every visible card when "
+                    "omitted, 'cpu' for the plain PyTorch versions")
+    ap.add_argument("--policy", default=None, choices=POLICY_NAMES,
+                    help="the bucket-edge ladder (default: "
+                    "$FPTC_BUCKET_POLICY, else p2)")
     args = ap.parse_args(argv)
     if args.smoke:
         args.rate, args.duration = 50.0, 0.5
         args.replay = True
 
     frontend = build_frontend(args)
+    settle_heap()  # keep full collections off the long-lived heap
     if args.replay:
         run_replay(frontend, args)
     else:

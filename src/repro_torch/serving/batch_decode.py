@@ -12,7 +12,13 @@ Port of ``repro/serving/batch_decode.py``.
   * **Persistent decode plans.**  Device tables, the iDCT basis and the
     dequant LUT upload once per (domain, config, device) into an LRU
     :class:`DecodePlan` cache; decoded samples stay on the device inside a
-    :class:`DecodedBatch` until ``.to_host()`` drains them.
+    :class:`DecodedBatch` until ``.to_host()`` drains them.  Each bucket's
+    launch shapes come from the tuning cache (``kernels.decode_fused``
+    resolves them once per bucket shape and cache epoch).
+  * **Shards.**  ``devices=`` splits each (domain, config) group into
+    contiguous per-device shards at cost-balanced boundaries
+    (:meth:`~repro_torch.tuning.cost_model.CostModel.signal_decode_cost`);
+    signals decode independently, so the bytes never depend on the split.
 
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel wrapper takes its plain version.
@@ -64,8 +70,10 @@ from repro_torch.serving.engine import (
     p2,
     putter,
     resolve_device,
+    serving_devices,
     symlen_bucket,
 )
+from repro_torch.tuning.cost_model import CostModel, default_cost_model
 from repro_torch.tuning.policy import PolicyArg
 
 __all__ = [
@@ -152,7 +160,7 @@ def _decode_bucket_math(
     start; self for padding windows).  ``num_symbols`` is the
     ``num_windows * e`` capacity; ``idx`` never reads past the true coded
     total.  K2 (``kernels.decode_fused``) on CUDA tensors, its plain
-    version on CPU tensors.
+    version on CPU tensors, at the tuning cache's launch shapes.
     """
     return decode_fused(
         words, sl, tables, lut, basis, v3,
@@ -258,6 +266,8 @@ class StreamGroup:
     coded-stream expansion: ``v3_idx`` ``int32[num_windows_bucketed * e]``
     and ``v3_seg`` ``int32[num_windows_bucketed]`` from
     ``symlen.v3_expand_index`` at the *scheduler-rounded* window count.
+    ``device``/``shard`` place the group's bucket decode (None: the
+    decoder's first device).
     """
 
     plan_key: tuple  # (domain_id, n, e, l_max, coding)
@@ -268,6 +278,8 @@ class StreamGroup:
     live_words: Optional[int] = None
     v3_idx: Any = None
     v3_seg: Any = None
+    device: Any = None
+    shard: int = 0
 
     @property
     def total_windows(self) -> int:
@@ -283,12 +295,15 @@ def _stage_container_group(
     key,
     rounder: Callable[[int], int] = p2,
     alloc: Callable[[int, torch.dtype], torch.Tensor] = _zeros,
+    device: Any = None,
+    shard: int = 0,
 ) -> StreamGroup:
     """Host-stage one bucket: concatenate member streams into zeroed word
     and symlen buffers padded to the bucket edge (``rounder``), allocated
     by ``alloc`` (pinned buffers when the decoder runs on the card).  For a
     v3 plan key the expansion index/segment arrays are built here too, at
-    the rounded window count the dispatch will use."""
+    the rounded window count the dispatch will use.  ``device``/``shard``
+    ride the group to its dispatch."""
     total_words = sum(c.num_words for c in members)
     wp = rounder(max(total_words, 1))
     words = alloc(wp, torch.int64)
@@ -317,6 +332,8 @@ def _stage_container_group(
         live_words=total_words,
         v3_idx=v3_idx,
         v3_seg=v3_seg,
+        device=device,
+        shard=shard,
     )
 
 
@@ -373,23 +390,35 @@ class BatchDecoder:
     bucket edges, then decoded by one K2 launch (``kernels.decode_fused``).
     ``pipeline`` double-buffers host staging/upload against device compute.
     With no ``device`` the decoder runs on the card and raises if there is
-    none; ``device="cpu"`` runs the plain PyTorch versions.
+    none; ``device="cpu"`` runs the plain PyTorch versions.  ``devices``
+    shards each group over several devices (``"auto"``: every visible
+    card; a sequence, repeats allowed), split at cost-balanced boundaries
+    over ``cost_model``'s per-container decode cost; ``device`` and
+    ``devices`` together must agree.  Policy, pipelining and sharding
+    change scheduling only, never bytes.
     """
 
     def __init__(
         self,
         *,
         device=None,
+        devices=None,
         plan_cache_size: int = 32,
         pipeline: bool = True,
         prefetch: int = 2,
         policy: PolicyArg = None,
+        cost_model: Optional[CostModel] = None,
     ):
-        self.device = resolve_device(device)
+        self.devices = serving_devices(devices, device)
+        self.device = self.devices[0]
         self._plans = PlanCache(_build_decode_plan, plan_cache_size)
-        self.scheduler = BucketScheduler(policy=policy)
+        self.scheduler = BucketScheduler(devices=self.devices, policy=policy)
         self.executor = PipelineExecutor(
-            self.device, pipeline=pipeline, prefetch=prefetch
+            self.devices, pipeline=pipeline, prefetch=prefetch
+        )
+        self.cost_model = (
+            cost_model if cost_model is not None
+            else default_cost_model(self.device)
         )
         self.stats = BatchDecoderStats()
         self._pending = SubmitBuffer()
@@ -425,14 +454,17 @@ class BatchDecoder:
                 f"no DomainTables registered for domain_id={domain_id}"
             ) from None
 
-    def _plan_for_key(self, key, tables: TablesArg) -> DecodePlan:
+    def _plan_for_key(self, key, tables: TablesArg,
+                      device=None) -> DecodePlan:
         key = normalize_plan_key(key)
         tab = self._tables_for(key, tables)
         validate_container_tables(key, tab)
-        return self._plans.get(tab, key, self.device)
+        return self._plans.get(
+            tab, key, self.device if device is None else device)
 
-    def plan_for(self, container: Container, tables: TablesArg) -> DecodePlan:
-        return self._plan_for_key(container.plan_key, tables)
+    def plan_for(self, container: Container, tables: TablesArg,
+                 device=None) -> DecodePlan:
+        return self._plan_for_key(container.plan_key, tables, device)
 
     # -- fixed-rate (entropy-off) decode -------------------------------------
     def decode_fixed(
@@ -516,7 +548,21 @@ class BatchDecoder:
                     "needs a {domain_id: DomainTables} mapping, not a "
                     "single DomainTables"
                 )
-        buckets = self.scheduler.buckets([c.plan_key for c in containers])
+        # with several shards, split each group at cost-balanced (not
+        # equal-count) boundaries over the model's per-container decode
+        # cost — container metadata carries everything the model needs
+        item_costs = None
+        if self.scheduler.num_shards > 1:
+            item_costs = [
+                self.cost_model.signal_decode_cost(
+                    c.num_words, c.num_windows,
+                    e=c.e, n=c.n, max_symlen=symlen_bucket(c.max_symlen),
+                )
+                for c in containers
+            ]
+        buckets = self.scheduler.buckets(
+            [c.plan_key for c in containers], item_costs=item_costs
+        )
         member_pos = member_positions(buckets, len(containers))
         # staging stays lazy: the executor's worker runs the host concat +
         # upload of bucket k+1 while bucket k's kernels run
@@ -525,6 +571,7 @@ class BatchDecoder:
                 _stage_container_group,
                 [containers[i] for i in b.items], b.key,
                 self.scheduler.round, self.executor.host_buffer,
+                b.device, b.shard,
             )
             for b in buckets
         ]
@@ -543,23 +590,26 @@ class BatchDecoder:
     ) -> DecodedBatch:
         """Decode pre-concatenated bucket streams: one bucket decode per
         :class:`StreamGroup` (or zero-argument callable producing one — the
-        executor's staging contract).  Signals come back group by group, in
-        each group's ``members`` order."""
+        executor's staging contract), on the group's ``device`` (the
+        decoder's first device where it has none).  Signals come back group
+        by group, in each group's ``members`` order."""
         groups = list(groups)
 
         def upload(g) -> Tuple[StreamGroup, Upload]:
             grp = g() if callable(g) else g
+            dev = self.device if grp.device is None else grp.device
             # plan prefetch: tables + basis + LUT upload from the staging
-            # worker, so the first dispatch doesn't pay for it
-            self._plan_for_key(tuple(grp.plan_key), tables)
+            # worker, so the first dispatch on each device doesn't pay it
+            self._plan_for_key(tuple(grp.plan_key), tables, dev)
             up = self.executor.put(
-                [grp.words, grp.symlen, grp.v3_idx, grp.v3_seg]
+                [grp.words, grp.symlen, grp.v3_idx, grp.v3_seg], dev
             )
             return grp, up
 
         def dispatch(g, staged) -> Tuple[torch.Tensor, StreamGroup]:
             grp, up = staged
-            plan = self._plan_for_key(tuple(grp.plan_key), tables)
+            dev = self.device if grp.device is None else grp.device
+            plan = self._plan_for_key(tuple(grp.plan_key), tables, dev)
             words, sl, idx, seg = up.wait()
             if sl.dtype != torch.uint8:  # symlen <= 64: one byte holds it
                 sl = sl.to(torch.uint8)
@@ -586,6 +636,7 @@ class BatchDecoder:
             self.stats.dispatches += 1
             self.stats.bucket_pad.append({
                 "plan_key": tuple(grp.plan_key),
+                "shard": grp.shard,
                 "policy": self.scheduler.policy.name,
                 "words": grp.live_words,
                 "words_padded": int(words.shape[0]),

@@ -15,7 +15,15 @@ stays ``core.codec.encode``, sequential by design):
     symbol counts ride a device array into the packer's validity mask.
   * **Persistent encode plans.**  Device tables and the DCT basis upload
     once per (domain, config, device) into an LRU :class:`EncodePlan`
-    cache.
+    cache.  Each bucket's register tile comes from the tuning cache
+    (``kernels.encode_fused`` resolves it once per bucket shape and cache
+    epoch).
+  * **Shards.**  ``devices=`` splits each bucket's rows into contiguous
+    per-device shards at cost-balanced boundaries
+    (:meth:`~repro_torch.tuning.cost_model.CostModel.signal_encode_cost`);
+    ``encode_staged(shard_ids=, shard_devices=)`` pins rows to shards (the
+    transcoder's re-encode stays where it decoded).  Rows pack
+    independently, so the bytes never depend on the split.
   * **Device-resident results.**  Chunk parts stay on the device inside an
     :class:`EncodedBatch` until one ``.to_host()`` drain, where the
     per-row histogram-gap flags are checked too.
@@ -73,7 +81,9 @@ from repro_torch.serving.engine import (
     fetch_to_host_stitched,
     putter,
     resolve_device,
+    serving_devices,
 )
+from repro_torch.tuning.cost_model import CostModel, default_cost_model
 from repro_torch.tuning.policy import PolicyArg
 
 __all__ = [
@@ -241,7 +251,8 @@ class EncodedBucketParts:
     batch padding and pack zero words.  ``unencodable`` is the per-row
     histogram-gap flag ``bool[K]``, checked at drain.  v3 buckets also
     carry per-signal coded-symbol counts ``ncoded`` and, with zero planes,
-    the ``zrow``/``zcol`` masks.
+    the ``zrow``/``zcol`` masks.  ``shard``/``device`` record the
+    scheduler's placement (a transcode of the parts stays there).
     """
 
     plan_key: tuple  # (domain_id, n, e, l_max, coding)
@@ -253,6 +264,8 @@ class EncodedBucketParts:
     ncoded: Optional[torch.Tensor] = None  # int32[K] (v3 only)
     zrow: Optional[torch.Tensor] = None  # bool[K, Wp] (v3 zero planes)
     zcol: Optional[torch.Tensor] = None  # bool[K, e] (v3 zero planes)
+    shard: int = 0
+    device: Any = None
 
     @property
     def chunk_size(self) -> int:
@@ -503,7 +516,11 @@ class BatchEncoder:
     is what ``encode_device`` uses.  ``pipeline`` double-buffers host
     staging/upload against device compute.  With no ``device`` the encoder
     runs on the card and raises if there is none; ``device="cpu"`` runs the
-    plain PyTorch versions.
+    plain PyTorch versions.  ``devices`` shards each bucket's rows over
+    several devices (``"auto"``: every visible card; a sequence, repeats
+    allowed), split at cost-balanced boundaries over ``cost_model``'s
+    per-signal encode cost; ``device`` and ``devices`` together must
+    agree.  None of these change the bytes.
     """
 
     def __init__(
@@ -511,19 +528,26 @@ class BatchEncoder:
         *,
         chunk_size: Optional[int] = DEFAULT_CHUNK_SIZE,
         device=None,
+        devices=None,
         plan_cache_size: int = 32,
         pipeline: bool = True,
         prefetch: int = 2,
         policy: PolicyArg = None,
+        cost_model: Optional[CostModel] = None,
     ):
         if chunk_size is not None and chunk_size <= 0:
             raise ValueError(f"chunk_size must be positive, got {chunk_size}")
         self.chunk_size = chunk_size
-        self.device = resolve_device(device)
+        self.devices = serving_devices(devices, device)
+        self.device = self.devices[0]
         self._plans = PlanCache(_build_encode_plan, plan_cache_size)
-        self.scheduler = BucketScheduler(policy=policy)
+        self.scheduler = BucketScheduler(devices=self.devices, policy=policy)
         self.executor = PipelineExecutor(
-            self.device, pipeline=pipeline, prefetch=prefetch
+            self.devices, pipeline=pipeline, prefetch=prefetch
+        )
+        self.cost_model = (
+            cost_model if cost_model is not None
+            else default_cost_model(self.device)
         )
         self.stats = BatchEncoderStats()
         self._pending = SubmitBuffer()
@@ -577,10 +601,11 @@ class BatchEncoder:
                 f"no DomainTables registered for domain_id={domain_id}"
             ) from None
 
-    def plan_for(self, tables: DomainTables) -> EncodePlan:
+    def plan_for(self, tables: DomainTables, device=None) -> EncodePlan:
         cfg = tables.config
         key = (tables.domain_id, cfg.n, cfg.e, cfg.l_max, cfg.coding)
-        return self._plans.get(tables, key, self.device)
+        return self._plans.get(
+            tables, key, self.device if device is None else device)
 
     # -- fixed-rate (entropy-off) encode --------------------------------------
     def encode_fixed(self, x, tables: DomainTables) -> torch.Tensor:
@@ -646,6 +671,8 @@ class BatchEncoder:
         stage: StageFn,
         domain_ids: Optional[Sequence[int]] = None,
         pending_flags: Sequence[Tuple[tuple, torch.Tensor]] = (),
+        shard_ids: Optional[Sequence[int]] = None,
+        shard_devices: Optional[Dict[int, Any]] = None,
         quarantine: bool = False,
     ) -> EncodedBatch:
         """The bucketing/dispatch core of :meth:`encode`, with the signal
@@ -663,7 +690,10 @@ class BatchEncoder:
         encode and the slice metadata are this one code path, which is what
         makes device-staged encodes byte-identical to host-staged ones.
         ``pending_flags`` (plan key, device flag) ride the batch to its
-        drain (a transcode's inherited histogram-gap flags).
+        drain (a transcode's inherited histogram-gap flags).  Shard
+        assignment is the scheduler's cost-balanced split unless
+        ``shard_ids`` pins each signal to a shard, with ``shard_devices``
+        mapping pinned ids from another scheduler to their devices.
         """
         self.stats.batches += 1
         self.stats.signals += len(lengths)
@@ -686,17 +716,31 @@ class BatchEncoder:
         # group; the batch dim is padded to a bucket edge in the upload
         keys = []
         per_tab: Dict[tuple, DomainTables] = {}
+        all_windows: List[int] = []
         for length, dom in zip(lengths, domain_ids):
             tab = self._tables_for(dom, tables)
             cfg = tab.config
             num_windows = -(-int(length) // cfg.n)
+            all_windows.append(num_windows)
             key = (
                 (dom, cfg.n, cfg.e, cfg.l_max, cfg.coding),
                 self.scheduler.round(max(num_windows, 1)),
             )
             keys.append(key)
             per_tab.setdefault(key, tab)
-        buckets = self.scheduler.buckets(keys)
+        # cost-balanced shard split over the predicted per-signal encode
+        # cost (pinned shard_ids bypass the split)
+        item_costs = None
+        if self.scheduler.num_shards > 1 and shard_ids is None:
+            item_costs = [
+                self.cost_model.signal_encode_cost(
+                    w, e=key[0][2], n=key[0][1])
+                for w, key in zip(all_windows, keys)
+            ]
+        buckets = self.scheduler.buckets(
+            keys, shard_ids=shard_ids, shard_devices=shard_devices,
+            item_costs=item_costs,
+        )
 
         slices: List[Optional[_Slice]] = [None] * len(lengths)
         for b, bucket in enumerate(buckets):
@@ -724,17 +768,20 @@ class BatchEncoder:
             counts = np.zeros((kp,), dtype=np.int32)
             for row, i in enumerate(idxs):
                 counts[row] = -(-int(lengths[i]) // n) * e
+            dev = self.device if bucket.device is None else bucket.device
             # plan prefetch: the staging worker pays the tables/basis upload
-            self._plans.get(per_tab[bucket.key], plan_key, self.device)
-            x = stage(idxs, kp, wp, n, self.device)
+            self._plans.get(per_tab[bucket.key], plan_key, dev)
+            x = stage(idxs, kp, wp, n, dev)
             if isinstance(x, GatherStage):
-                return kp, x, self.executor.put([x.starts, x.lens, counts])
-            return kp, None, self.executor.put([x, counts])
+                return kp, x, self.executor.put([x.starts, x.lens, counts],
+                                                dev)
+            return kp, None, self.executor.put([x, counts], dev)
 
         def dispatch(bucket: Bucket, staged) -> EncodedBucketParts:
             kp, gather, up = staged
             plan_key, wp = bucket.key
-            plan = self._plans.get(per_tab[bucket.key], plan_key, self.device)
+            dev = self.device if bucket.device is None else bucket.device
+            plan = self._plans.get(per_tab[bucket.key], plan_key, dev)
             n, e = plan.n, plan.e
             coding = plan.coding
             sp = wp * e
@@ -747,12 +794,12 @@ class BatchEncoder:
                 flat = gather.flat
                 if gather.last_use:  # the stage's reference goes with it
                     gather.flat = None
-                if flat is None or flat.device != self.device or (
+                if flat is None or flat.device != dev or (
                     flat.dtype != torch.float32 or flat.dim() != 1
                 ) or tuple(starts.shape) != (kp,):
                     raise ValueError(
                         "GatherStage needs a flat float32 tensor on "
-                        f"{self.device} and {kp} starts/lens"
+                        f"{dev} and {kp} starts/lens"
                     )
                 out = _encode_bucket_gather_math(
                     flat, starts.to(torch.int32), lens.to(torch.int32),
@@ -777,6 +824,7 @@ class BatchEncoder:
             self.stats.dispatches += 1
             self.stats.bucket_pad.append({
                 "plan_key": plan_key,
+                "shard": bucket.shard,
                 "policy": self.scheduler.policy.name,
                 "rows": len(bucket.items),
                 "rows_padded": kp,
@@ -788,6 +836,7 @@ class BatchEncoder:
                 plan_key=plan_key, hi=hi, lo=lo, symlen=sl,
                 words_per_chunk=wpc, unencodable=bad,
                 ncoded=ncoded, zrow=zrow, zcol=zcol,
+                shard=bucket.shard, device=dev,
             )
 
         out_buckets = self.executor.run(buckets, upload, dispatch)

@@ -1,17 +1,25 @@
-"""Shared serving-engine layer: device resolution, bucket scheduling and
-pipelined execution on one device.  Port of ``repro/serving/engine.py``.
+"""Shared serving-engine layer: device resolution, bucket scheduling,
+multi-device shard splits and pipelined execution.  Port of
+``repro/serving/engine.py``.
 
   * :func:`resolve_device` — the device entry points' rule: no device means
-    the card, and no card means an error, never a quiet CPU run.
+    the card, and no card means an error, never a quiet CPU run;
+    :func:`serving_devices` — an engine's shard devices under that rule.
   * :class:`BucketScheduler` — grouping (first-appearance key order, members
-    in input order) and bucket-edge rounding under a
-    :class:`~repro_torch.tuning.policy.BucketPolicy`.  One device: the
-    reference's multi-device shard split waits for a later slice.
+    in input order), bucket-edge rounding under a
+    :class:`~repro_torch.tuning.policy.BucketPolicy`, and shard assignment:
+    with more than one shard each key group's members split into
+    contiguous per-device shards, equal-count or balanced over per-item
+    costs (:func:`_split_contiguous`, :func:`_split_balanced`).  Signals are
+    independent, so a split needs no collective: each shard's bucket runs
+    on its own device and stays there until the one drain.
   * :class:`PipelineExecutor` — per-bucket stage(upload) -> stage(dispatch)
     with double buffering.  On CUDA each bucket is staged into pinned host
-    buffers and copied with ``non_blocking=True`` on a side stream; an event
-    recorded after the copies is waited on by the compute stream before the
-    bucket's kernels, so bucket k+1's upload overlaps bucket k's kernels.
+    buffers and copied with ``non_blocking=True`` on a side stream of its
+    own device; an event recorded after the copies is waited on by that
+    device's compute stream before the bucket's kernels, so bucket k+1's
+    upload overlaps bucket k's kernels.  One executor serves every shard
+    device of an engine (one side stream per distinct device).
   * :func:`fetch_to_host` — the drain: every d2h copy starts (into pinned
     buffers) before any is read; :func:`fetch_to_host_stitched` overlaps a
     per-bucket host stitch with the later buckets' copies.
@@ -21,7 +29,8 @@ pipelined execution on one device.  Port of ``repro/serving/engine.py``.
   * :func:`putter` — the one placement idiom: host data to an explicit
     device without a host sync.
 
-Pipelining changes *when* buckets run — never what they produce.
+Pipelining and sharding change *when* and *where* buckets run — never what
+they produce.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from typing import (
     Optional,
     Sequence,
     Tuple,
+    Union,
 )
 
 import numpy as np
@@ -51,6 +61,7 @@ __all__ = [
     "p2",
     "symlen_bucket",
     "resolve_device",
+    "serving_devices",
     "Bucket",
     "member_positions",
     "BucketScheduler",
@@ -66,6 +77,8 @@ __all__ = [
 ]
 
 MAX_SYMLEN_CAP = 64  # a 64-bit word holds at most 64 one-bit codes
+
+DevicesArg = Union[None, str, Sequence[Any]]
 
 
 def p2(x: int) -> int:
@@ -101,6 +114,46 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def serving_devices(devices: DevicesArg = None,
+                    device=None) -> Tuple[torch.device, ...]:
+    """Resolve an engine's ``devices`` argument to the shard devices the
+    scheduler splits over, each by :func:`resolve_device`'s rule.
+
+    ``None`` — one shard on ``resolve_device(device)``.  ``"auto"`` — one
+    shard per visible CUDA device (an error where there is none: the CPU
+    runs only when asked for).  A sequence — those devices in order,
+    repeats allowed (two shards on one card split the batch and run one
+    after the other).  Passing both ``device`` and ``devices`` raises unless
+    every shard device is ``device``.
+    """
+    if devices is None:
+        return (resolve_device(device),)
+    if isinstance(devices, str) and devices == "auto":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available for devices='auto' (one shard "
+                "per visible card); pass device='cpu' to run the plain "
+                "PyTorch versions on the host"
+            )
+        devs = tuple(torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count()))
+    else:
+        if isinstance(devices, (str, torch.device)):
+            devices = (devices,)
+        devs = tuple(resolve_device(d) for d in devices)
+        if not devs:
+            raise ValueError("devices must be None, 'auto', or a non-empty "
+                             "sequence of devices")
+    if device is not None:
+        want = resolve_device(device)
+        if any(d != want for d in devs):
+            raise ValueError(
+                f"device={want} and devices={[str(d) for d in devs]} "
+                "disagree — pass one of them"
+            )
+    return devs
 
 
 def putter(device) -> Callable[[Any], torch.Tensor]:
@@ -146,11 +199,15 @@ class GatherStage:
 
 @dataclasses.dataclass(frozen=True)
 class Bucket:
-    """One schedulable unit of engine work: the members of one key group.
-    ``items`` are caller-side indices in input order."""
+    """One schedulable unit of engine work: the members of one key group
+    assigned to one shard.  ``items`` are caller-side indices in input
+    order; ``device`` is the shard's device (None where the scheduler was
+    given none: the engine's own)."""
 
     key: Hashable
     items: Tuple[int, ...]
+    shard: int = 0
+    device: Any = None
 
 
 def member_positions(buckets: Sequence[Bucket], count: int) -> List[int]:
@@ -166,14 +223,38 @@ def member_positions(buckets: Sequence[Bucket], count: int) -> List[int]:
 
 
 class BucketScheduler:
-    """Grouping and bucket rounding for the engines (one device)."""
+    """Owns grouping, shard assignment and bucket rounding for the engines.
 
-    def __init__(self, policy: PolicyArg = None):
+    Grouping preserves first-appearance key order with members in input
+    order inside each group.  With ``num_shards > 1`` each group's members
+    additionally split into contiguous per-device shards, so one bucket per
+    (key, shard) runs on its own device.  ``devices`` is the engine's
+    resolved shard devices (:func:`serving_devices`); the scheduler only
+    hands them out, so any hashable stands in for a device in tests.
+    ``None`` is one shard with no device of its own.
+
+    ``policy`` picks the bucket-edge ladder every padded axis rounds with
+    (:meth:`round`): a :class:`~repro_torch.tuning.policy.BucketPolicy`, a
+    name, or None for the ``FPTC_BUCKET_POLICY`` default (``p2``).
+    """
+
+    def __init__(self, devices: Optional[Sequence[Any]] = None,
+                 policy: PolicyArg = None):
+        self.devices = (None,) if devices is None else tuple(devices)
+        if not self.devices:
+            raise ValueError("a BucketScheduler needs at least one device")
         self.policy = BucketPolicy.of(policy)
 
     def round(self, x: int) -> int:
         """Bucket-edge rounding for a padded axis under this policy."""
         return self.policy.round(max(int(x), 1))
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.devices)
+
+    def device_of(self, shard: int) -> Any:
+        return self.devices[shard]
 
     @staticmethod
     def group_by(keys: Sequence[Hashable]) -> Tuple[
@@ -190,9 +271,118 @@ class BucketScheduler:
             groups[key].append(i)
         return order, groups
 
-    def buckets(self, keys: Sequence[Hashable]) -> List[Bucket]:
+    def buckets(
+        self,
+        keys: Sequence[Hashable],
+        shard_ids: Optional[Sequence[int]] = None,
+        shard_devices: Optional[Dict[int, Any]] = None,
+        item_costs: Optional[Sequence[float]] = None,
+    ) -> List[Bucket]:
+        """Schedule items into (key, shard) buckets.
+
+        Without ``shard_ids``, each key group's members split into
+        ``min(len(group), num_shards)`` contiguous shards on this
+        scheduler's devices, the starting shard rotating across groups (an
+        archive of many small groups still spreads over every device).
+        The split is equal-count unless ``item_costs`` gives a predicted
+        cost per item (e.g. :meth:`repro_torch.tuning.cost_model.CostModel.
+        signal_decode_cost`); then each group splits at cost-balanced
+        boundaries.  Splits stay contiguous either way, so member order
+        (and hence bytes) never changes.  With ``shard_ids`` (one per item
+        — a *pinning*, e.g. the transcoder keeping a signal's re-encode on
+        the device that decoded it) members partition by their given shard
+        instead, ascending shard order, relative order kept;
+        ``shard_devices`` maps those shard ids to devices (required where
+        the pinned ids come from another scheduler: the data's placement
+        wins over this scheduler's devices).
+        """
         order, groups = self.group_by(keys)
-        return [Bucket(key=k, items=tuple(groups[k])) for k in order]
+        out: List[Bucket] = []
+        next_shard = 0  # rotating start keeps small groups off shard 0
+        for key in order:
+            idxs = groups[key]
+            if shard_ids is None:
+                if item_costs is not None and self.num_shards > 1:
+                    parts = _split_balanced(
+                        idxs, [float(item_costs[i]) for i in idxs],
+                        self.num_shards,
+                    )
+                else:
+                    parts = _split_contiguous(idxs, self.num_shards)
+                shards = [
+                    (next_shard + j) % self.num_shards
+                    for j in range(len(parts))
+                ]
+                next_shard = (next_shard + len(parts)) % self.num_shards
+            else:
+                by_shard: "OrderedDict[int, List[int]]" = OrderedDict()
+                for i in idxs:
+                    by_shard.setdefault(int(shard_ids[i]), []).append(i)
+                shards = sorted(by_shard)
+                parts = [by_shard[s] for s in shards]
+            for shard, part in zip(shards, parts):
+                if shard_devices is not None:
+                    device = shard_devices[shard]
+                elif shard < len(self.devices):
+                    device = self.devices[shard]
+                else:
+                    raise ValueError(
+                        f"pinned shard id {shard} has no device: this "
+                        f"scheduler holds {self.num_shards} shard(s) — "
+                        "pass shard_devices when shard_ids come from "
+                        "another scheduler"
+                    )
+                out.append(Bucket(key=key, items=tuple(part), shard=shard,
+                                  device=device))
+        return out
+
+
+def _split_contiguous(items: List[int], num_shards: int) -> List[List[int]]:
+    """Contiguous equal-count partition into <= ``num_shards`` parts."""
+    k = min(len(items), max(num_shards, 1))
+    if k <= 1:
+        return [list(items)]
+    q, r = divmod(len(items), k)
+    out, off = [], 0
+    for s in range(k):
+        size = q + (1 if s < r else 0)
+        out.append(items[off:off + size])
+        off += size
+    return out
+
+
+def _split_balanced(
+    items: List[int], costs: List[float], num_shards: int
+) -> List[List[int]]:
+    """Contiguous partition of ``items`` into <= ``num_shards`` parts with
+    near-equal predicted cost: greedily close part ``s`` once its running
+    cost reaches the ideal boundary ``total * (s+1) / k``.  Equal costs
+    give the same +-1 size balance as the equal-count split; contiguity
+    keeps member (and byte) order identical to the unweighted path."""
+    k = min(len(items), max(num_shards, 1))
+    total = sum(costs)
+    if k <= 1 or not (total > 0.0):
+        return _split_contiguous(items, num_shards)
+    out: List[List[int]] = []
+    part: List[int] = []
+    acc = 0.0
+    s = 0
+    for j, (item, cost) in enumerate(zip(items, costs)):
+        part.append(item)
+        acc += cost
+        remaining_items = len(items) - (j + 1)
+        remaining_parts = k - (s + 1)
+        if remaining_parts <= 0:
+            continue
+        # close this part at its ideal cost boundary, or when the leftover
+        # items are only just enough to make every remaining part non-empty
+        if acc >= total * (s + 1) / k or remaining_items <= remaining_parts:
+            out.append(part)
+            part = []
+            s += 1
+    if part:
+        out.append(part)
+    return out
 
 
 class SubmitBuffer:
@@ -263,23 +453,33 @@ class PipelineExecutor:
     than one bucket, one staging worker keeps up to ``prefetch`` uploads in
     flight ahead of the main thread's dispatches.  Dispatch order is always
     bucket order, so the pipelined path matches the serial one exactly.
+
+    ``device`` is one device or an engine's shard devices (repeats
+    allowed); :meth:`put` copies to its first unless told another.  One
+    side stream per distinct device; the staging worker and the host
+    buffers are shared, so a device named twice costs nothing more.
     """
 
     def __init__(self, device, *, pipeline: bool = True, prefetch: int = 2):
         if prefetch < 1:
             raise ValueError(f"prefetch must be >= 1, got {prefetch}")
-        self.device = torch.device(device)
+        devs = ([device] if isinstance(device, (str, torch.device))
+                else list(device))
+        if not devs:
+            raise ValueError("a PipelineExecutor needs a device")
+        self.devices = tuple(dict.fromkeys(torch.device(d) for d in devs))
+        self.device = self.devices[0]
         self.pipeline = pipeline
         self.prefetch = prefetch
         self.stats = ExecutorStats()
         self._pool: Optional[ThreadPoolExecutor] = None
-        self._copy_stream = None
+        self._copy_streams: Dict[torch.device, Any] = {}
         self._lock = threading.Lock()
         self._inflight = 0
 
     @property
     def cuda(self) -> bool:
-        return self.device.type == "cuda"
+        return any(d.type == "cuda" for d in self.devices)
 
     @property
     def inflight(self) -> int:
@@ -298,37 +498,39 @@ class PipelineExecutor:
         """A zeroed host staging buffer (pinned when the device is CUDA)."""
         return torch.zeros(size, dtype=dtype, pin_memory=self.cuda)
 
-    def put(self, arrays: Sequence[Any]) -> Upload:
+    def put(self, arrays: Sequence[Any], device=None) -> Upload:
         """Move arrays (numpy, host tensors, or tensors already on the
-        device; None passes through) to the device.  On CUDA: pinned
-        sources, ``non_blocking`` copies on the side stream, and one event
-        after them."""
+        device; None passes through) to ``device`` (default: the first
+        one).  On CUDA: pinned sources, ``non_blocking`` copies on the
+        device's side stream, and one event after them."""
+        dev = (self.device if device is None
+               else device if isinstance(device, torch.device)
+               else torch.device(device))
         on_device = [
-            isinstance(a, torch.Tensor) and a.device == self.device
-            for a in arrays
+            isinstance(a, torch.Tensor) and a.device == dev for a in arrays
         ]
         hosts = [
             a if a is None or here else _host_tensor(a)
             for a, here in zip(arrays, on_device)
         ]
-        if not self.cuda:
+        if dev.type != "cuda":
             return Upload(hosts)
         with self._lock:
-            if self._copy_stream is None:
-                self._copy_stream = torch.cuda.Stream(self.device)
-        stream = self._copy_stream
+            stream = self._copy_streams.get(dev)
+            if stream is None:
+                stream = self._copy_streams[dev] = torch.cuda.Stream(dev)
         out: List[Optional[torch.Tensor]] = []
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream):  # makes the stream's device current
             for h, here in zip(hosts, on_device):
                 if h is None or here:
                     out.append(h)
                     continue
                 if not h.is_pinned():
                     h = h.pin_memory()
-                out.append(h.to(self.device, non_blocking=True))
+                out.append(h.to(dev, non_blocking=True))
             event = torch.cuda.Event()
             event.record(stream)
-        return Upload(out, event, self.device)
+        return Upload(out, event, dev)
 
     def _worker(self) -> ThreadPoolExecutor:
         with self._lock:
@@ -360,7 +562,7 @@ class PipelineExecutor:
         def timed_upload(b: Any) -> Any:
             t0 = time.perf_counter()
             try:
-                if self.cuda:
+                if self.device.type == "cuda":
                     with torch.cuda.device(self.device):
                         return upload(b)
                 return upload(b)

@@ -1,5 +1,5 @@
 """Always-on serving front-end: adaptive deadline micro-batching over the
-pipelined engines.  Port of ``repro/serving/frontend.py``, on one device.
+pipelined engines.  Port of ``repro/serving/frontend.py``.
 
 Everything below this module is *offline*: callers hand
 :class:`~repro_torch.serving.batch_decode.BatchDecoder` /
@@ -67,6 +67,7 @@ request completes exactly once however the race resolves.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import random
 import threading
 import time
@@ -104,9 +105,11 @@ __all__ = [
     "FrontendStats",
     "DeadlineExpiredError",
     "QueueFullError",
+    "RequestFuture",
     "RetryPolicy",
     "ServingFrontend",
     "policy_fill_target",
+    "settle_heap",
 ]
 
 TablesArg = Union[DomainTables, Mapping[int, DomainTables]]
@@ -302,6 +305,25 @@ class FrontendConfig:
             )
 
 
+def settle_heap() -> int:
+    """Collect garbage, then freeze every object alive now (``gc.freeze``),
+    so later full collections skip the process's long-lived heap; returns
+    the objects frozen.  ``gc.unfreeze()`` undoes it.
+
+    A full collection walks every tracked object and stops every thread,
+    the dispatcher, the drain and the request threads with them; in a
+    serving process it lands in some request's admission or its
+    flush-to-result and can break the SLO below the knee (``PERF.md``,
+    F2).  Freezing the heap once the process is warm leaves the
+    collections only the objects the serving itself makes.  The process's
+    owner calls it once, before serving (``launch.serve`` does); a library
+    cannot know when the heap has settled.
+    """
+    gc.collect()
+    gc.freeze()
+    return gc.get_freeze_count()
+
+
 def policy_fill_target(policy: BucketPolicy, max_batch: int) -> int:
     """The largest ``policy`` bucket edge <= ``max_batch`` — the fill
     count at which a queue dispatches.  Snapping to an edge means a
@@ -343,14 +365,28 @@ class FrontendStats:
         return self.batch_size_sum / self.batches if self.batches else 0.0
 
 
+class RequestFuture(Future):
+    """The future of one admitted request, with its timings on the
+    front-end's clock: ``admitted_at``, the clock read at admission (the
+    deadline's anchor), and once resolved ``flush_to_result_s``, from the
+    moment its batch was last taken for dispatch to its result (None for a
+    request that never dispatched)."""
+
+    def __init__(self, admitted_at: float):
+        super().__init__()
+        self.admitted_at = admitted_at
+        self.flush_to_result_s: Optional[float] = None
+
+
 @dataclasses.dataclass
 class _Pending:
     payload: Any
-    future: Future
+    future: RequestFuture
     deadline: float  # absolute, frontend clock
     admitted_at: float
     attempts: int = 0  # dispatch attempts already failed transiently
     not_before: float = 0.0  # retry backoff: not dispatchable before this
+    flushed_at: Optional[float] = None  # its batch was last taken then
 
 
 # ---------------------------------------------------------------------------
@@ -369,11 +405,13 @@ class ServingFrontend:
     container's domain, encode requests the ``domain_id`` they carry, and
     transcode requests both their source container's domain and their
     ``dst_domain_id`` target.  Engine knobs (``pipeline`` / ``device`` /
-    ``policy`` / ``chunk_size``) construct the three engines unless
-    explicit engines are passed; the transcoder shares the front-end's
-    decoder and encoder, so all traffic kinds warm ONE set of plan caches
-    on one device.  With no ``device`` the engines run on the card (and
-    raise without one); ``device="cpu"`` runs the plain PyTorch versions.
+    ``devices`` / ``policy`` / ``chunk_size``) construct the three engines
+    unless explicit engines are passed; the transcoder shares the
+    front-end's decoder and encoder, so all traffic kinds warm ONE set of
+    plan caches (per shard device).  With no ``device`` the engines run on
+    the card (and raise without one); ``device="cpu"`` runs the plain
+    PyTorch versions; ``devices`` shards each batch (``"auto"``: every
+    visible card).
     ``clock`` is injectable for deterministic tests.
 
     ``fault_injector`` (an object with ``on_dispatch(key, members)``,
@@ -399,6 +437,7 @@ class ServingFrontend:
         chunk_size: Optional[int] = None,
         pipeline: bool = True,
         device=None,
+        devices=None,
         policy: PolicyArg = None,
         clock: Callable[[], float] = time.monotonic,
         fault_injector: Optional[Any] = None,
@@ -409,10 +448,10 @@ class ServingFrontend:
             if isinstance(tables, DomainTables) else dict(tables)
         )
         self.decoder = decoder or BatchDecoder(
-            device=device, pipeline=pipeline, policy=policy,
+            device=device, devices=devices, pipeline=pipeline, policy=policy,
         )
         self.encoder = encoder or BatchEncoder(
-            device=device, pipeline=pipeline, policy=policy,
+            device=device, devices=devices, pipeline=pipeline, policy=policy,
             **({} if chunk_size is None else {"chunk_size": chunk_size}),
         )
         # the transcoder RIDES the front-end's decoder/encoder: one set of
@@ -652,7 +691,7 @@ class ServingFrontend:
                 self.stats.shed += 1
                 self._health_event(f"request shed (queue {key!r} full)")
                 raise QueueFullError(key, depth, self.config.max_queue_depth)
-            fut: Future = Future()
+            fut = RequestFuture(now)
             q.append(_Pending(payload, fut, deadline, now))
             self.stats.admitted += 1
             if depth + 1 > self.stats.max_depth:
@@ -690,9 +729,10 @@ class ServingFrontend:
             if q and not force and q[0].not_before > now:
                 continue  # head is in retry backoff — don't reorder past it
             while len(q) >= self._fill:
-                out.append((
-                    key, [q.popleft() for _ in range(self._fill)], FILL,
-                ))
+                batch = [q.popleft() for _ in range(self._fill)]
+                for r in batch:
+                    r.flushed_at = now
+                out.append((key, batch, FILL))
             retry_due = bool(q) and q[0].attempts > 0 and (
                 q[0].not_before <= now
             )  # a retried head redispatches the moment its backoff ends:
@@ -700,7 +740,9 @@ class ServingFrontend:
             if q and (force or retry_due or q[0].deadline - slack <= now):
                 batch = []
                 while q and len(batch) < self.config.max_batch:
-                    batch.append(q.popleft())
+                    r = q.popleft()
+                    r.flushed_at = now
+                    batch.append(r)
                 out.append((key, batch, FORCED if force else DEADLINE))
         return out
 
@@ -951,6 +993,8 @@ class ServingFrontend:
         now = self._clock()
         done = failed = misses = poisoned = retry_ok = 0
         for i, r in enumerate(members):
+            if r.flushed_at is not None:
+                r.future.flush_to_result_s = now - r.flushed_at
             try:
                 if error is not None:
                     r.future.set_exception(error)

@@ -30,6 +30,7 @@ achieved goodput, and shed/expired counts — the measurement
 from __future__ import annotations
 
 import dataclasses
+import gc
 import threading
 import time
 from typing import Dict, List, Mapping, Optional, Tuple
@@ -238,6 +239,17 @@ class ReplayReport:
     failed: int
     latencies_ms: List[float]  # per completed request, arrival -> result
     wall_s: float
+    # per admitted request: scheduled arrival -> the return of its submit,
+    # and its scheduled arrival (s after the replay's start)
+    admit_lag_ms: List[float] = dataclasses.field(default_factory=list)
+    admit_at_s: List[float] = dataclasses.field(default_factory=list)
+    # per completed request: its batch taken for dispatch -> its result
+    flush_to_result_ms: List[float] = dataclasses.field(default_factory=list)
+    # the process's garbage collections during the replay: (start s after
+    # the replay's start, pause ms, generation)
+    gc_pauses: List[Tuple[float, float, int]] = dataclasses.field(
+        default_factory=list)
+    started_at: float = 0.0  # time.monotonic() at the replay's start
 
     def percentile(self, q: float) -> float:
         if not self.latencies_ms:
@@ -251,6 +263,37 @@ class ReplayReport:
     @property
     def p99_ms(self) -> float:
         return self.percentile(99)
+
+    def timings(self) -> Dict[str, float]:
+        """p50/p99 of the admission lag (scheduled arrival to the return of
+        its submit: the replay thread's lateness plus admission) and of the
+        flush-to-result time (its batch taken for dispatch to its result:
+        the engine call, the drain and the futures), in ms — where a
+        request's sojourn goes besides its queue wait.  Beside them the
+        garbage collections during the replay (a collection stops every
+        thread) and the admissions late by more than 10 ms, with those
+        whose lateness overlaps a collection."""
+        out = {}
+        for name, xs in (("admit_lag", self.admit_lag_ms),
+                         ("flush_to_result", self.flush_to_result_ms)):
+            for q in (50, 99):
+                out[f"{name}_p{q}_ms"] = (
+                    float(np.percentile(xs, q)) if xs else float("nan"))
+        pauses = [(t, t + ms / 1e3) for t, ms, _ in self.gc_pauses]
+        late = [(t, t + lag / 1e3) for t, lag in zip(self.admit_at_s,
+                                                     self.admit_lag_ms)
+                if lag > 10.0]
+        out.update(
+            gc_collections=len(self.gc_pauses),
+            gc_full_collections=sum(g == 2 for *_, g in self.gc_pauses),
+            gc_max_ms=max((ms for _, ms, _ in self.gc_pauses), default=0.0),
+            gc_total_ms=sum(ms for _, ms, _ in self.gc_pauses),
+            late_admits=len(late),
+            late_admits_in_gc=sum(
+                any(a < g1 and g0 < b for g0, g1 in pauses)
+                for a, b in late),
+        )
+        return out
 
     def summary(self) -> Dict[str, float]:
         return {
@@ -283,14 +326,30 @@ def replay(
     exactly like a service behind real clients.  Latency is measured
     from *scheduled arrival* to result materialization (sojourn time:
     submit lateness under overload counts against the server, not the
-    clock).  Returns once every submitted request resolved.
+    clock).  Returns once every submitted request resolved.  The report
+    also times each request's admission lag and flush-to-result time
+    (:meth:`ReplayReport.timings`).
     """
     lock = threading.Lock()
     latencies: List[float] = []
+    flush_to_result: List[float] = []
+    admit_lag: List[float] = []
+    admit_at: List[float] = []
+    gc_pauses: List[Tuple[float, float, int]] = []
     failed = [0]
     shed = 0
     expired = 0
     start = time.monotonic()
+    gc_began = [0.0]
+
+    def on_gc(phase: str, info: dict) -> None:
+        now = time.monotonic()
+        if phase == "start":
+            gc_began[0] = now
+        else:
+            gc_pauses.append((gc_began[0] - start,
+                              (now - gc_began[0]) * 1e3,
+                              int(info["generation"])))
 
     def on_done(arrival_abs: float):
         def cb(fut):
@@ -298,47 +357,57 @@ def replay(
             with lock:
                 if fut.exception() is None:
                     latencies.append((end - arrival_abs) * 1e3)
+                    took = getattr(fut, "flush_to_result_s", None)
+                    if took is not None:
+                        flush_to_result.append(took * 1e3)
                 else:
                     failed[0] += 1
         return cb
 
-    pending = []
-    for r in requests:
-        target = start + r.arrival * time_scale
-        delay = target - time.monotonic()
-        if delay > 0:
-            time.sleep(delay)
-        try:
-            if r.kind == "decode":
-                fut = frontend.submit_decode(
-                    r.container, deadline_ms=deadline_ms
-                )
-            elif r.kind == "encode":
-                fut = frontend.submit_encode(
-                    r.signal, r.domain_id, deadline_ms=deadline_ms
-                )
-            else:
-                fut = frontend.submit_transcode(
-                    r.container, r.dst_domain_id, deadline_ms=deadline_ms
-                )
-        except QueueFullError:
-            shed += 1
-            continue
-        except DeadlineExpiredError:
-            expired += 1
-            continue
-        fut.add_done_callback(on_done(target))
-        pending.append(fut)
+    gc.callbacks.append(on_gc)
+    try:
+        pending = []
+        for r in requests:
+            target = start + r.arrival * time_scale
+            delay = target - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            try:
+                if r.kind == "decode":
+                    fut = frontend.submit_decode(
+                        r.container, deadline_ms=deadline_ms
+                    )
+                elif r.kind == "encode":
+                    fut = frontend.submit_encode(
+                        r.signal, r.domain_id, deadline_ms=deadline_ms
+                    )
+                else:
+                    fut = frontend.submit_transcode(
+                        r.container, r.dst_domain_id, deadline_ms=deadline_ms
+                    )
+            except QueueFullError:
+                shed += 1
+                continue
+            except DeadlineExpiredError:
+                expired += 1
+                continue
+            admit_lag.append((time.monotonic() - target) * 1e3)
+            admit_at.append(target - start)
+            fut.add_done_callback(on_done(target))
+            pending.append(fut)
 
-    frontend.flush()
-    for fut in pending:
-        try:
-            fut.result()
-        except Exception:
-            pass  # counted by the done callback
-    wall = time.monotonic() - start
+        frontend.flush()
+        for fut in pending:
+            try:
+                fut.result()
+            except Exception:
+                pass  # counted by the done callback
+        wall = time.monotonic() - start
+    finally:
+        gc.callbacks.remove(on_gc)
     with lock:
         lat = list(latencies)
+        ftr = list(flush_to_result)
         nfail = failed[0]
     span = requests[-1].arrival * time_scale if requests else 0.0
     offered = len(requests) / span if span > 0 else 0.0
@@ -352,4 +421,9 @@ def replay(
         failed=nfail,
         latencies_ms=lat,
         wall_s=wall,
+        admit_lag_ms=admit_lag,
+        admit_at_s=admit_at,
+        flush_to_result_ms=ftr,
+        gc_pauses=list(gc_pauses),
+        started_at=start,
     )

@@ -1,5 +1,5 @@
 """Device-resident transcode pipeline: decode -> re-encode, no host round
-trip.  Port of ``repro/serving/transcode.py``, on one device.
+trip.  Port of ``repro/serving/transcode.py``.
 
 FPTC's asymmetric design puts batch re-compression on the server: archives
 are migrated between configs — tighter quantization for cold storage, a
@@ -36,9 +36,14 @@ chain on the device:
     Building a plan — the first use of a table pairing — uploads the
     tables with ordinary copies, as the engines' plan builders do.
 
+With several shard devices (``devices=``) every signal re-encodes on the
+device that decoded it: each encode bucket is pinned to its signals' decode
+shard (``encode_staged(shard_ids=, shard_devices=)``), each shard's decoded
+windows are flattened on their own device, and an ``EncodedBatch`` source
+stitches and decodes each shard's parts where they lie.
+
 ``core.codec.transcode`` is a container-of-one wrapper over this engine in
-exact packing mode.  The reference's multi-device sharding (``devices=``)
-is not ported: the port's engines run on one device.
+exact packing mode.
 """
 from __future__ import annotations
 
@@ -70,6 +75,7 @@ from repro_torch.serving.engine import (
     fetch_to_host,
     member_positions,
     resolve_device,
+    serving_devices,
 )
 from repro_torch.tuning.policy import PolicyArg
 
@@ -123,7 +129,9 @@ class Transcoder:
     one pre-decode sync on the true stitched word counts (EncodedBatch
     sources only).  None of these change the bytes produced.  With no
     ``device`` the transcoder runs on the card and raises if there is
-    none; ``device="cpu"`` runs the plain PyTorch versions.
+    none; ``device="cpu"`` runs the plain PyTorch versions.  ``devices``
+    shards both halves over several devices (the decoder's split; each
+    signal re-encodes on the device that decoded it).
     """
 
     def __init__(
@@ -131,6 +139,7 @@ class Transcoder:
         *,
         chunk_size: Optional[int] = DEFAULT_CHUNK_SIZE,
         device=None,
+        devices=None,
         decoder: Optional[BatchDecoder] = None,
         encoder: Optional[BatchEncoder] = None,
         plan_cache_size: int = 32,
@@ -140,20 +149,21 @@ class Transcoder:
         policy: PolicyArg = None,
     ):
         if decoder is None or encoder is None:
-            device = resolve_device(device)
+            devices = serving_devices(devices, device)
         self.decoder = decoder or BatchDecoder(
-            device=device, pipeline=pipeline, prefetch=prefetch,
+            devices=devices, pipeline=pipeline, prefetch=prefetch,
             policy=policy,
         )
         self.encoder = encoder or BatchEncoder(
-            chunk_size=chunk_size, device=device, pipeline=pipeline,
+            chunk_size=chunk_size, devices=devices, pipeline=pipeline,
             prefetch=prefetch, policy=policy,
         )
-        if self.decoder.device != self.encoder.device:
+        if self.decoder.devices != self.encoder.devices:
             raise ValueError(
-                "decoder and encoder must run on the same device — a signal "
-                "re-encodes where it was decoded (got "
-                f"{self.decoder.device} vs {self.encoder.device})"
+                "decoder and encoder must shard over the same devices — a "
+                "signal re-encodes where it was decoded (got "
+                f"{[str(d) for d in self.decoder.devices]} vs "
+                f"{[str(d) for d in self.encoder.devices]})"
             )
         if self.decoder.scheduler.policy != self.encoder.scheduler.policy:
             # the flat gather pad is sized by the encode bucket ladder
@@ -163,6 +173,7 @@ class Transcoder:
                 f"{self.encoder.scheduler.policy.name!r})"
             )
         self.device = self.decoder.device
+        self.devices = self.decoder.devices
         self.exact_capacity = exact_capacity
         self._plans = PlanCache(self._build_plan, plan_cache_size)
         self.stats = TranscoderStats()
@@ -224,21 +235,22 @@ class Transcoder:
 
     @property
     def scheduler(self) -> BucketScheduler:
-        """The scheduler both halves of the pipeline follow."""
+        """The shard scheduler both halves of the pipeline follow."""
         return self.decoder.scheduler
 
     # -- plan pairing ----------------------------------------------------------
     def _build_plan(self, tables, key, device) -> TranscodePlan:
         (src_tab, dst_tab), (src_key, dst_key) = tables, key
         return TranscodePlan(
-            decode=self.decoder._plan_for_key(src_key, src_tab),
-            encode=self.encoder.plan_for(dst_tab),
+            decode=self.decoder._plan_for_key(src_key, src_tab, device),
+            encode=self.encoder.plan_for(dst_tab, device),
             src_key=src_key,
             dst_key=dst_key,
         )
 
     def plan_for(
-        self, src_tables: DomainTables, dst_tables: DomainTables
+        self, src_tables: DomainTables, dst_tables: DomainTables,
+        device=None,
     ) -> TranscodePlan:
         src_cfg, dst_cfg = src_tables.config, dst_tables.config
         src_key = (src_tables.domain_id, src_cfg.n, src_cfg.e,
@@ -246,18 +258,20 @@ class Transcoder:
         dst_key = (dst_tables.domain_id, dst_cfg.n, dst_cfg.e,
                    dst_cfg.l_max, dst_cfg.coding)
         return self._plans.get(
-            (src_tables, dst_tables), (src_key, dst_key), self.device
+            (src_tables, dst_tables), (src_key, dst_key),
+            self.device if device is None else device,
         )
 
     # -- source normalization ------------------------------------------------
     def _streams_from_encoded(
         self, batch: EncodedBatch, src_tables: TablesArg
     ) -> Tuple[List[StreamGroup], List[int], List[Tuple[int, tuple]],
-               List[tuple]]:
+               List[tuple], List[int]]:
         """Stitch an EncodedBatch's chunk parts into decoder streams on the
-        device.  Returns (groups, per-signal member position, per-signal
-        (length, src plan key) in source order, pending gap flags).  Does
-        not consume the batch — transcode() marks it consumed only once the
+        device, each shard's parts on their own device.  Returns (groups,
+        per-signal member position, per-signal (length, src plan key) in
+        source order, pending gap flags, per-signal shard ids).  Does not
+        consume the batch — transcode() marks it consumed only once the
         whole pipeline is committed, so a failed transcode (bad routing,
         missing tables) leaves the source drainable."""
         parts = batch.device_parts()
@@ -284,10 +298,11 @@ class Transcoder:
         for rows in per_bucket:
             rows.sort(key=lambda s: s.row)
 
-        # merge the source buckets of one plan key into one decode group,
-        # as the container path groups them
+        # merge the source buckets of one (plan key, shard) into one decode
+        # group, as the container path groups them, each shard's stream
+        # staying on its device
         key_order, by_key = BucketScheduler.group_by(
-            [tuple(p.plan_key) for p in parts]
+            [(tuple(p.plan_key), p.shard) for p in parts]
         )
         # exact_capacity: ONE batched pre-decode sync on the true per-chunk
         # word counts, so the stitched streams are sized by what was packed
@@ -300,7 +315,7 @@ class Transcoder:
         groups: List[StreamGroup] = []
         member_pos_by_sig: Dict[Tuple[int, int], int] = {}
         pos = 0
-        for key in key_order:
+        for key, shard in key_order:
             l_max = key[3]
             tab = self.decoder._tables_for(key, src_tables)
             lengths = np.asarray(tab.book.lengths)
@@ -310,8 +325,10 @@ class Transcoder:
                          symlen.WORD_BITS)
             words, sls = [], []
             members: List[Tuple[int, int]] = []
-            for b in by_key[key]:
+            device = None
+            for b in by_key[(key, shard)]:
                 p = parts[b]
+                device = p.device
                 if wpc_host is not None:
                     cap = int(np.sum(wpc_host[b]))
                 else:
@@ -343,6 +360,8 @@ class Transcoder:
                 symlen=sls[0] if len(sls) == 1 else torch.cat(sls),
                 max_symlen=max_sl,
                 members=members,
+                device=device,
+                shard=shard,
             ))
 
         member_pos = [member_pos_by_sig[(s.bucket, s.row)] for s in slices]
@@ -356,7 +375,8 @@ class Transcoder:
         flags = list(batch._pending_flags) + [
             (p.plan_key, p.unencodable) for p in parts
         ]
-        return groups, member_pos, meta, flags
+        shard_ids = [parts[s.bucket].shard for s in slices]
+        return groups, member_pos, meta, flags, shard_ids
 
     # -- the transcode -----------------------------------------------------------
     def transcode(
@@ -388,9 +408,18 @@ class Transcoder:
         total = 0
         if isinstance(source, EncodedBatch):
             src_batch = source
-            groups, member_pos, meta, flags = self._streams_from_encoded(
-                source, src_tables
+            groups, member_pos, meta, flags, shard_ids = (
+                self._streams_from_encoded(source, src_tables)
             )
+            # placement follows the data: the source's shard ids may come
+            # from another scheduler (a sharded encoder feeding a
+            # one-device transcoder), so its parts' devices decide where
+            # each shard runs
+            shard_devices = {
+                g.shard: self.device if g.device is None else g.device
+                for g in groups
+            }
+            group_shards = [g.shard for g in groups]
         else:
             containers = list(source)
             total = len(containers)
@@ -427,11 +456,19 @@ class Transcoder:
                     _stage_container_group,
                     [containers[i] for i in b.items], b.key,
                     self.scheduler.round, self.decoder.executor.host_buffer,
+                    b.device, b.shard,
                 )
                 for b in buckets
             ]
             meta = [(c.signal_length, c.plan_key) for c in containers]
             flags = []
+            shard_ids = [0] * len(containers)
+            shard_devices = {}
+            for b in buckets:
+                shard_devices[b.shard] = b.device
+                for i in b.items:
+                    shard_ids[i] = b.shard
+            group_shards = [b.shard for b in buckets]
         self.stats.batches += 1
         self.stats.signals += len(meta)
 
@@ -449,10 +486,12 @@ class Transcoder:
             if isinstance(dst_tables, DomainTables) else list(dst_domain_ids)
         )
         max_width = 1
-        for (length, src_key), dst_dom in zip(meta, dst_doms):
+        for (length, src_key), dst_dom, shard in zip(
+            meta, dst_doms, shard_ids
+        ):
             src_tab = self.decoder._tables_for(src_key, src_tables)
             dst_tab = self.encoder._tables_for(dst_dom, dst_tables)
-            self.plan_for(src_tab, dst_tab)
+            self.plan_for(src_tab, dst_tab, shard_devices[shard])
             n_dst = dst_tab.config.n
             # the ENCODER's bucket rounding, exactly: a bucket's rows are
             # wp * n samples wide
@@ -467,49 +506,59 @@ class Transcoder:
 
         decoded = self.decoder.decode_streams(groups, src_tables)
 
-        # flatten the decoded window tensors once, zero-padded by the widest
-        # bucket and then up to a bucket edge (the reference's layout); each
-        # signal's samples are one contiguous run of it
+        # flatten each shard's decoded window tensors once, on its device,
+        # zero-padded by the widest bucket and then up to a bucket edge
+        # (the reference's layout); each signal's samples are one
+        # contiguous run of its shard's flat tensor
         tensors = decoded.device_windows
         starts = np.zeros((len(meta),), dtype=np.int64)
-        flat: List[Optional[torch.Tensor]] = [None]
+        flats: Dict[int, Optional[torch.Tensor]] = {}
+        remaining: Dict[int, int] = {}
         if tensors:
-            bases, off = [], 0
-            for t in tensors:
-                bases.append(off)
-                off += t.numel()
-            if off + max_width > _I32_MAX:
-                # gather starts ride int32: a flat tensor past 2^31 samples
-                # would wrap offsets negative and re-encode the wrong
-                # samples silently — refuse
-                raise ValueError(
-                    f"the decoded windows span {off + max_width} samples, "
-                    "past the int32 gather range — transcode the archive in "
-                    "smaller batches"
+            bases = [0] * len(tensors)
+            for shard in sorted(set(group_shards)):
+                gidx = [g for g, sh in enumerate(group_shards) if sh == shard]
+                off = 0
+                for g in gidx:
+                    bases[g] = off
+                    off += tensors[g].numel()
+                if off + max_width > _I32_MAX:
+                    # gather starts ride int32: a flat tensor past 2^31
+                    # samples would wrap offsets negative and re-encode the
+                    # wrong samples silently — refuse
+                    raise ValueError(
+                        f"shard {shard}'s decoded windows span "
+                        f"{off + max_width} samples, past the int32 gather "
+                        "range — transcode the archive in smaller batches"
+                    )
+                pad = torch.zeros(
+                    self.scheduler.round(off + max_width) - off,
+                    dtype=torch.float32, device=tensors[gidx[0]].device,
                 )
-            pad = torch.zeros(self.scheduler.round(off + max_width) - off,
-                              dtype=torch.float32, device=self.device)
-            flat[0] = torch.cat([t.reshape(-1) for t in tensors] + [pad])
+                flats[shard] = torch.cat(
+                    [tensors[g].reshape(-1) for g in gidx] + [pad])
+                remaining[shard] = 0
             widths = [t.shape[1] for t in tensors]
             for i in range(len(meta)):
                 s = decoded._slices[member_pos[i]]
                 starts[i] = bases[s.group] + s.win_off * widths[s.group]
-        # the windows live on in the flat copy only
+                remaining[shard_ids[i]] += 1
+        # the windows live on in the flat copies only
         del decoded, tensors
-        remaining = [len(meta)]
 
         def stage(idxs, kp: int, wp: int, n: int, device) -> GatherStage:
+            shard = shard_ids[idxs[0]]  # a bucket's rows share one shard
             st = np.zeros((kp,), dtype=np.int32)
             ln = np.zeros((kp,), dtype=np.int32)
             for row, i in enumerate(idxs):
                 st[row] = starts[i]
                 ln[row] = lengths[i]
-            remaining[0] -= len(idxs)
-            last = remaining[0] == 0
-            out = GatherStage(flat=flat[0], starts=st, lens=ln,
+            remaining[shard] -= len(idxs)
+            last = remaining[shard] == 0
+            out = GatherStage(flat=flats[shard], starts=st, lens=ln,
                               last_use=last)
             if last:  # the last bucket reading the flat tensor owns it now
-                flat[0] = None
+                flats[shard] = None
             return out
 
         out = self.encoder.encode_staged(
@@ -517,6 +566,8 @@ class Transcoder:
             domain_ids=dst_domain_ids,
             stage=stage,
             pending_flags=flags,
+            shard_ids=shard_ids,
+            shard_devices=shard_devices,
             quarantine=quarantine,
         )
         if quarantine and src_batch is None and total:

@@ -3,24 +3,41 @@
 
 Per octave ``[2**k, 2**(k+1))`` a ladder carries ``multipliers`` edges:
 
-  * ``p2``          — multipliers ``(1,)``: power-of-two rounding, the
-    default;
-  * ``half-octave`` — ``(1, 1.5)``: less padding, twice the bucket shapes.
+  * ``p2``            — multipliers ``(1,)``: power-of-two rounding;
+  * ``half-octave``   — ``(1, 1.5)``: less padding, twice the bucket shapes;
+  * ``cost-balanced`` — a geometric ladder whose density the
+    :class:`~repro_torch.tuning.cost_model.CostModel` picks: where one more
+    edge per octave stops saving more padded work than a new bucket shape's
+    first call costs.  The named ladder (:data:`COST_BALANCED`) is the
+    ``cpu`` profile's on every device, 4 edges an octave as in the
+    reference: the density that trade gives on the card rests on
+    reference traffic that no run of the port's serving stream has
+    measured yet, so the card takes the reference's ladder until one
+    does.
 
-The reference's third ladder, ``cost-balanced``, derives its density from
-the roofline cost model, which waits for the tuning slice of the port; its
-name is refused here rather than quietly mapped to another ladder.
+Every policy keeps the count of bucket shapes bounded: at most
+``len(multipliers)`` edges per octave.  Policies change *padding only* —
+decoded samples never depend on the bucket edge.
 
-Policies change *padding only* — decoded samples never depend on the
-bucket edge.  ``policy=None`` means ``p2``.
+Engines resolve ``policy=None`` through :meth:`BucketPolicy.of`, which
+reads ``FPTC_BUCKET_POLICY`` (default ``p2``), as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import List, Tuple, Union
 
-__all__ = ["BucketPolicy", "P2", "HALF_OCTAVE", "POLICY_NAMES", "PolicyArg"]
+__all__ = [
+    "BucketPolicy",
+    "P2",
+    "HALF_OCTAVE",
+    "COST_BALANCED",
+    "cost_balanced_policy",
+    "POLICY_NAMES",
+    "PolicyArg",
+]
 
 PolicyArg = Union[None, str, "BucketPolicy"]
 
@@ -85,16 +102,41 @@ class BucketPolicy:
     @staticmethod
     def of(policy: PolicyArg) -> "BucketPolicy":
         """Resolve an engine's ``policy`` argument: a :class:`BucketPolicy`
-        passes through, a name looks up the registry, ``None`` is ``p2``."""
+        passes through, a name looks up the registry, ``None`` reads
+        ``FPTC_BUCKET_POLICY`` (default ``p2``)."""
         if isinstance(policy, BucketPolicy):
             return policy
-        return _named("p2" if policy is None else policy)
+        if policy is None:
+            policy = os.environ.get("FPTC_BUCKET_POLICY", "").strip() or "p2"
+        return _named(policy)
 
 
 P2 = BucketPolicy("p2", (1.0,))
 HALF_OCTAVE = BucketPolicy("half-octave", (1.0, 1.5))
 
-POLICY_NAMES = ("p2", "half-octave")
+
+def cost_balanced_policy(cost_model=None) -> BucketPolicy:
+    """Build the ``cost-balanced`` ladder from a cost model: a geometric
+    ladder of ``d = cost_model.edges_per_octave()`` edges per octave
+    (``2**(j/d)`` multipliers).  ``None`` takes the ``cpu`` profile's
+    default model, on every device (the module's docstring says why)."""
+    if cost_model is None:
+        from repro_torch.tuning.cost_model import default_cost_model
+
+        cost_model = default_cost_model("cpu")
+    d = max(int(cost_model.edges_per_octave()), 1)
+    return BucketPolicy(
+        "cost-balanced",
+        tuple(2.0 ** (j / d) for j in range(d)),
+    )
+
+
+# the named cost-balanced ladder, the reference's on every device; engines
+# wanting a freshly seeded or calibrated model's call
+# cost_balanced_policy(model)
+COST_BALANCED = cost_balanced_policy()
+
+POLICY_NAMES = ("p2", "half-octave", "cost-balanced")
 
 
 def _named(name: str) -> BucketPolicy:
@@ -104,11 +146,9 @@ def _named(name: str) -> BucketPolicy:
     if key in ("half-octave", "halfoctave"):
         return HALF_OCTAVE
     if key in ("cost-balanced", "costbalanced"):
-        raise ValueError(
-            "the cost-balanced bucket policy needs the tuning cost model, "
-            "which this package does not have yet — use 'p2' or "
-            "'half-octave'"
-        )
+        # the import-time ladder, not a fresh build: re-deriving it from a
+        # since-calibrated model would shift bucket edges under live engines
+        return COST_BALANCED
     raise ValueError(
         f"unknown bucket policy {name!r} — expected one of {POLICY_NAMES} "
         "or a BucketPolicy instance"

@@ -265,11 +265,9 @@ def test_bucket_helpers_and_policies_match_reference():
     for x in list(range(1, 600)) + [4095, 4096, 4097, 1 << 20]:
         assert engine.p2(x) == ref_engine.p2(x)
         assert engine.symlen_bucket(x) == ref_engine.symlen_bucket(x)
-        for name in ("p2", "half-octave"):
+        for name in ("p2", "half-octave", "cost-balanced"):
             assert (policy.BucketPolicy.of(name).round(x)
                     == ref_policy.BucketPolicy.of(name).round(x))
-    with pytest.raises(ValueError, match="cost model"):
-        policy.BucketPolicy.of("cost-balanced")
     with pytest.raises(ValueError, match="unknown"):
         policy.BucketPolicy.of("p3")
 

@@ -1145,7 +1145,9 @@ def test_kv_codec_matches_plain(cuda):
 
 def _recording(monkeypatch, calls):
     """Record every call of the train-state path's four kernel wrappers
-    (inputs cloned before, output after), as chip_smoke's phases do."""
+    (inputs cloned before, output after), as chip_smoke's phases do; the
+    launch shape (``rw``) is the kernel's alone, so the record keeps the
+    plain version's arguments."""
     def snap(x):
         if isinstance(x, torch.Tensor):
             return x.clone()
@@ -1156,7 +1158,8 @@ def _recording(monkeypatch, calls):
         fn = getattr(mod, attr)
 
         def rec(*args, _fn=fn, _name=attr, **kw):
-            ins = (snap(args), {k: snap(v) for k, v in kw.items()})
+            ins = (snap(args),
+                   {k: snap(v) for k, v in kw.items() if k != "rw"})
             out = _fn(*args, **kw)
             calls.setdefault(_name, []).append((*ins, snap(out)))
             return out
@@ -1233,3 +1236,281 @@ def test_train_state_checkpoint_on_card(cuda, tmp_path, monkeypatch):
         assert rel < 0.02, (key, rel)
         assert_close(b, c)
     assert int(got["step"]) == 3 and got["step"].is_cuda
+
+
+# ---------------------------------------------------------------------------
+# Tuning (M9) and shards (M3b) on the card.
+# ---------------------------------------------------------------------------
+def _tuning_archive(seed=500):
+    """A v2 and a v3 archive slice of two domains: (containers, signals,
+    domain ids, tables)."""
+    specs = [("biomedical", "mitbih"), ("power", "load_power")]
+    tables, cs, sigs, doms = {}, [], [], []
+    for j, coding in enumerate((CODINGS[0], CODINGS[4])):
+        for d, (dom, ds) in enumerate(specs):
+            did = 2 * j + d
+            tables[did] = _tables(dom, ds, coding, domain_id=did)
+            for i, n in enumerate((9000, 4100, 777)):
+                sig = make_signal(ds, n, seed=seed + 4 * did + i)
+                sigs.append(sig)
+                doms.append(did)
+                cs.append(Container.from_bytes(
+                    codec.encode(sig, tables[did]).to_bytes()))
+    return cs, sigs, doms, tables
+
+
+def test_tile_rules_match_the_launchers(cuda):
+    """``kernels/tiles.py``'s copy of the launchers' tile rules (what the
+    cost model charges and the CPU's tests use) equals the built
+    library's at every (E, N) from 1 to 128 and every register tile, the
+    refused ones included, and the v3 stage's at every E and tile."""
+    from repro_torch.kernels import tiles
+
+    optin = torch.cuda.get_device_properties(
+        cuda).shared_memory_per_block_optin
+    for e in range(1, 129):
+        for n in range(1, 129):
+            for rw in (0, 2, 4, 8):
+                assert tiles.launcher_idct_tile(e, n, rw, optin) == (
+                    tiles.idct_tile_shape(e, n, rw, optin)), (e, n, rw)
+            for rw in (0, 1, 2, 3, 4, 8):
+                assert tiles.launcher_dct_tile(n, e, rw) == (
+                    tiles.dct_tile_shape(n, e, rw)), (n, e, rw)
+        for t in (*range(-256, 4097, 128), 300):
+            assert tiles.launcher_v3_tile_ok(t, e) == tiles.v3_tile_ok(t, e)
+    # the pick at the H100's opt-in maximum, which the cost model charges
+    assert tiles.launcher_idct_tile(16, 32) == tiles.idct_tile_shape(16, 32)
+
+
+def test_forced_launch_shapes_match_the_pick(cuda):
+    """Every launch shape a launcher accepts gives the outputs of its own
+    pick (0), bit for bit: ``lut_idct`` at rw 4 and 8, ``encode_levels``
+    and its gather arm at every legal rw, the v3 stage at every offered
+    tile, and the whole bucket decode and encode with the shapes pinned."""
+    from repro_torch.kernels import tiles
+    from repro_torch.tuning import autotune
+
+    for e, n in ((6, 32), (32, 32), (64, 64), (128, 128)):
+        c = idct_case(e, n, 3 * tiles.idct_tile_shape(e, n).bw + 5, seed=1)
+        lv = torch.from_numpy(c["levels"]).to(cuda)
+        lut = torch.from_numpy(c["lut"]).to(cuda)
+        basis = torch.from_numpy(c["basis"]).to(cuda)
+        want = df.lut_idct(lv, lut, basis)
+        for rw in tiles.idct_rws(e, n):
+            assert torch.equal(df.lut_idct(lv, lut, basis, rw=rw), want)
+    _, _, _, tables = _tuning_archive()
+    for did, tab in tables.items():
+        cfg = tab.config
+        dec_in = autotune.decode_bucket_inputs(
+            tab, num_words=2048, num_windows=1024, device=cuda)
+        want = df.decode_fused(*dec_in["args"], **dec_in["kw"], idct_rw=0,
+                               v3_tile_windows=0)
+        for blocks in autotune.decode_block_candidates(cfg.n, cfg.e,
+                                                       cfg.coding):
+            got = df.decode_fused(
+                *dec_in["args"], **dec_in["kw"], idct_rw=blocks["idct_rw"],
+                v3_tile_windows=blocks.get("v3_tile_windows", 0))
+            assert torch.equal(got, want), (did, blocks)
+        enc_in = autotune.encode_bucket_inputs(
+            tab, rows=16, num_windows=300, chunk_size=1024, device=cuda)
+        x, counts, dt, basis = enc_in["args"]
+        kw = dict(n=cfg.n, e=cfg.e, coding=cfg.coding)
+        want = ef.encode_levels(x, counts, dt.quant, basis, **kw)
+        width = x.shape[1]
+        flat = torch.cat([x.reshape(-1), torch.zeros(width, device=cuda)])
+        st = torch.arange(16, dtype=torch.int32, device=cuda) * width
+        ln = torch.full((16,), width - 7, dtype=torch.int32, device=cuda)
+        gwant = ef.encode_levels_gather(flat, st, ln, counts, dt.quant,
+                                        basis, width=width, **kw)
+        whole = ef.encode_fused(*enc_in["args"], **enc_in["kw"],
+                                levels_rw=0)
+        for b in autotune.encode_block_candidates(cfg.n, cfg.e):
+            rw = b["levels_rw"]
+            got = ef.encode_levels(x, counts, dt.quant, basis, rw=rw, **kw)
+            assert all((g is None and w is None) or torch.equal(g, w)
+                       for g, w in zip(got, want)), (did, rw)
+            got = ef.encode_levels_gather(flat, st, ln, counts, dt.quant,
+                                          basis, width=width, rw=rw, **kw)
+            assert all((g is None and w is None) or torch.equal(g, w)
+                       for g, w in zip(got, gwant)), (did, rw)
+            got = ef.encode_fused(*enc_in["args"], **enc_in["kw"],
+                                  levels_rw=rw)
+            assert all((g is None and w is None) or torch.equal(g, w)
+                       for g, w in zip(got, whole)), (did, rw)
+
+
+def test_illegal_launch_shapes_raise(cuda):
+    """A launch shape the launcher refuses fails the launch with an error:
+    nothing is clamped."""
+    lv = torch.zeros(300, 128, dtype=torch.uint8, device=cuda)
+    lut = torch.zeros(128, 256, device=cuda)
+    basis = torch.zeros(128, 128, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        df.lut_idct(lv, lut, basis, rw=8)  # the buffers do not fit
+    with pytest.raises(RuntimeError, match="launch failed"):
+        df.lut_idct(lv[:, :6], lut[:6], basis[:6, :32].contiguous(), rw=3)
+    tab = _tables("power", "load_power", {})
+    cfg = tab.config
+    x = torch.zeros(2, 64 * cfg.n, device=cuda)
+    counts = torch.full((2,), 64 * cfg.e, dtype=torch.int32, device=cuda)
+    q = tab.quant.to(cuda)
+    b = dct.dct_basis(cfg.n, cfg.e).to(cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ef.encode_levels(x, counts, q, b, n=cfg.n, e=cfg.e, rw=4)  # E = 6
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ef.encode_levels(x, counts, q, b, n=cfg.n, e=cfg.e, rw=3)
+    dense = torch.zeros(64 * 6, dtype=torch.uint8, device=cuda)
+    idx = torch.arange(64 * 6, dtype=torch.int32, device=cuda)
+    seg = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        df.v3_expand_unpredict_cuda(dense, idx, seg, num_windows=64, e=6,
+                                    pred_id=1, bands=2, tile_windows=300)
+
+
+def _store_non_default(cache, dec, enc, cs, sigs, doms, tables):
+    """Store, under the exact keys the engines consult, a legal launch
+    shape other than each kernel's own pick."""
+    from repro_torch.kernels import decode_fused as dfm
+    from repro_torch.kernels import encode_fused as efm
+    from repro_torch.kernels import tiles
+    from repro_torch.tuning.autotune import backend_key
+
+    backend = backend_key("cuda")
+    groups = {}
+    for c in cs:
+        groups.setdefault(c.plan_key, []).append(c)
+    for key, members in groups.items():
+        _, n, e, l_max, coding = key
+        wp = dec.scheduler.round(sum(c.num_words for c in members))
+        nw = dec.scheduler.round(sum(c.num_windows for c in members))
+        ms = symlen_bucket(max(c.max_symlen for c in members))
+        blocks = {"idct_rw": 4 if tiles.idct_tile_shape(e, n).rw == 8
+                  else 8}
+        if tuple(coding) != (0, 0, False):
+            blocks["v3_tile_windows"] = 256 if tiles.v3_tile_windows(
+                e) != 256 else 512
+        cache.store("decode", backend,
+                    dfm.tuning_plan_key(n, e, l_max, ms, coding), (wp, nw),
+                    blocks)
+    for s, d in zip(sigs, doms):
+        cfg = tables[d].config
+        wb = enc.scheduler.round(max(-(-len(s) // cfg.n), 1))
+        kp = enc.scheduler.round(sum(
+            1 for s2, d2 in zip(sigs, doms) if d2 == d and enc.scheduler.round(
+                max(-(-len(s2) // cfg.n), 1)) == wb))
+        chunk = min(1024, wb * cfg.e)
+        pick = tiles.dct_tile_shape(cfg.n, cfg.e).rw
+        rw = 1 if pick != 1 else 2
+        if rw not in tiles.levels_rws(cfg.n, cfg.e):
+            continue
+        cache.store("encode", backend,
+                    efm.tuning_plan_key(cfg.n, cfg.e, chunk, cfg.coding),
+                    (kp, wb * cfg.n), {"levels_rw": rw})
+
+
+def test_warm_cache_engines_match_cold(cuda, tmp_path):
+    """BatchDecoder, BatchEncoder and Transcoder with a tuning cache that
+    holds non-default launch shapes under the keys they consult: the cold
+    cache's bytes, the same launch counts, and the entries really hit."""
+    from repro_torch.tuning import autotune
+
+    cs, sigs, doms, tables = _tuning_archive(seed=600)
+    twin = [d + 2 if d < 2 else d - 2 for d in doms]
+    cache = autotune.TuningCache(str(tmp_path))
+    autotune.set_default_cache(cache)
+    try:
+        runs = []
+        for warm in (False, True):
+            dec, enc = BatchDecoder(), BatchEncoder()
+            tc = Transcoder(decoder=dec, encoder=enc)
+            if warm:
+                _store_non_default(cache, dec, enc, cs, sigs, doms, tables)
+                hits0 = cache.hits
+            ops.reset_launches()
+            out = dec.decode(cs, tables).to_host()
+            got = enc.encode(sigs, tables, domain_ids=doms).to_host()
+            tco = tc.transcode(cs, tables, tables,
+                               dst_domain_ids=twin).to_host()
+            runs.append((out, [c.to_bytes() for c in got],
+                         [c.to_bytes() for c in tco], dict(ops.LAUNCHES)))
+            dec.close()
+            enc.close()
+        assert cache.hits > hits0
+        (a_out, a_enc, a_tc, a_n), (b_out, b_enc, b_tc, b_n) = runs
+        for x, y in zip(a_out, b_out):
+            np.testing.assert_array_equal(x, y)
+        assert a_enc == b_enc and a_tc == b_tc and a_n == b_n
+    finally:
+        autotune.set_default_cache(None)
+
+
+def test_two_shards_on_one_card_match_one(cuda):
+    """An archive slice over ``devices=(cuda:0, cuda:0)``: decode, encode
+    and transcode bytes equal to one shard's, the batch axis split (each
+    decode group of three and each encode bucket of signals of one length
+    into two buckets)."""
+    cs, sigs, doms, tables = _tuning_archive(seed=700)
+    twin = [d + 2 if d < 2 else d - 2 for d in doms]
+    same_len = [make_signal("load_power", 4100, seed=800 + i)
+                for i in range(4)]
+    out = {}
+    for k in (1, 2):
+        devs = ("cuda:0",) * k
+        dec, enc = BatchDecoder(devices=devs), BatchEncoder(devices=devs)
+        tc = Transcoder(decoder=dec, encoder=enc)
+        dec_out = dec.decode(cs, tables).to_host()
+        dec_n = dec.stats.dispatches
+        enc_out = [c.to_bytes() for c in enc.encode(
+            sigs, tables, domain_ids=doms).to_host()]
+        d0 = enc.stats.dispatches
+        one = [c.to_bytes() for c in enc.encode(
+            same_len, tables[1]).to_host()]
+        one_n = enc.stats.dispatches - d0
+        tc_out = [c.to_bytes() for c in tc.transcode(
+            cs, tables, tables, dst_domain_ids=twin).to_host()]
+        out[k] = (dec_out, enc_out, tc_out, one, dec_n, one_n)
+        dec.close()
+        enc.close()
+    for x, y in zip(out[1][0], out[2][0]):
+        np.testing.assert_array_equal(x, y)
+    assert out[1][1:4] == out[2][1:4]
+    assert (out[1][4], out[2][4]) == (len(tables), 2 * len(tables))
+    assert (out[1][5], out[2][5]) == (1, 2)
+
+
+def test_autotune_cli_warms_a_cache_the_engines_use(cuda, tmp_path,
+                                                    monkeypatch):
+    """``python -m repro_torch.tuning.autotune --smoke`` on the card writes
+    a cache file whose entries the engines then consult: a decode of the
+    CLI's synthetic bucket through ``BatchDecoder.decode_streams`` hits its
+    entry, with the cold cache's samples."""
+    from repro_torch.serving import StreamGroup
+    from repro_torch.tuning import autotune
+
+    assert autotune._main(["--smoke", "--cache-dir", str(tmp_path),
+                           "--datasets", "load_power"]) == 0
+    cache = autotune.TuningCache(str(tmp_path))
+    assert len(cache) == 4  # two decode and two encode shapes
+    tab = calibrate(np.concatenate(
+        [make_signal("load_power", 65536, seed=90 + i) for i in range(2)]),
+        DOMAIN_DEFAULTS["power"])
+    bucket = autotune.decode_bucket_inputs(tab, num_words=4096,
+                                           num_windows=512, device=cuda)
+    words, sl = bucket["args"][:2]
+    cfg = tab.config
+    grp = StreamGroup(
+        plan_key=(tab.domain_id, cfg.n, cfg.e, cfg.l_max, cfg.coding),
+        words=words, symlen=sl, max_symlen=bucket["kw"]["max_symlen"],
+        members=[(512, 512 * cfg.n)])
+    cold = BatchDecoder().decode_streams([grp], tab).to_host()
+    monkeypatch.setenv("FPTC_TUNING_CACHE", str(tmp_path))
+    autotune.set_default_cache(None)
+    try:
+        live = autotune.default_cache()
+        assert live.directory == str(tmp_path)
+        warm = BatchDecoder().decode_streams([grp], tab).to_host()
+        assert live.hits == 1
+    finally:
+        monkeypatch.delenv("FPTC_TUNING_CACHE")
+        autotune.set_default_cache(None)
+    np.testing.assert_array_equal(warm[0], cold[0])

@@ -146,3 +146,46 @@ def test_replay_accounts_for_every_request(tables):
     assert late.submitted == late.completed == 0
     assert np.isnan(late.p99_ms)
     assert ReplayReport(0.0, 0.0, 0, 0, 0, 0, 0, [], 0.0).achieved_rps == 0.0
+
+
+def test_replay_times_admission_flush_and_collections(tables):
+    """The replay's timings: one admission lag per admitted request, one
+    flush-to-result time per completed one, and the process's garbage
+    collections during the replay (a full collection forced inside each
+    dispatch is seen as one), its callback gone afterwards; and
+    ``settle_heap`` freezes the live heap until ``gc.unfreeze``."""
+    import gc
+
+    from repro_torch.serving import settle_heap
+
+    _, tab = tables
+    cfg = TrafficConfig(rate=300.0, duration_s=0.2, fixed_windows=4,
+                        domains=(0, 1), seed=9,
+                        mix={"decode": 0.5, "encode": 0.5})
+    reqs = generate(cfg, tab, device=CPU)
+
+    class Collect:
+        def on_dispatch(self, key, members):
+            gc.collect()
+
+    callbacks = list(gc.callbacks)
+    with ServingFrontend(tab, device=CPU, fault_injector=Collect(),
+                         config=FrontendConfig(
+                             default_slo_ms=10_000.0)) as fe:
+        rep = replay(fe, reqs)
+    assert gc.callbacks == callbacks
+    assert rep.completed == rep.submitted == len(reqs)
+    assert len(rep.admit_lag_ms) == len(rep.admit_at_s) == rep.submitted
+    assert len(rep.flush_to_result_ms) == rep.completed
+    assert min(rep.flush_to_result_ms) >= 0.0
+    assert all(0.0 <= t <= rep.wall_s for t in rep.admit_at_s)
+    t = rep.timings()
+    assert t["admit_lag_p50_ms"] <= t["admit_lag_p99_ms"]
+    assert t["flush_to_result_p50_ms"] <= t["flush_to_result_p99_ms"]
+    assert t["gc_full_collections"] >= 1 and t["gc_max_ms"] > 0.0
+    assert t["late_admits_in_gc"] <= t["late_admits"]
+    try:
+        assert settle_heap() == gc.get_freeze_count() > 0
+    finally:
+        gc.unfreeze()
+    assert gc.get_freeze_count() == 0
