@@ -1,0 +1,136 @@
+"""LM serving driver: batched prefill + greedy decode loop on one device.
+Port of ``repro/launch/serve_lm.py``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen1.5-4b \
+      --smoke --batch 4 --prompt-len 64 --gen 32 [--device cpu] \
+      [--kv-compress]
+
+The reference's flags, plus ``--device`` (default: the card; ``cpu`` runs
+the same arithmetic on the host), ``--seed`` (weights and prompts) and
+``--kv-compress``: after prefill, every layer's prefilled ``[:, :S]`` k and
+v block is compressed (K5) and decompressed (K3) in place through
+``KVCacheCodec``, each on a table calibrated on that block, and the
+cache's bytes before and after are printed; ``S`` must be a multiple of
+the ``kv`` domain's window.  Decode starts at position ``S`` (a VLM's
+patch prefix included) and the cache holds ``S + gen`` slots.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch, get_smoke
+from repro_torch.distributed.train import make_serve_fns
+from repro_torch.models import build_model
+from repro_torch.serving.engine import resolve_device
+from repro_torch.serving.workloads import KVCacheCodec
+
+__all__ = ["main", "compress_cache"]
+
+MULTI_DEVICE = ("ROADMAP queue 1, item 6 (M10: the multi-device layer — LM "
+                "sharding)")
+
+
+def compress_cache(codec: KVCacheCodec, cache, s: int) -> Tuple[int, int]:
+    """Compress and decompress every layer's prefilled ``[:, :s]`` k and v
+    block of ``cache`` in place through ``codec``, each on a table
+    calibrated on that block (one per (group, k/v, layer): a table shared
+    across a group's layers clips the deeper layers' token-axis DC, whose
+    range layer 0 does not reach).  Returns the blocks' raw bytes and
+    their compressed bytes."""
+    n = codec.config.n
+    if s % n:
+        raise ValueError(f"{s} prefilled slots: the kv domain compresses "
+                         f"windows of {n} tokens, so S must be a multiple "
+                         f"of {n}")
+    raw = comp = 0
+    for g, grp in cache.items():
+        for key in ("k", "v"):
+            for layer, kv in enumerate(grp[key]):  # [B, T, KV, hd] views
+                block = kv[:, :s]
+                codec.calibrate(block, layer=(g, key, layer))
+                ckv = codec.compress(block, layer=(g, key, layer))
+                block.copy_(codec.decompress(ckv, layer=(g, key, layer)))
+                raw += ckv.raw_nbytes()
+                comp += ckv.nbytes
+    return raw, comp
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--model-par", type=int, default=1)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-compress", action="store_true")
+    args = ap.parse_args(argv)
+    if args.data != 1 or args.model_par != 1:
+        raise NotImplementedError(
+            f"--data {args.data} --model-par {args.model_par}: the port "
+            f"serves on one device; see {MULTI_DEVICE}")
+
+    cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = build_model(cfg, device=dev, generator=gen)
+    prefill_fn, decode_fn = make_serve_fns(model, dev)
+
+    rng = np.random.default_rng(args.seed)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)))}
+    s = args.prompt_len
+    if cfg.family == "vlm" and cfg.vision_prefix:
+        batch["patch_embeds"] = torch.zeros(
+            (args.batch, cfg.vision_prefix, cfg.d_model), dtype=torch.bfloat16)
+        s += cfg.vision_prefix
+    max_len = s + args.gen
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill_fn(batch, max_len)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    if args.kv_compress:
+        with torch.inference_mode():
+            raw, comp = compress_cache(KVCacheCodec(device=dev), cache, s)
+        print(f"kv cache: {raw} B -> {comp} B (ratio {comp / raw:.3f})")
+
+    tok = logits.argmax(-1, keepdim=True)
+    outs = [tok]
+    t0 = time.perf_counter()
+    for i in range(args.gen - 1):
+        logits, cache = decode_fn(cache, tok, s + i)
+        tok = logits.argmax(-1, keepdim=True)
+        outs.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+
+    generated = torch.cat(outs, dim=1).cpu().numpy()
+    print(f"prefill: {t_prefill*1e3:.1f} ms "
+          f"({args.batch * args.prompt_len / t_prefill:.0f} tok/s)")
+    print(f"decode:  {t_decode*1e3:.1f} ms "
+          f"({args.batch * (args.gen - 1) / max(t_decode, 1e-9):.0f} tok/s)")
+    print("sample generations (first 12 token ids):")
+    for row in generated[:4]:
+        print("  ", row[:12].tolist())
+    return generated
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,265 @@
+"""Model API: one interface over the dense and VLM architectures.
+Port of ``repro/models/api.py``.
+
+``build_model(cfg)`` returns a :class:`Model`, an ``nn.Module`` holding its
+weights, with:
+  * ``param_specs()``      — the reference's ParamSpec tree (layers stacked)
+  * ``loss(batch)``        — next-token CE loss
+  * ``prefill(batch, max_len)`` — full-sequence forward + KV cache
+  * ``decode_step(cache, tokens, pos)`` — one-token serve step
+  * ``cache_specs(batch, max_len)`` — ParamSpec tree for the decode cache
+  * ``batch_specs(batch, seq)`` — ParamSpec tree for input batches
+
+Batches are dicts: tokens/labels int[B, S]; VLM adds patch_embeds
+[B, P, d].  The decode cache is ``{"group<i>": {"k", "v"}}`` of
+``[L, B, T, KV, hd]`` bf16 tensors, laid out as the reference lays it out;
+``decode_step`` writes slot ``pos`` in place and returns the cache.  The
+families outside the slice (MoE, MLA, SSM, hybrid, audio) raise
+``NotImplementedError``; the train step and its backward are not here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import (
+    ParamSpec,
+    Params,
+    rms_norm,
+    rope,
+    rounded,
+)
+from repro_torch.models.config import ArchConfig
+
+PyTree = Any
+
+__all__ = ["Model", "build_model", "stack_specs", "spec_leaves"]
+
+
+def stack_specs(count: int, tree: PyTree) -> PyTree:
+    if isinstance(tree, ParamSpec):
+        return ParamSpec((count,) + tree.shape, ("layers",) + tree.names,
+                         dtype=tree.dtype, init=tree.init, scale=tree.scale)
+    return {k: stack_specs(count, s) for k, s in tree.items()}
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE in fp32; logits [B, S, V], labels int [B, S]."""
+    logits = logits.float()
+    m = logits.amax(-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(-1))
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def spec_leaves(specs: PyTree, prefix=()):
+    """(path, spec) of every leaf, in the tree's key order."""
+    for k, s in specs.items():
+        if isinstance(s, ParamSpec):
+            yield prefix + (k,), s
+        else:
+            yield from spec_leaves(s, prefix + (k,))
+
+
+def _resolve(device):
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    from repro_torch.serving.engine import resolve_device
+
+    return resolve_device(device)
+
+
+class Model(Params):
+    """One architecture's weights and its serving functions.
+
+    ``device=None`` is the card (and raises without one); ``"cpu"`` runs
+    the same arithmetic on the host; ``"meta"`` allocates nothing (the
+    reference's ``abstract_params``).  Weights are drawn from
+    ``generator`` (a ``torch.Generator`` on ``device``; seed 0 when None)
+    one layer at a time, so no stacked fp32 transient exists
+    (:meth:`init_weights`)."""
+
+    def __init__(self, cfg: ArchConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        tfm.require_slice(cfg)
+        dev = _resolve(device)
+        specs = self.param_specs_of(cfg)
+        top = {k: s for k, s in specs.items() if not k.startswith("group")}
+        super().__init__(top, dev)
+        self.cfg = cfg
+        for gi, g in enumerate(tfm.layer_groups(cfg)):
+            self.add_module(f"group{gi}", nn.ModuleList(
+                tfm.DecoderLayer(cfg, g.kind, w, dev) for w in g.windows))
+        if dev.type != "meta":
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            self.init_weights(generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # ----------------------------------------------------------------- specs
+    @staticmethod
+    def param_specs_of(cfg: ArchConfig) -> PyTree:
+        tfm.require_slice(cfg)
+        d, v = cfg.d_model, cfg.vocab_size
+        specs: Dict[str, Any] = {
+            "embed": ParamSpec(
+                (v, d), ("vocab", "embed_fsdp"), dtype=torch.bfloat16,
+                init="embed", scale=0.02,
+            ),
+            "final_norm": ParamSpec((d,), (None,), dtype=torch.bfloat16,
+                                    init="ones"),
+        }
+        if not cfg.tie_embeddings:
+            specs["unembed"] = ParamSpec(
+                (d, v), ("hidden", "vocab"), dtype=torch.bfloat16,
+                scale=1.0 / math.sqrt(d),
+            )
+        for gi, g in enumerate(tfm.layer_groups(cfg)):
+            specs[f"group{gi}"] = stack_specs(
+                g.count, tfm.layer_specs(cfg, g.kind)
+            )
+        return specs
+
+    def param_specs(self) -> PyTree:
+        return self.param_specs_of(self.cfg)
+
+    def batch_specs(self, batch: int, seq: int) -> Dict[str, ParamSpec]:
+        cfg = self.cfg
+        b: Dict[str, ParamSpec] = {
+            "tokens": ParamSpec((batch, seq), ("batch", None),
+                                dtype=torch.int32),
+            "labels": ParamSpec((batch, seq), ("batch", None),
+                                dtype=torch.int32),
+        }
+        if cfg.family == "vlm" and cfg.vision_prefix:
+            b["patch_embeds"] = ParamSpec(
+                (batch, cfg.vision_prefix, cfg.d_model),
+                ("batch", None, None), dtype=torch.bfloat16,
+            )
+        return b
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Draw every leaf on the model's device, each decoder layer's
+        from that layer's own specs (``layer_specs``), so a normal
+        matrix's fan-in is its leading axis.  The reference draws a
+        stacked ``[L, ...]`` leaf whole, which makes its fan-in the layer
+        count L (ROADMAP queue 3, R7)."""
+        dev = self.device
+        for name, spec in self.param_specs().items():
+            if isinstance(spec, ParamSpec):
+                self[name].copy_(spec.initializer(generator, dev))
+        for _, _, layer in self.layers():
+            for path, s in spec_leaves(tfm.layer_specs(self.cfg, layer.kind)):
+                p = layer
+                for k in path:
+                    p = p[k]
+                p.copy_(s.initializer(generator, dev))
+
+    def layers(self):
+        """(group name, layer index, layer) of every decoder layer."""
+        for gi in range(len(tfm.layer_groups(self.cfg))):
+            for li, layer in enumerate(self[f"group{gi}"]):
+                yield f"group{gi}", li, layer
+
+    # ----------------------------------------------------------- embeddings
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed[tokens.to(self.device).long()]
+        if self.cfg.embed_scale:
+            x = x * rounded(math.sqrt(self.cfg.d_model), x.dtype)
+        return x
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = rms_norm(x, self.final_norm)
+        w = self.embed.T if cfg.tie_embeddings else self.unembed
+        logits = x @ w
+        if cfg.logit_softcap:
+            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        return logits
+
+    def _inputs(self, batch) -> torch.Tensor:
+        """The embedded tokens, behind the VLM's patch prefix."""
+        x = self._embed(batch["tokens"])
+        if self.cfg.family == "vlm" and self.cfg.vision_prefix:
+            patches = batch["patch_embeds"].to(self.device, x.dtype)
+            x = torch.cat([patches, x], dim=1)
+        return x
+
+    def _rope(self, positions: torch.Tensor):
+        return rope(positions, self.cfg.head_dim, self.cfg.rope_theta)
+
+    # ----------------------------------------------------------------- loss
+    def loss(self, batch) -> torch.Tensor:
+        x = self._inputs(batch)
+        sin, cos = self._rope(torch.arange(x.shape[1], device=self.device))
+        for _, _, layer in self.layers():
+            x, _ = layer(x, sin, cos)
+        if self.cfg.family == "vlm" and self.cfg.vision_prefix:
+            x = x[:, self.cfg.vision_prefix:]
+        return _cross_entropy(self._logits(x),
+                              batch["labels"].to(self.device))
+
+    # -------------------------------------------------------------- serving
+    def cache_specs(self, batch: int, max_len: int) -> PyTree:
+        cfg = self.cfg
+        caches = {}
+        for gi, g in enumerate(tfm.layer_groups(cfg)):
+            shape = (g.count, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+            names = ("layers", "batch", "seq", "kv_heads", None)
+            caches[f"group{gi}"] = {
+                kv: ParamSpec(shape, names, dtype=torch.bfloat16,
+                              init="zeros") for kv in ("k", "v")}
+        return caches
+
+    def init_cache(self, batch: int, max_len: int) -> PyTree:
+        """A zero decode cache on the model's device."""
+        return {g: {k: s.initializer(None, self.device) for k, s in c.items()}
+                for g, c in self.cache_specs(batch, max_len).items()}
+
+    def prefill(self, batch, max_len: int):
+        """Run the full prompt, return (last-token logits, decode cache).
+
+        Each layer's (k, v) lands in a zero cache of ``max(S, max_len)``
+        slots, so the slots past S stay exact zeros (the reference's
+        ``_pad_prefill_cache``, in place)."""
+        x = self._inputs(batch)
+        b, s = x.shape[:2]
+        sin, cos = self._rope(torch.arange(s, device=self.device))
+        cache = self.init_cache(b, max(s, max_len))
+        for g, li, layer in self.layers():
+            x, (k, v) = layer(x, sin, cos)
+            cache[g]["k"][li, :, :s] = k
+            cache[g]["v"][li, :, :s] = v
+        logits = self._logits(x[:, -1:, :])[:, 0]
+        return logits, cache
+
+    def decode_step(self, cache, tokens: torch.Tensor, pos):
+        """tokens int[B, 1]; pos an int or a 0-d integer tensor.  Returns
+        (logits [B, V], cache), the cache written in place.  No host sync:
+        ``pos`` goes to the device once and stays there."""
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((), pos, dtype=torch.int64, device=self.device)
+        x = self._embed(tokens)
+        sin, cos = self._rope(pos.expand(tokens.shape[0], 1))
+        for g, li, layer in self.layers():
+            lc = {k: cache[g][k][li] for k in ("k", "v")}
+            x, _ = layer.decode(x, sin, cos, lc, pos)
+        logits = self._logits(x)[:, 0]
+        return logits, cache
+
+
+def build_model(cfg: ArchConfig, device=None,
+                generator: Optional[torch.Generator] = None) -> Model:
+    return Model(cfg, device=device, generator=generator)

@@ -1514,3 +1514,123 @@ def test_autotune_cli_warms_a_cache_the_engines_use(cuda, tmp_path,
         monkeypatch.delenv("FPTC_TUNING_CACHE")
         autotune.set_default_cache(None)
     np.testing.assert_array_equal(warm[0], cold[0])
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path (M10a) on the card.
+# ---------------------------------------------------------------------------
+LM_SMOKE = ("granite_8b", "minitron_4b", "gemma2_27b", "qwen15_4b",
+            "internvl2_26b")
+LM_BOUND = 2.0 ** -6  # the CPU parity tests' bound: 2 bf16 ulps, relative
+
+
+def _lm_rel(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def _lm_batch(cfg, b: int = 2, s: int = 16) -> dict:
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, s)))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.full(
+            (b, cfg.vision_prefix, cfg.d_model), 0.01, dtype=torch.bfloat16)
+    return batch
+
+
+@pytest.mark.parametrize("arch", LM_SMOKE)
+def test_lm_smoke_on_card_matches_cpu(cuda, arch):
+    """A smoke model built on the CPU, then moved to the card: prefill and
+    4 decode steps (the CPU's greedy tokens fed to both) within 2 bf16
+    ulps relative L2."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.train import make_serve_fns
+    from repro_torch.models import build_model
+
+    cfg = get_smoke(arch)
+    model = build_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    batch = _lm_batch(cfg)
+    s = batch["tokens"].shape[1] + (cfg.vision_prefix
+                                    if cfg.family == "vlm" else 0)
+    arms = {}
+    for dev in ("cpu", cuda):
+        prefill_fn, decode_fn = make_serve_fns(model, dev)
+        logits, cache = prefill_fn(batch, s + 4)
+        out = [logits]
+        for i in range(4):
+            tok = (arms["cpu"] if arms else out)[i].argmax(-1, keepdim=True)
+            logits, cache = decode_fn(cache, tok.cpu(), s + i)
+            out.append(logits)
+        arms["cpu" if not arms else "cuda"] = out
+    assert all(t.is_cuda for t in arms["cuda"])
+    for got, want in zip(arms["cuda"], arms["cpu"]):
+        assert _lm_rel(got, want) <= LM_BOUND
+
+
+def test_lm_decode_step_waits_for_the_card_nowhere(cuda):
+    """After one warm step, ``decode_step`` (and the greedy argmax) runs
+    under ``set_sync_debug_mode("error")``: the position stays on the
+    card and the cache is written in place."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.train import make_serve_fns
+    from repro_torch.models import build_model
+
+    model = build_model(get_smoke("gemma2_27b"))
+    assert model.device.type == "cuda"
+    prefill_fn, decode_fn = make_serve_fns(model)
+    logits, cache = prefill_fn(_lm_batch(model.cfg), 24)
+    tok = logits.argmax(-1, keepdim=True)
+    decode_fn(cache, tok, 16)  # warm
+    torch.cuda.synchronize()
+    k = cache["group0"]["k"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(3):
+            logits, cache = decode_fn(cache, tok, 16 + i)
+            tok = logits.argmax(-1, keepdim=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert cache["group0"]["k"] is k
+    assert bool(k[:, :, 18].any()) and not bool(k[:, :, 19:].any())
+
+
+def test_serve_lm_kv_compress_on_card_equals_the_codec(cuda, capsys):
+    """``serve_lm --kv-compress`` on the card (no device given) runs and
+    prints its lines; ``compress_cache`` equals ``KVCacheCodec`` called
+    directly on each block, every K5 and K3 launch counted."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    from repro_torch.serving import KVCacheCodec
+
+    gen = serve_lm.main(["--arch", "granite-8b", "--smoke", "--batch", "2",
+                         "--prompt-len", "32", "--gen", "4",
+                         "--kv-compress"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln]
+    assert lines[0] == "kv cache: 16384 B -> 8192 B (ratio 0.500)"
+    assert lines[1].startswith("prefill: ") and gen.shape == (2, 4)
+
+    model = build_model(get_smoke("granite_8b"))
+    with torch.inference_mode():
+        _, cache = model.prefill(_lm_batch(model.cfg, s=32), 36)
+        before = {k: cache["group0"][k].clone() for k in ("k", "v")}
+        ops.reset_launches()
+        raw, comp = serve_lm.compress_cache(KVCacheCodec(), cache, 32)
+        launches = dict(ops.LAUNCHES)
+        direct = KVCacheCodec()
+        for k in ("k", "v"):
+            for layer in range(before[k].shape[0]):
+                block = before[k][layer, :, :32]
+                direct.calibrate(block, layer=layer)
+                want = direct.decompress(direct.compress(block, layer=layer),
+                                         layer=layer)
+                assert torch.equal(cache["group0"][k][layer, :, :32], want)
+            assert not bool(cache["group0"][k][:, :, 32:].any())
+    blocks = 2 * model.cfg.num_layers
+    assert launches == {k: blocks * (k in ("dct_quant", "idct_dequant"))
+                        for k in launches}
+    assert comp * 2 == raw

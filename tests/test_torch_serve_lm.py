@@ -1,0 +1,221 @@
+"""The port's LM serving driver (``repro_torch.launch.serve_lm``),
+``make_serve_fns`` and the KV workload on a model's own cache, on the CPU.
+
+``serve_lm`` runs and prints the reference's three lines (and, with
+``--kv-compress``, the cache's bytes before and after); its cache
+compression equals ``KVCacheCodec`` called directly.  The twin of
+``tests/test_serving.py::test_decode_with_quantized_cache_logit_drift``:
+granite-8b's smoke model on the reference's weights, its prefilled cache
+compressed through ``KVCacheCodec(device="cpu")`` (a table per block)
+and through the deprecated shim (n = e = 16): one decode step's logits
+move by less than the reference's 0.15 in relative L2, and by the
+reference package's own drift on the same weights and cache to within
+``DRIFT_TOL`` (measured on this tree: 0.0243 against 0.0244 for the
+codec, 0.0262 against 0.0267 for the shim)."""
+import subprocess
+import sys
+
+import pytest
+
+jax = pytest.importorskip("jax")  # the reference; absent on the card
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro.configs import get_smoke as ref_get_smoke
+from repro.models import build_model as ref_build_model
+from repro.models.common import init_params as ref_init_params
+from repro.serving import KVCompressionConfig as RefKVConfig
+from repro.serving import compress_kv_block as ref_compress
+from repro.serving import decompress_kv_block as ref_decompress
+from repro.serving.workloads import KVCacheCodec as RefKVCacheCodec
+from repro_torch.configs import get_smoke
+from repro_torch.distributed.train import make_serve_fns
+from repro_torch.launch import serve_lm
+from repro_torch.models import build_model
+from repro_torch.models.convert import params_from_jax
+from repro_torch.serving import KVCacheCodec
+from repro_torch.serving import kv_compression as shim
+
+DRIFT_TOL = 0.1  # |port drift - reference drift| <= 0.1 * reference drift
+ARGS = ["--arch", "granite-8b", "--smoke", "--device", "cpu", "--batch",
+        "2", "--prompt-len", "16", "--gen", "4"]
+
+
+def _lines(out: str):
+    return [ln for ln in out.splitlines() if ln.strip()]
+
+
+@pytest.mark.parametrize("kv", [False, True], ids=["plain", "kv_compress"])
+def test_serve_lm_prints_its_lines(capsys, kv):
+    gen = serve_lm.main(ARGS + ["--kv-compress"] * kv)
+    lines = _lines(capsys.readouterr().out)
+    if kv:
+        assert lines.pop(0) == "kv cache: 8192 B -> 4096 B (ratio 0.500)"
+    assert lines[0].startswith("prefill: ") and "tok/s" in lines[0]
+    assert lines[1].startswith("decode:  ") and "tok/s" in lines[1]
+    assert lines[2] == "sample generations (first 12 token ids):"
+    assert len(lines) == 5 and gen.shape == (2, 4)
+    assert [eval(ln) for ln in lines[3:]] == gen.tolist()
+    # one seed gives one run
+    assert np.array_equal(serve_lm.main(ARGS + ["--kv-compress"] * kv), gen)
+
+
+def test_serve_lm_as_a_module():
+    env = {"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"}
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_lm", *ARGS,
+         "--arch", "internvl2-26b", "--prompt-len", "12", "--kv-compress"],
+        capture_output=True, text=True, env=env, timeout=120, check=True)
+    lines = _lines(res.stdout)
+    assert lines[0].startswith("kv cache: ") and len(lines) == 6
+
+
+def test_serve_lm_refuses_what_it_cannot_run(monkeypatch):
+    with pytest.raises(ValueError, match="multiple of 16"):
+        serve_lm.main(ARGS[:-3] + ["12", "--gen", "2", "--kv-compress"])
+    for flag in ("--data", "--model-par"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            serve_lm.main(ARGS + [flag, "2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        serve_lm.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.main(ARGS[:3])
+
+
+def test_make_serve_fns_are_the_model_under_inference_mode():
+    model = build_model(get_smoke("qwen15_4b"), device="cpu")
+    prefill_fn, decode_fn = make_serve_fns(model, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 512, (2, 16)))
+    logits, cache = prefill_fn({"tokens": tokens}, 20)
+    want, want_cache = model.prefill({"tokens": tokens}, 20)
+    assert torch.equal(logits, want)
+    tok = logits.argmax(-1, keepdim=True)
+    for i in range(2):
+        logits, cache = decode_fn(cache, tok, 16 + i)
+        want, want_cache = model.decode_step(want_cache, tok,
+                                             torch.tensor(16 + i))
+        assert torch.equal(logits, want)
+        tok = logits.argmax(-1, keepdim=True)
+    assert cache["group0"]["k"].is_inference()
+    for k in ("k", "v"):
+        assert torch.equal(cache["group0"][k], want_cache["group0"][k])
+
+
+def test_compress_cache_equals_the_codec_called_directly():
+    model = build_model(get_smoke("granite_8b"), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 512, (2, 32)))
+    _, cache = model.prefill({"tokens": tokens}, 36)
+    before = {k: cache["group0"][k].clone() for k in ("k", "v")}
+    raw, comp = serve_lm.compress_cache(KVCacheCodec(device="cpu"), cache,
+                                        32)
+    direct = KVCacheCodec(device="cpu")
+    for k in ("k", "v"):
+        for layer in range(before[k].shape[0]):
+            block = before[k][layer, :, :32]
+            direct.calibrate(block, layer=layer)
+            want = direct.decompress(direct.compress(block, layer=layer),
+                                     layer=layer)
+            assert torch.equal(cache["group0"][k][layer, :, :32], want)
+        assert torch.equal(cache["group0"][k][:, :, 32:],
+                           before[k][:, :, 32:])
+    assert raw == 2 * 2 * (2 * 32 * 2 * 16) * 2 and comp * 2 == raw
+
+
+# ---------------------------------------------------------------------------
+# The twin of the reference's logit-drift test.
+# ---------------------------------------------------------------------------
+B, S = 2, 32
+
+
+def _drift(ref, cmp_) -> float:
+    ref, cmp_ = np.asarray(ref, np.float32), np.asarray(cmp_, np.float32)
+    return float(np.linalg.norm(ref - cmp_) / (np.linalg.norm(ref) + 1e-9))
+
+
+def _ref_drift(method: str):
+    """The reference test's computation, with the reference's shim or its
+    ``KVCacheCodec`` (one table per k/v block, as ``compress_cache``)."""
+    cfg = ref_get_smoke("granite_8b")
+    model = ref_build_model(cfg)
+    params = ref_init_params(model.param_specs(), jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": jnp.asarray(rng.integers(0, cfg.vocab_size, (B, S)),
+                                   jnp.int32)}
+    logits, cache = model.prefill(params, batch, max_len=S + 4)
+    codec = RefKVCacheCodec()
+    new_cache = {}
+    for g, grp in cache.items():
+        ng = dict(grp)
+        for key in ("k", "v"):
+            kv = grp[key]
+            outs = []
+            for l in range(kv.shape[0]):
+                block = kv[l][:, :S]
+                if method == "codec":
+                    codec.calibrate(block, layer=(key, l))
+                    rec = codec.decompress(codec.compress(block,
+                                                          layer=(key, l)),
+                                           layer=(key, l))
+                else:
+                    lv, sc = ref_compress(block, RefKVConfig(n=16, e=16))
+                    rec = ref_decompress(lv, sc, RefKVConfig(n=16, e=16),
+                                         dtype=kv.dtype)
+                outs.append(jnp.zeros_like(kv[l]).at[:, :S].set(rec))
+            ng[key] = jnp.stack(outs)
+        new_cache[g] = ng
+    tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+    lg_ref, _ = model.decode_step(params, cache, tok, jnp.int32(S))
+    lg_cmp, _ = model.decode_step(params, new_cache, tok, jnp.int32(S))
+    return (_drift(lg_ref.astype(jnp.float32), lg_cmp.astype(jnp.float32)),
+            params)
+
+
+@pytest.mark.parametrize("method", ["codec", "shim"])
+def test_decode_with_quantized_cache_logit_drift(method):
+    want, params = _ref_drift(method)
+    model = build_model(get_smoke("granite_8b"), device="cpu")
+    params_from_jax(jax.tree_util.tree_map(np.asarray, params), model)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, 512, (B, S)).astype(np.int32))
+    logits, cache = model.prefill({"tokens": tokens}, S + 4)
+    new_cache = {g: {k: t.clone() for k, t in c.items()}
+                 for g, c in cache.items()}
+    if method == "codec":
+        serve_lm.compress_cache(KVCacheCodec(device="cpu"), new_cache, S)
+    else:
+        cfg = shim.KVCompressionConfig(n=16, e=16)  # quantization only
+        for grp in new_cache.values():
+            for kv in grp.values():
+                for layer in range(kv.shape[0]):
+                    with pytest.warns(DeprecationWarning):
+                        lv, sc = shim.compress_kv_block(kv[layer, :, :S], cfg)
+                        kv[layer, :, :S] = shim.decompress_kv_block(
+                            lv, sc, cfg, dtype=kv.dtype)
+    tok = logits.argmax(-1, keepdim=True)
+    lg_ref, _ = model.decode_step(cache, tok, S)
+    lg_cmp, _ = model.decode_step(new_cache, tok, S)
+    got = _drift(lg_ref.float().numpy(), lg_cmp.float().numpy())
+    assert got < 0.15, f"quantization-only KV cache moved logits {got}"
+    assert abs(got - want) <= DRIFT_TOL * want, (got, want)
+
+
+def test_kv_cache_example_runs_on_the_cpu(tmp_path):
+    """``examples/kv_cache_compression_torch.py --smoke --device cpu``
+    prints its lines and writes its report section."""
+    import json
+
+    report = tmp_path / "BENCH_workloads.json"
+    res = subprocess.run(
+        [sys.executable, "examples/kv_cache_compression_torch.py", "--smoke",
+         "--device", "cpu", "--report", str(report)],
+        capture_output=True, text=True, timeout=120, check=True,
+        env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})
+    assert res.stdout.startswith("KV cache: ")
+    kv = json.loads(report.read_text())["kv_cache"]
+    assert kv["device"] == "cpu" and kv["ratio"] == 0.5
+    assert kv["max_rel_error"] < 0.05 and kv["top1_agreement"] > 0
