@@ -6,9 +6,10 @@ Layout:  <dir>/step_<k>/
             manifest.json        — step, leaf index, shapes/dtypes, CRCs
             <leaf-hash>.npy      — raw leaf (default)
             state.fptc           — compress=True: every large float leaf of
-                                   the tree, sharded + batch-encoded as ONE
-                                   engine call into concatenated FPTC
-                                   containers (manifest v2); tables are
+                                   the tree, sharded + batch-encoded (one
+                                   engine call per 2**30 samples) into
+                                   concatenated FPTC containers (manifest
+                                   v2); tables are
                                    calibrated once per checkpoint over the
                                    whole tree (``train_state`` domain) and
                                    serialized in the manifest sidecar
@@ -156,12 +157,13 @@ def save_checkpoint(directory: str, step: int, tree: Tree,
 
 def _write_state_blob(tmp: str, arrays: Dict[str, Any], device
                       ) -> Dict[str, Any]:
-    """Encode every large float leaf in ONE batched engine call.
+    """Encode every large float leaf in batched engine calls.
 
     Tables are calibrated once over the whole tree (``train_state``
-    domain), leaves shard into fixed-length strips, and all shards ride a
-    single :class:`~repro_torch.serving.batch_encode.BatchEncoder` encode
-    (uniform shard lengths mean one bucket shape).  Containers concatenate
+    domain), leaves shard into fixed-length strips, and the shards ride
+    one :class:`~repro_torch.serving.batch_encode.BatchEncoder` encode per
+    ``MAX_CALL_SAMPLES`` samples (uniform shard lengths mean one bucket
+    shape a call; the kernels' int32 offsets bound a call).  Containers concatenate
     into ``state.fptc``; the manifest sidecar carries per-shard
     offsets/CRCs plus the serialized calibration (per-bin scales +
     smoothed histogram — the codebook rebuilds deterministically on
@@ -214,7 +216,8 @@ def _read_containers(base: str, state: Dict[str, Any]):
 
 def _read_state_blob(base: str, state: Dict[str, Any], device
                      ) -> Dict[str, Any]:
-    """Inverse of :func:`_write_state_blob`: one batched decode."""
+    """Inverse of :func:`_write_state_blob`: one batched decode per
+    engine call of the save."""
     containers = _read_containers(base, state)
     tables = tables_from_hist(
         CKPT_CODEC_CONFIG,

@@ -4,7 +4,8 @@ Port of ``repro/models/api.py``.
 ``build_model(cfg)`` returns a :class:`Model`, an ``nn.Module`` holding its
 weights, with:
   * ``param_specs()``      — the reference's ParamSpec tree (layers stacked)
-  * ``loss(batch)``        — next-token CE loss
+  * ``loss(batch)``        — next-token CE loss (its backward: the train
+                             step, ``distributed/train.py``)
   * ``prefill(batch, max_len)`` — full-sequence forward + KV cache
   * ``decode_step(cache, tokens, pos)`` — one-token serve step
   * ``cache_specs(batch, max_len)`` — ParamSpec tree for the decode cache
@@ -15,7 +16,9 @@ Batches are dicts: tokens/labels int[B, S]; VLM adds patch_embeds
 ``[L, B, T, KV, hd]`` bf16 tensors, laid out as the reference lays it out;
 ``decode_step`` writes slot ``pos`` in place and returns the cache.  The
 families outside the slice (MoE, MLA, SSM, hybrid, audio) raise
-``NotImplementedError``; the train step and its backward are not here.
+``NotImplementedError``.  The weights are built without gradients (the
+serving path); ``model.requires_grad_(True)`` makes them take gradients,
+as ``make_train_step`` does.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (
@@ -67,6 +71,10 @@ def spec_leaves(specs: PyTree, prefix=()):
             yield prefix + (k,), s
         else:
             yield from spec_leaves(s, prefix + (k,))
+
+
+def _layer_out(layer, x, sin, cos) -> torch.Tensor:
+    return layer(x, sin, cos)[0]
 
 
 def _resolve(device):
@@ -201,11 +209,20 @@ class Model(Params):
         return rope(positions, self.cfg.head_dim, self.cfg.rope_theta)
 
     # ----------------------------------------------------------------- loss
-    def loss(self, batch) -> torch.Tensor:
+    def loss(self, batch, *, remat: bool = True) -> torch.Tensor:
+        """Mean next-token CE.  Under autograd each decoder layer runs
+        under activation checkpointing when ``remat`` (the reference's
+        ``jax.checkpoint`` around each layer body): its activations are
+        recomputed in the backward, only its input is kept."""
         x = self._inputs(batch)
         sin, cos = self._rope(torch.arange(x.shape[1], device=self.device))
+        remat = remat and torch.is_grad_enabled()
         for _, _, layer in self.layers():
-            x, _ = layer(x, sin, cos)
+            if remat:
+                x = checkpoint(_layer_out, layer, x, sin, cos,
+                               use_reentrant=False)
+            else:
+                x, _ = layer(x, sin, cos)
         if self.cfg.family == "vlm" and self.cfg.vision_prefix:
             x = x[:, self.cfg.vision_prefix:]
         return _cross_entropy(self._logits(x),

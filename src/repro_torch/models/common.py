@@ -36,6 +36,7 @@ __all__ = [
     "decode_attention",
     "Dense",
     "rounded",
+    "needs_grad",
 ]
 
 PyTree = Any
@@ -121,13 +122,55 @@ class Params(nn.Module):
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a graph through ``tensors`` here: the
+    training path takes the backward rules below, serving the plain ops."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _rms_stats(x: torch.Tensor, eps: float):
+    """``(inverse RMS in x's dtype, rsqrt(r) / r in fp32)`` with ``r`` the
+    fp32 mean square plus ``eps``, both ``[..., 1]``."""
+    xf = x.float()
+    r = (xf * xf).mean(-1, keepdim=True) + eps
+    rs = torch.rsqrt(r)
+    return rs.to(x.dtype), rs / r
+
+
+class _RMSNorm(torch.autograd.Function):
+    """``rms_norm`` with the reference's backward, step for step as JAX
+    differentiates it: the cotangent products in x's dtype, the ``rsqrt``
+    rule ``-0.5 * rsqrt(r) / r`` and the mean's ``/ d`` in fp32.  The sums
+    (over the rows for the weight, over the features for the statistic)
+    accumulate in fp32 and round once; XLA's CPU lowering rounds each
+    partial sum of a bf16 reduction to bf16 instead."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps, offset):
+        inv, k = _rms_stats(x, eps)
+        w = (offset + weight.float()).to(x.dtype)
+        ctx.save_for_backward(x, weight, inv, k, w)
+        return x * inv * w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, inv, k, w = ctx.saved_tensors
+        gw = (x * inv * g).flatten(0, -2).sum(0).to(weight.dtype)
+        gxn = g * w
+        gi = (x * gxn).sum(-1, keepdim=True).float()
+        gr = gi * (-0.5 * k) / x.shape[-1]
+        gx = gxn * inv + (x.float() * gr * 2).to(x.dtype)
+        return gx, gw, None, None
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
              offset: float = 0.0) -> torch.Tensor:
     """RMSNorm: fp32 statistics; only the ``[..., 1]`` inverse RMS is fp32,
-    the normalize and scale multiplies run in the input dtype."""
-    xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
-    inv = torch.rsqrt(var + eps).to(x.dtype)  # [..., 1], tiny
+    the normalize and scale multiplies run in the input dtype.  Under
+    autograd its backward is the reference's (``_RMSNorm``)."""
+    if needs_grad(x, weight):
+        return _RMSNorm.apply(x, weight, eps, offset)
+    inv = _rms_stats(x, eps)[0]  # [..., 1], tiny
     w = (offset + weight.float()).to(x.dtype)
     return x * inv * w
 

@@ -1,27 +1,46 @@
-"""Carry the reference's parameters and caches into the port.
+"""Carry parameters, optimizer state and caches between the reference's
+layout and the port's.
 
-``params_from_jax(tree, model)`` loads a parameter tree of the JAX package
-(``jax.tree_util.tree_map(np.asarray, params)``: nested dicts of numpy
-arrays, each ``group<i>`` stacked on a leading layer axis) into a
-:class:`~repro_torch.models.api.Model`, one layer at a time.
-``cache_from_jax(tree, device)`` turns a reference decode cache into the
-port's.  bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays; they are
-read through their 16-bit patterns, so neither JAX nor ``ml_dtypes`` is
-imported here.
+The reference keeps a model's parameters, and Adam's m and v beside them,
+as nested dicts whose ``group<i>`` leaves are stacked on a leading layer
+axis; the port keeps one module per layer, and m and v per parameter
+(``OptState.m`` and ``.v`` keyed by ``model.named_parameters()`` names).
+
+* ``params_from_jax(tree, model)`` loads a reference parameter tree
+  (``jax.tree_util.tree_map(np.asarray, params)``) into a
+  :class:`~repro_torch.models.api.Model`, one layer at a time;
+  ``opt_state_from_jax(state, model)`` turns the reference's ``OptState``
+  into the port's.
+* ``train_state_tree(model, opt_state)`` is the port's training state as
+  the reference's ``{"params", "m", "v"}`` tree, the tree a training
+  checkpoint saves (so the two packages restore each other's);
+  ``load_train_state(tree, model, opt_state, step, optimizer)`` loads
+  such a tree (numpy arrays or tensors) back.
+* ``cache_from_jax(tree, device)`` turns a reference decode cache into the
+  port's.
+
+bf16 arrays arrive as ``ml_dtypes.bfloat16`` and are read through their
+16-bit patterns, so neither JAX nor ``ml_dtypes`` is imported here.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["to_torch", "params_from_jax", "cache_from_jax"]
+from repro_torch.models.api import spec_leaves
+
+__all__ = ["to_torch", "params_from_jax", "cache_from_jax",
+           "opt_state_from_jax", "train_state_tree", "load_train_state"]
 
 
 def to_torch(arr: Any, device=None) -> torch.Tensor:
-    """A numpy array (bf16 through its bit pattern) as a tensor on
-    ``device``."""
+    """A numpy array (bf16 through its bit pattern) or a tensor as a tensor
+    on ``device`` (None: a tensor stays where it is, an array lands on the
+    CPU)."""
+    if isinstance(arr, torch.Tensor):
+        return arr if device is None else arr.to(device)
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         return torch.tensor(arr.view(np.int16), device=device).view(
@@ -29,46 +48,132 @@ def to_torch(arr: Any, device=None) -> torch.Tensor:
     return torch.tensor(arr, device=device)
 
 
-def _same_keys(got: Mapping, want: Mapping, where: str) -> None:
-    if set(got) != set(want):
+def _leaf_names(model) -> Iterator[Tuple[Tuple[str, ...], List[str]]]:
+    """``(reference path, port names)`` of every leaf of the model's spec
+    tree: a stacked ``group<i>`` leaf has one parameter name per layer."""
+    for path, _ in spec_leaves(model.param_specs()):
+        if path[0].startswith("group"):
+            count = len(model[path[0]])
+            yield path, [".".join((path[0], str(li)) + path[1:])
+                         for li in range(count)]
+        else:
+            yield path, [path[0]]
+
+
+def _check_keys(tree: Mapping, specs: Mapping, where: str = "") -> None:
+    if set(tree) != set(specs):
         raise KeyError(
             f"{where or 'params'}: keys only in the given tree "
-            f"{sorted(set(got) - set(want))}, only in the model "
-            f"{sorted(set(want) - set(got))}")
+            f"{sorted(set(tree) - set(specs))}, only in the model "
+            f"{sorted(set(specs) - set(tree))}")
+    for k, s in specs.items():
+        if isinstance(s, Mapping):
+            if not isinstance(tree[k], Mapping):
+                raise KeyError(f"{where}.{k}: a leaf where the model has "
+                               f"a subtree")
+            _check_keys(tree[k], s, f"{where}.{k}" if where else k)
 
 
-def _copy(p: torch.Tensor, arr: np.ndarray, name: str) -> None:
-    t = to_torch(arr)
-    if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
-        raise ValueError(f"{name}: given {t.dtype} {tuple(t.shape)}, the "
-                         f"model holds {p.dtype} {tuple(p.shape)}")
-    with torch.no_grad():
-        p.copy_(t)
-
-
-def _load(dst, tree: Mapping, where: str, layer: int) -> None:
-    """Copy layer ``layer`` of ``tree``'s stacked leaves into the layer
-    module ``dst``."""
-    _same_keys(tree, {**dst._parameters, **dst._modules}, where)
-    for k, v in tree.items():
-        name = f"{where}.{k}"
-        if isinstance(v, Mapping):
-            _load(dst[k], v, name, layer)
+def _unstacked(tree: Mapping, model) -> Dict[str, Any]:
+    """The leaves of a reference-layout tree by port parameter name (a
+    stacked leaf's layer ``li`` is its ``[li]``)."""
+    _check_keys(tree, model.param_specs())
+    out: Dict[str, Any] = {}
+    for path, names in _leaf_names(model):
+        leaf = tree
+        for k in path:
+            leaf = leaf[k]
+        if path[0].startswith("group"):
+            leaf = leaf if isinstance(leaf, torch.Tensor) else np.asarray(
+                leaf)
+            for li, name in enumerate(names):
+                out[name] = leaf[li]
         else:
-            _copy(dst[k], np.asarray(v)[layer], name)
+            out[names[0]] = leaf
+    return out
+
+
+def _stacked(model, by_name: Mapping[str, torch.Tensor]) -> dict:
+    """``by_name`` (one tensor per parameter) in the reference's layout."""
+    tree: dict = {}
+    for path, names in _leaf_names(model):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        if path[0].startswith("group"):
+            node[path[-1]] = torch.stack([by_name[n] for n in names])
+        else:
+            node[path[-1]] = by_name[names[0]]
+    return tree
+
+
+def _copy(dst: torch.Tensor, src: Any, name: str) -> None:
+    t = to_torch(src)
+    if tuple(t.shape) != tuple(dst.shape) or t.dtype != dst.dtype:
+        raise ValueError(f"{name}: given {t.dtype} {tuple(t.shape)}, the "
+                         f"model holds {dst.dtype} {tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(t)
 
 
 def params_from_jax(tree: Mapping, model) -> None:
     """Load the reference's parameter tree into ``model`` in place.  A key
     in one tree and not the other raises ``KeyError``; a shape or dtype
     mismatch ``ValueError``."""
-    _same_keys(tree, {**model._parameters, **model._modules}, "")
-    for k, v in tree.items():
-        if k.startswith("group"):
-            for li, layer in enumerate(model[k]):
-                _load(layer, v, f"{k}[{li}]", li)
-        else:
-            _copy(model[k], np.asarray(v), k)
+    leaves = _unstacked(tree, model)
+    for name, p in model.named_parameters():
+        _copy(p, leaves[name], name)
+
+
+def opt_state_from_jax(state: Any, model):
+    """The reference's ``OptState`` (its leaves as numpy arrays: ``jax.
+    tree_util.tree_map(np.asarray, state)``) as the port's, m and v per
+    parameter on the model's device.  The error-feedback residual is not
+    carried (the pod-compressed mode is not ported)."""
+    from repro_torch.distributed.optimizer import OptState
+
+    dev = model.device
+    m, v = _unstacked(state.m, model), _unstacked(state.v, model)
+    return OptState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev),
+        m={n: to_torch(np.asarray(m[n]), dev) for n, _ in
+           model.named_parameters()},
+        v={n: to_torch(np.asarray(v[n]), dev) for n, _ in
+           model.named_parameters()},
+    )
+
+
+@torch.no_grad()
+def train_state_tree(model, opt_state) -> dict:
+    """``{"params", "m", "v"}`` in the reference's layout (keys, shapes and
+    dtypes), on the model's device: what a training checkpoint saves.
+    Stacking a group's layers is a copy, so while the tree lives the state
+    takes twice its memory (cheap at a cut depth; at full depth a save
+    doubles the state's memory for its duration)."""
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    return {"params": _stacked(model, params),
+            "m": _stacked(model, opt_state.m),
+            "v": _stacked(model, opt_state.v)}
+
+
+def load_train_state(tree: Mapping, model, opt_state, step: int,
+                     optimizer):
+    """Load a ``{"params", "m", "v"}`` tree in the reference's layout (as
+    ``restore_latest`` returns it) into ``model`` and ``opt_state``'s m and
+    v in place, m and v projected onto the states ``optimizer`` reaches
+    (``AdamW.project``: a compressed checkpoint brings v back negative in
+    places; a raw one is left as it was); returns the ``OptState`` at
+    ``step``."""
+    params = _unstacked(tree["params"], model)
+    m, v = _unstacked(tree["m"], model), _unstacked(tree["v"], model)
+    for name, p in model.named_parameters():
+        _copy(p, params[name], f"params.{name}")
+        _copy(opt_state.m[name], m[name], f"m.{name}")
+        _copy(opt_state.v[name], v[name], f"v.{name}")
+    optimizer.project(opt_state)
+    return opt_state._replace(step=torch.tensor(
+        step, dtype=torch.int32, device=opt_state.step.device))
 
 
 def cache_from_jax(tree: Mapping, device=None) -> dict:

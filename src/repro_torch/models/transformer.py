@@ -22,6 +22,7 @@ from repro_torch.models.common import (
     apply_rope,
     attention,
     decode_attention,
+    needs_grad,
     rms_norm,
     rounded,
 )
@@ -139,15 +140,65 @@ def ffn_specs(cfg: ArchConfig, d_ff: Optional[int] = None
     return p
 
 
+def _gelu_consts(dtype: torch.dtype):
+    return (rounded(math.sqrt(2.0 / math.pi), dtype),
+            rounded(0.044715, dtype))
+
+
+def _gelu(x):
+    c, a = _gelu_consts(x.dtype)
+    return x * (0.5 * (1 + torch.tanh(c * (x + a * (x * x * x)))))
+
+
+def _silu(x):
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+class _GELU(torch.autograd.Function):
+    """Tanh-``gelu`` whose backward is JAX's derivative of the reference's
+    expression, every step in x's dtype (XLA's CPU lowering rounds each)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _gelu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        c, a = _gelu_consts(x.dtype)
+        x2 = x * x
+        t = torch.tanh(c * (x + a * (x2 * x)))
+        p = (0.5 * (x * g)) * (1 - t)
+        s = c * (p + p * t)
+        return (g * (0.5 * (1 + t)) + s) + (a * s) * (3 * x2)
+
+
+class _SiLU(torch.autograd.Function):
+    """``silu`` whose backward is JAX's (``logistic``'s rule ``d * (1 -
+    d)``), every step in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _silu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        d = 1 / (1 + torch.exp(-x))
+        return g * d + (x * g) * (d * (1 - d))
+
+
 def _act(cfg: ArchConfig, x):
     """``jax.nn.gelu(approximate=True)`` or ``jax.nn.silu``, written out
     as the reference computes them: every step in x's dtype, the
-    constants rounded to it."""
-    if cfg.ffn_activation == "gelu":
-        c = rounded(math.sqrt(2.0 / math.pi), x.dtype)
-        a = rounded(0.044715, x.dtype)
-        return x * (0.5 * (1 + torch.tanh(c * (x + a * (x * x * x)))))
-    return x * (1 / (1 + torch.exp(-x)))
+    constants rounded to it.  Under autograd the backward is the
+    reference's too (``_GELU``, ``_SiLU``)."""
+    gelu = cfg.ffn_activation == "gelu"
+    if needs_grad(x):
+        return (_GELU if gelu else _SiLU).apply(x)
+    return _gelu(x) if gelu else _silu(x)
 
 
 def ffn_apply(cfg: ArchConfig, p, x):

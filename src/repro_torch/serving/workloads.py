@@ -16,9 +16,10 @@ workloads onto them:
   * train-state sharding (:func:`shard_state` / :func:`unshard_state` +
     :func:`state_to_containers` / :func:`state_from_containers`) — float
     tensors of a checkpoint/optimizer tree flatten into fixed-length 1-D
-    shards that ride the full entropy-coded container path as one batched
-    encode (K4; every shard but a leaf's last has the same length, so they
-    share one bucket) and one batched decode (K1 + K2).
+    shards that ride the full entropy-coded container path as batched
+    encodes (K4; every shard but a leaf's last has the same length, so they
+    share one bucket) and batched decodes (K1 + K2), one of each per
+    ``MAX_CALL_SAMPLES`` samples.
     ``distributed.checkpoint`` uses these for compressed checkpoints.
 
 Both workloads use calibrated :class:`~repro_torch.core.calibration.
@@ -51,6 +52,8 @@ __all__ = [
     "state_to_containers",
     "state_from_containers",
     "DEFAULT_SHARD_LEN",
+    "MAX_CALL_SAMPLES",
+    "engine_calls",
     "write_workloads_report",
 ]
 
@@ -316,6 +319,33 @@ def unshard_state(
     return out
 
 
+# samples in one engine call.  The kernels' offsets are int32 (a decode
+# bucket past 2**31 symbols is refused: ``ops.check_i32_offsets``) and the
+# bucket ladder pads a call's windows up to twice their count, so a state
+# of more samples goes through the engines in several calls; the
+# containers' bytes do not depend on the split (signals encode and decode
+# independently)
+MAX_CALL_SAMPLES = 1 << 30
+
+
+def engine_calls(lengths: Sequence[int],
+                 budget: Optional[int] = None) -> List[slice]:
+    """Consecutive runs of shards (by their sample counts ``lengths``),
+    each of at most ``budget`` samples (``MAX_CALL_SAMPLES``): the engine
+    calls of a state."""
+    budget = MAX_CALL_SAMPLES if budget is None else budget
+    calls: List[slice] = []
+    start = total = 0
+    for i, n in enumerate(lengths):
+        if total and total + n > budget:
+            calls.append(slice(start, i))
+            start, total = i, 0
+        total += int(n)
+    if start < len(lengths):
+        calls.append(slice(start, len(lengths)))
+    return calls
+
+
 def state_to_containers(
     arrays: Mapping[str, Any],
     tables: DomainTables,
@@ -324,12 +354,13 @@ def state_to_containers(
     shard_len: int = DEFAULT_SHARD_LEN,
     device=None,
 ) -> Tuple[List[Container], List[dict]]:
-    """Encode a named-tensor state as FPTC containers, one batched encode.
+    """Encode a named-tensor state as FPTC containers, one batched encode
+    per ``MAX_CALL_SAMPLES`` samples (``engine_calls``).
 
-    Every shard of every leaf goes through ONE :meth:`BatchEncoder.encode`
+    The shards of every leaf go through one :meth:`BatchEncoder.encode`
     call — uniform shard lengths land in the same bucket, so the whole
     checkpoint is a handful of K4 launches with chunk-parallel packing,
-    drained once at the end (the bytes are headed to disk anyway).  Leaves
+    drained once a call (the bytes are headed to disk anyway).  Leaves
     are normalized to unit max-abs before quantization (scales ride the
     manifest), matching the normalization :func:`repro_torch.core.domains.
     train_state_strip` applies at calibration.  With no ``encoder`` one is
@@ -340,9 +371,10 @@ def state_to_containers(
     shards, manifest = shard_state(
         arrays, shard_len=shard_len, normalize=True
     )
-    containers = (
-        encoder.encode(shards, tables).to_host() if shards else []
-    )
+    containers = [
+        c for part in engine_calls([s.size for s in shards])
+        for c in encoder.encode(shards[part], tables).to_host()
+    ]
     return containers, manifest
 
 
@@ -355,13 +387,15 @@ def state_from_containers(
     device=None,
 ) -> Dict[str, Any]:
     """Decode :func:`state_to_containers` output back into named host
-    arrays (one batched decode, one drain).  With no ``decoder`` one is
-    made on ``device`` (the card unless ``device="cpu"``)."""
+    arrays (one batched decode and one drain per ``engine_calls`` run of
+    containers).  With no ``decoder`` one is made on ``device`` (the card
+    unless ``device="cpu"``)."""
     decoder = decoder or BatchDecoder(device=device)
-    shards = (
-        decoder.decode(list(containers), tables).to_host()
-        if containers else []
-    )
+    containers = list(containers)
+    shards = [
+        x for part in engine_calls([c.signal_length for c in containers])
+        for x in decoder.decode(containers[part], tables).to_host()
+    ]
     return unshard_state(shards, manifest)
 
 

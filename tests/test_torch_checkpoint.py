@@ -12,7 +12,11 @@ of the cells (the tables' scales agree to float32 noise and the DCTs sum
 in different orders, so a coefficient on a cell boundary may land on
 either side).  A blob the port decodes is within ``1e-5 * max|ref|`` of
 the reference's decode of the same blob.  ``device="cpu"`` runs the plain
-versions; on the card: ``tests/test_torch_gpu.py``."""
+versions; on the card: ``tests/test_torch_gpu.py``.  The resumes (M10b)
+run the port's train step on the CPU from a checkpoint of the train state
+in the reference's layout: bit for bit an uninterrupted run when the
+checkpoint is raw, within stated bounds when it is compressed or written
+by the JAX package."""
 import json
 import os
 import zlib
@@ -395,3 +399,161 @@ def test_tree_walk_matches_jax():
     assert back == jax.tree_util.tree_map(lambda v: v * 10, tree)
     with pytest.raises(ValueError, match="more leaves"):
         tree_unflatten(tree, list(range(8)))
+
+
+# ---------------------------------------------------------------------------
+# Resumes: the twin of test_checkpoint.py::test_resume_reproduces_
+# uninterrupted_run, and a resume across the packages.
+# ---------------------------------------------------------------------------
+# a compressed resume: the final weights' distance from the uninterrupted
+# run's, relative to the uninterrupted run's change over its 6 steps (m and
+# v come back within REL_RMS, v negative in a tenth of its entries until
+# AdamW.project lifts it); measured 0.124
+RESUME_COMPRESSED_BOUND = 2.0 ** -2
+# across the packages, the port's 3 steps after the reference's 3 against
+# the reference's own: test_torch_train.py's trajectory bounds (each
+# step's loss relative; the change over the 3 steps, all leaves, relative
+# L2); measured 3.2e-4 and 0.072
+TRAJ_LOSS_BOUND = 2.0 ** -8
+TRAJ_CHANGE_BOUND = 2.0 ** -2
+RESUME_OPT = dict(base_lr=1e-3, warmup=1, total_steps=20)
+
+
+def _lm_batch(vocab: int, step: int):
+    """``test_checkpoint.py``'s batch ``step``: seeded tokens as labels."""
+    toks = np.random.default_rng(step).integers(0, vocab, (2, 16)).astype(
+        np.int32)
+    return toks, {"tokens": torch.from_numpy(toks),
+                  "labels": torch.from_numpy(toks)}
+
+
+def _port_trainer(arch: str, seed: int):
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
+    from repro_torch.distributed.train import make_train_step
+    from repro_torch.models import build_model
+
+    model = build_model(get_smoke(arch), device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
+    ts = make_train_step(model, AdamW(AdamWConfig(**RESUME_OPT)), "cpu")
+    return model, ts, ts.init()
+
+
+def _weights(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_resume_reproduces_uninterrupted_run(tmp_path, compress):
+    """3 steps, a checkpoint of the reference-layout train state, a
+    "crash" (a model drawn from another seed, a fresh optimizer), the
+    restore, 3 more steps: bit for bit the 6-step run's weights, m and v on
+    the CPU; compressed, the weights within ``RESUME_COMPRESSED_BOUND``."""
+    from repro_torch.models.convert import (
+        load_train_state,
+        train_state_tree,
+    )
+
+    arch = "qwen15_4b"
+    model, ts, st = _port_trainer(arch, 0)
+    start = _weights(model)
+    vocab = model.cfg.vocab_size
+    for s in range(6):
+        st, _ = ts.step_fn(st, _lm_batch(vocab, s)[1])
+    ref, ref_m, ref_v = _weights(model), st.m, st.v
+
+    model, ts, st = _port_trainer(arch, 0)
+    for s in range(3):
+        st, _ = ts.step_fn(st, _lm_batch(vocab, s)[1])
+    path = ckpt.save_checkpoint(str(tmp_path), 3, train_state_tree(model, st),
+                                compress=compress, device="cpu")
+    assert any(f.endswith(".fptc") for f in os.listdir(path)) == compress
+    del model, ts, st
+
+    model, ts, st = _port_trainer(arch, 7)  # the restart's own draw
+    step, tree = ckpt.restore_latest(
+        str(tmp_path), train_state_tree(model, st), device="cpu")
+    assert step == 3
+    st = load_train_state(tree, model, st, step, ts.optimizer)
+    assert int(st.step) == 3 and st.step.dtype == torch.int32
+    for s in range(3, 6):
+        st, _ = ts.step_fn(st, _lm_batch(vocab, s)[1])
+    got = _weights(model)
+    if not compress:
+        for name in ref:
+            assert torch.equal(got[name], ref[name]), name
+            assert torch.equal(st.m[name], ref_m[name]), name
+            assert torch.equal(st.v[name], ref_v[name]), name
+        return
+    num = sum(float(torch.sum((got[n].float() - ref[n].float()) ** 2))
+              for n in ref)
+    den = sum(float(torch.sum((ref[n].float() - start[n].float()) ** 2))
+              for n in ref)
+    assert (num / den) ** 0.5 <= RESUME_COMPRESSED_BOUND
+
+
+def test_resume_from_a_reference_checkpoint(tmp_path):
+    """The JAX package trains 3 steps and writes its train-state checkpoint
+    (``{"params", "m", "v"}``, stacked layers); the port restores it into
+    its model and optimizer and takes 3 more steps, tracking the JAX
+    package's own 6-step run within the trajectory bounds."""
+    import jax
+
+    from repro.configs import get_smoke as ref_get_smoke
+    from repro.distributed.optimizer import AdamW as RefAdamW
+    from repro.distributed.optimizer import AdamWConfig as RefAdamWConfig
+    from repro.models import build_model as ref_build_model
+    from repro.models.common import init_params as ref_init_params
+    from repro_torch.models.convert import (
+        load_train_state,
+        train_state_tree,
+    )
+
+    arch = "granite_8b"
+    rcfg = ref_get_smoke(arch)
+    rm = ref_build_model(rcfg)
+    opt = RefAdamW(RefAdamWConfig(**RESUME_OPT))
+
+    @jax.jit
+    def step_fn(p, st, b):
+        loss, g = jax.value_and_grad(rm.loss)(p, b)
+        p2, st2, _ = opt.update(p, st, g)
+        return p2, st2, loss
+
+    params = ref_init_params(rm.param_specs(), jax.random.PRNGKey(0))
+    st, losses, mid = opt.init(params), [], None
+    for s in range(6):
+        toks = _lm_batch(rcfg.vocab_size, s)[0]
+        params, st, loss = step_fn(params, st, {"tokens": toks,
+                                                "labels": toks})
+        losses.append(float(loss))
+        if s == 2:
+            mid = jax.tree_util.tree_map(np.asarray, {
+                "params": params, "m": st.m, "v": st.v})
+            ref_ckpt.save_checkpoint(str(tmp_path), 3, mid)
+    final = jax.tree_util.tree_map(np.asarray, params)
+
+    model, ts, pst = _port_trainer(arch, 7)
+    step, tree = ckpt.restore_latest(
+        str(tmp_path), train_state_tree(model, pst), device="cpu")
+    pst = load_train_state(tree, model, pst, step, ts.optimizer)
+    port_losses = []
+    for s in range(3, 6):
+        pst, metrics = ts.step_fn(pst, _lm_batch(rcfg.vocab_size, s)[1])
+        port_losses.append(float(metrics["loss"]))
+    for got, want in zip(port_losses, losses[3:]):
+        assert abs(got - want) <= TRAJ_LOSS_BOUND * abs(want), (
+            port_losses, losses[3:])
+    mine = train_state_tree(model, pst)["params"]
+    d_port, d_ref = [], []
+    for (p, want), (_, at3) in zip(
+            jax.tree_util.tree_flatten_with_path(final)[0],
+            jax.tree_util.tree_flatten_with_path(mid["params"])[0]):
+        got = mine
+        for k in p:
+            got = got[k.key]
+        base = np.asarray(at3, np.float32)
+        d_port.append((got.float().numpy() - base).ravel())
+        d_ref.append((np.asarray(want, np.float32) - base).ravel())
+    dp, dr = np.concatenate(d_port), np.concatenate(d_ref)
+    assert np.linalg.norm(dp - dr) / np.linalg.norm(dr) <= TRAJ_CHANGE_BOUND

@@ -21,7 +21,10 @@ outcomes, and two frontends serving at once on the default stream keep the
 kernels' shared state (K1's workspace, the launch counters) coherent.  The
 workloads: ``KVCacheCodec`` waits for the card nowhere and matches K5's and
 K3's plain versions; a compressed checkpoint at n = e = 64 holds every
-kernel call to its plain version and restores within relative rms 0.02."""
+kernel call to its plain version and restores within relative rms 0.02.
+LM training: the smoke granite's train steps on the card track the CPU's
+within the CPU trajectory bounds, a raw checkpoint resumes bit for bit and
+a compressed one through counted K4, K1 and ``lut_idct`` launches."""
 import json
 
 import numpy as np
@@ -1634,3 +1637,114 @@ def test_serve_lm_kv_compress_on_card_equals_the_codec(cuda, capsys):
     assert launches == {k: blocks * (k in ("dct_quant", "idct_dequant"))
                         for k in launches}
     assert comp * 2 == raw
+
+
+# ---------------------------------------------------------------------------
+# LM training (M10b) on the card.
+# ---------------------------------------------------------------------------
+# the smoke granite's steps on the card against the CPU: each loss
+# relative, and the weights' change relative L2 (the CPU trajectory bounds
+# of tests/test_torch_train.py)
+TRAIN_LOSS_BOUND = 2.0 ** -8
+TRAIN_CHANGE_BOUND = 2.0 ** -2
+
+
+def _train_arm(dev, steps=3, seed=0):
+    """The smoke granite drawn on the CPU from ``seed``, trained ``steps``
+    steps on ``dev`` on seeded token batches: the losses, the grad norms
+    and each weight's change (on the CPU, fp32)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
+    from repro_torch.distributed.train import make_train_step
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import build_model
+
+    cfg = get_smoke("granite_8b")
+    model = build_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
+    start = {n: p.detach().float().clone()
+             for n, p in model.named_parameters()}
+    ts = make_train_step(model, AdamW(AdamWConfig(
+        base_lr=1e-3, warmup=1, total_steps=20)), dev)
+    pipe = TokenPipeline(cfg.vocab_size, 2, 64, seed=seed)
+    st, losses, norms = ts.init(), [], []
+    for i in range(steps):
+        st, met = ts.step_fn(st, make_batch(cfg, pipe, i))
+        assert met["loss"].device.type == torch.device(dev).type
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    return losses, norms, {n: p.detach().float().cpu() - start[n]
+                           for n, p in model.named_parameters()}
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    """Three train steps of the smoke granite from one draw of weights, on
+    the card and on the CPU: each loss within ``TRAIN_LOSS_BOUND``, the
+    weights' change within ``TRAIN_CHANGE_BOUND``."""
+    lc, nc, dc = _train_arm("cpu")
+    lg, ng, dg = _train_arm(cuda)
+    for g, c in zip(lg, lc):
+        assert abs(g - c) <= TRAIN_LOSS_BOUND * abs(c), (lg, lc)
+    num = sum(float(torch.sum((dg[n] - dc[n]) ** 2)) for n in dc)
+    den = sum(float(torch.sum(dc[n] ** 2)) for n in dc)
+    assert (num / den) ** 0.5 <= TRAIN_CHANGE_BOUND
+
+
+def test_train_resume_through_a_compressed_checkpoint_on_card(
+        cuda, tmp_path, capsys):
+    """``launch.train --ckpt-compress`` on the card (no device given): 2
+    steps and a checkpoint, then a relaunch that restores it and takes 2
+    more.  The save launches ``encode_levels`` and ``symlen_pack`` once per
+    encode bucket, the restore ``symlen_decode`` and ``lut_idct`` once per
+    decode bucket, and the resumed losses are finite."""
+    from repro_torch.launch import train
+
+    argv = ["--arch", "granite-8b", "--smoke", "--batch", "2", "--seq",
+            "64", "--ckpt-dir", str(tmp_path), "--ckpt-every", "2",
+            "--ckpt-compress", "--log-every", "1"]
+    ops.reset_launches()
+    model, st, _ = train.main(argv + ["--steps", "2"])
+    saved = dict(ops.LAUNCHES)
+    assert model.device.type == "cuda" and st.step.is_cuda
+    with open(tmp_path / "step_000000000002" / "manifest.json") as f:
+        manifest = json.load(f)
+    lengths = [n for leaf in manifest["state"]["leaves"]
+               for n in leaf["lengths"]]
+    buckets = len({p2(-(-n // 64)) for n in lengths})
+    assert saved["encode_levels"] == saved["symlen_pack"] == buckets > 0
+    assert saved["symlen_decode"] == saved["lut_idct"] == 0
+    capsys.readouterr()
+    ops.reset_launches()
+    _, st, losses = train.main(argv + ["--steps", "4"])
+    restored = dict(ops.LAUNCHES)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "resumed from step 2"
+    assert restored["symlen_decode"] == restored["lut_idct"] == 1
+    # the relaunch saves again at step 4
+    assert restored["encode_levels"] == restored["symlen_pack"] == buckets
+    assert int(st.step) == 4 and len(losses) == 2
+    assert all(np.isfinite(losses))
+
+
+def test_train_raw_resume_on_card_is_the_uninterrupted_run(cuda, tmp_path,
+                                                           capsys):
+    """``launch.train`` on the card: 4 steps with a raw checkpoint at 2,
+    relaunched from it, ends bit for bit where an uninterrupted 4-step run
+    ends (weights, m and v): the card's train step is deterministic."""
+    from repro_torch.launch import train
+
+    argv = ["--arch", "granite-8b", "--smoke", "--batch", "2", "--seq",
+            "64", "--ckpt-every", "2", "--log-every", "1"]
+    once, st_once, losses = train.main(
+        argv + ["--steps", "4", "--ckpt-dir", str(tmp_path / "once")])
+    train.main(argv + ["--steps", "2", "--ckpt-dir", str(tmp_path / "b")])
+    model, st, second = train.main(
+        argv + ["--steps", "4", "--ckpt-dir", str(tmp_path / "b")])
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert second == losses[2:]
+    for (name, p), (_, q) in zip(model.named_parameters(),
+                                 once.named_parameters()):
+        assert p.is_cuda and torch.equal(p, q), name
+        assert torch.equal(st.m[name], st_once.m[name]), name
+        assert torch.equal(st.v[name], st_once.v[name]), name

@@ -289,6 +289,42 @@ def test_train_state_containers_roundtrip():
     assert blob < arrays["m"].nbytes * 0.8  # actually compressed
 
 
+def test_engine_calls_cover_the_shards_in_runs_under_the_budget():
+    from repro_torch.serving.workloads import MAX_CALL_SAMPLES, engine_calls
+
+    assert engine_calls([]) == []
+    assert engine_calls([5] * 4, budget=10) == [slice(0, 2), slice(2, 4)]
+    assert engine_calls([5, 5, 3, 12, 1], budget=10) == [
+        slice(0, 2), slice(2, 3), slice(3, 4), slice(4, 5)]
+    full = 1 << 16  # a 2-layer granite-8b state's m and v: 25600 shards
+    calls = engine_calls([full] * 25600)
+    assert [c.stop - c.start for c in calls] == [16384, 9216]
+    assert MAX_CALL_SAMPLES == 1 << 30
+
+
+def test_state_in_several_engine_calls_is_the_one_call_state(monkeypatch):
+    """A state split over several engine calls gives the one-call
+    containers byte for byte, and decodes in several calls to the same
+    leaves."""
+    from repro_torch.serving import workloads as wl
+
+    rng = np.random.default_rng(2)
+    arrays = {"m": _smooth(rng, (64, 64)), "v": _smooth(rng, (48, 32))}
+    tables = calibrate_train_state(arrays)
+    one, manifest = state_to_containers(arrays, tables, shard_len=1024,
+                                        device="cpu")
+    whole = state_from_containers(one, manifest, tables, device="cpu")
+    monkeypatch.setattr(wl, "MAX_CALL_SAMPLES", 2048)
+    assert len(wl.engine_calls([c.signal_length for c in one])) == 3
+    split, manifest2 = state_to_containers(arrays, tables, shard_len=1024,
+                                           device="cpu")
+    assert manifest2 == manifest
+    assert [c.to_bytes() for c in split] == [c.to_bytes() for c in one]
+    back = state_from_containers(split, manifest, tables, device="cpu")
+    for k in arrays:
+        assert np.array_equal(back[k], whole[k])
+
+
 def test_train_state_strip_and_calibration_match_reference():
     """The strip is the reference's bit for bit (the subsampled runs
     included, torch leaves on the way); the tables follow the
