@@ -7,11 +7,13 @@ Port of ``repro/launch/serve_lm.py``.
 
 The reference's flags, plus ``--device`` (default: the card; ``cpu`` runs
 the same arithmetic on the host), ``--seed`` (weights and prompts) and
-``--kv-compress``: after prefill, every layer's prefilled ``[:, :S]`` k and
-v block is compressed (K5) and decompressed (K3) in place through
-``KVCacheCodec``, each on a table calibrated on that block, and the
-cache's bytes before and after are printed; ``S`` must be a multiple of
-the ``kv`` domain's window.  Decode starts at position ``S`` (a VLM's
+``--kv-compress``: after prefill, every layer's prefilled attention-cache
+block (``cache_blocks``: k and v ``[:, :S]``, the hybrid's ring over its
+valid slots, MLA's latents) is compressed (K5) and decompressed (K3) in
+place through ``KVCacheCodec``, each on a table calibrated on that block,
+and the cache's bytes before and after are printed; each block's length
+must be a multiple of the ``kv`` domain's window.  The hybrid's SSM state
+stays raw.  Decode starts at position ``S`` (a VLM's
 patch prefix included) and the cache holds ``S + gen`` slots.
 """
 from __future__ import annotations
@@ -29,34 +31,47 @@ from repro_torch.models import build_model
 from repro_torch.serving.engine import resolve_device
 from repro_torch.serving.workloads import KVCacheCodec
 
-__all__ = ["main", "compress_cache"]
+__all__ = ["main", "compress_cache", "cache_blocks"]
 
 MULTI_DEVICE = ("ROADMAP queue 1, item 6 (M10: the multi-device layer — LM "
                 "sharding)")
 
 
-def compress_cache(codec: KVCacheCodec, cache, s: int) -> Tuple[int, int]:
-    """Compress and decompress every layer's prefilled ``[:, :s]`` k and v
-    block of ``cache`` in place through ``codec``, each on a table
-    calibrated on that block (one per (group, k/v, layer): a table shared
-    across a group's layers clips the deeper layers' token-axis DC, whose
-    range layer 0 does not reach).  Returns the blocks' raw bytes and
-    their compressed bytes."""
-    n = codec.config.n
-    if s % n:
-        raise ValueError(f"{s} prefilled slots: the kv domain compresses "
-                         f"windows of {n} tokens, so S must be a multiple "
-                         f"of {n}")
-    raw = comp = 0
+def cache_blocks(cache, s: int):
+    """``(table group, block)`` of every attention-cache block a prefill
+    of ``s`` slots filled, each a ``[B, s', H, D]`` view of one layer:
+    ``k``/``v`` ``[:, :s]``, the hybrid's ring over its ``min(s, T)``
+    valid slots, MLA's ``ckv``/``kr`` latents as one-head blocks.  The
+    SSM state (``conv``, ``ssm``) is not a token axis and stays raw."""
     for g, grp in cache.items():
-        for key in ("k", "v"):
-            for layer, kv in enumerate(grp[key]):  # [B, T, KV, hd] views
-                block = kv[:, :s]
-                codec.calibrate(block, layer=(g, key, layer))
-                ckv = codec.compress(block, layer=(g, key, layer))
-                block.copy_(codec.decompress(ckv, layer=(g, key, layer)))
-                raw += ckv.raw_nbytes()
-                comp += ckv.nbytes
+        for key, t in grp.items():
+            if key in ("conv", "ssm"):
+                continue
+            for layer, kv in enumerate(t):
+                if kv.dim() == 3:  # [B, T, R] latent
+                    kv = kv.unsqueeze(2)
+                yield (g, key, layer), kv[:, :min(s, kv.shape[1])]
+
+
+def compress_cache(codec: KVCacheCodec, cache, s: int) -> Tuple[int, int]:
+    """Compress and decompress every block of ``cache_blocks(cache, s)``
+    in place through ``codec``, each on a table calibrated on that block
+    (one per (group, key, layer): a table shared across a group's layers
+    clips the deeper layers' token-axis DC, whose range layer 0 does not
+    reach).  Returns the blocks' raw bytes and their compressed bytes."""
+    n = codec.config.n
+    raw = comp = 0
+    for name, block in cache_blocks(cache, s):
+        if block.shape[1] % n:
+            raise ValueError(
+                f"{name}: {block.shape[1]} prefilled slots: the kv domain "
+                f"compresses windows of {n} tokens, so S must be a "
+                f"multiple of {n}")
+        codec.calibrate(block, layer=name)
+        ckv = codec.compress(block, layer=name)
+        block.copy_(codec.decompress(ckv, layer=name))
+        raw += ckv.raw_nbytes()
+        comp += ckv.nbytes
     return raw, comp
 
 

@@ -14,9 +14,11 @@ newest checkpoint in ``--ckpt-dir``: kill it mid-run and relaunch.
 
 The reference's flags, plus ``--device`` (default: the card; ``cpu`` runs
 the same arithmetic on the host) and ``--seed`` (weights and data).
-``--data`` or ``--model-par`` above 1 and families outside the port raise
-``NotImplementedError``; ``--compression`` is accepted and, on one device,
-leaves the step uncompressed, as the reference does without a pod axis.
+``--data`` or ``--model-par`` above 1, families outside the port and the
+MoE, MLA and hybrid families (served, not trained yet: ``UNTRAINED``)
+raise ``NotImplementedError``; ``--compression`` is accepted and, on one
+device, leaves the step uncompressed, as the reference does without a pod
+axis.
 """
 from __future__ import annotations
 
@@ -39,6 +41,15 @@ __all__ = ["main", "make_batch"]
 
 MULTI_DEVICE = ("ROADMAP queue 1, item 6 (M10d: the multi-device layer — "
                 "data and model parallelism)")
+UNTRAINED = ("ROADMAP queue 1, item 6 (M10c training: the MoE, MLA and "
+             "hybrid backward)")
+
+
+def untrained(cfg) -> str:
+    """What of ``cfg`` the port serves but does not train yet, or ''."""
+    return ", ".join(what for what, present in (
+        ("MoE layers", cfg.moe_num_experts), ("MLA attention", cfg.mla),
+        ("the hybrid SSM branch", cfg.hybrid_parallel)) if present)
 
 
 def make_batch(cfg, pipe: TokenPipeline, step: int) -> dict:
@@ -84,6 +95,11 @@ def main(argv=None):
             f"trains on one device; see {MULTI_DEVICE}")
 
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
+    what = untrained(cfg)
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves {what} but its backward is not "
+            f"held against the reference yet; see {UNTRAINED}")
     dev = resolve_device(args.device)
     model = build_model(cfg, device=dev, generator=torch.Generator(
         device=dev).manual_seed(args.seed))

@@ -1,4 +1,4 @@
-"""Model API: one interface over the dense and VLM architectures.
+"""Model API: one interface over the architectures the port runs.
 Port of ``repro/models/api.py``.
 
 ``build_model(cfg)`` returns a :class:`Model`, an ``nn.Module`` holding its
@@ -6,16 +6,20 @@ weights, with:
   * ``param_specs()``      — the reference's ParamSpec tree (layers stacked)
   * ``loss(batch)``        — next-token CE loss (its backward: the train
                              step, ``distributed/train.py``)
-  * ``prefill(batch, max_len)`` — full-sequence forward + KV cache
+  * ``prefill(batch, max_len)`` — full-sequence forward + decode cache
   * ``decode_step(cache, tokens, pos)`` — one-token serve step
   * ``cache_specs(batch, max_len)`` — ParamSpec tree for the decode cache
   * ``batch_specs(batch, seq)`` — ParamSpec tree for input batches
 
 Batches are dicts: tokens/labels int[B, S]; VLM adds patch_embeds
-[B, P, d].  The decode cache is ``{"group<i>": {"k", "v"}}`` of
-``[L, B, T, KV, hd]`` bf16 tensors, laid out as the reference lays it out;
-``decode_step`` writes slot ``pos`` in place and returns the cache.  The
-families outside the slice (MoE, MLA, SSM, hybrid, audio) raise
+[B, P, d].  The decode cache is ``{"group<i>": {...}}`` of tensors stacked
+on a leading layer axis, laid out as the reference lays it out: bf16
+``"k"``/``"v"`` ``[L, B, T, KV, hd]``; MLA's latent ``"ckv"`` ``[L, B, T,
+kv_lora]`` and ``"kr"`` ``[L, B, T, rope]``; the hybrid family's k/v are a
+ring of ``min(max_len, window)`` slots (position p in slot ``p % T``)
+beside its SSM state, ``"conv"`` bf16 ``[L, B, k-1, d_in]`` and ``"ssm"``
+fp32 ``[L, B, d_in, N]``.  ``decode_step`` writes the cache in place and
+returns it.  RWKV (``ssm``) and the encoder-decoder (``audio``) raise
 ``NotImplementedError``.  The weights are built without gradients (the
 serving path); ``model.requires_grad_(True)`` makes them take gradients,
 as ``make_train_step`` does.
@@ -29,6 +33,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (
     ParamSpec,
@@ -161,9 +166,12 @@ class Model(Params):
     def init_weights(self, generator: torch.Generator) -> None:
         """Draw every leaf on the model's device, each decoder layer's
         from that layer's own specs (``layer_specs``), so a normal
-        matrix's fan-in is its leading axis.  The reference draws a
-        stacked ``[L, ...]`` leaf whole, which makes its fan-in the layer
-        count L (ROADMAP queue 3, R7)."""
+        matrix's fan-in is its leading axis, and each expert of an
+        ``experts`` leaf from that expert's own matrix (fan-in d for
+        ``wi``/``wg``, the expert width for ``wo``; no fp32 copy of the
+        whole stack).  The reference draws a stacked ``[L, ...]`` leaf
+        whole, which makes its fan-in the layer count L, and an expert
+        stack's the expert count (ROADMAP queue 3, R7)."""
         dev = self.device
         for name, spec in self.param_specs().items():
             if isinstance(spec, ParamSpec):
@@ -173,7 +181,13 @@ class Model(Params):
                 p = layer
                 for k in path:
                     p = p[k]
-                p.copy_(s.initializer(generator, dev))
+                if s.names[0] != "experts":
+                    p.copy_(s.initializer(generator, dev))
+                    continue
+                one = ParamSpec(s.shape[1:], s.names[1:], dtype=s.dtype,
+                                init=s.init, scale=s.scale)
+                for e in range(s.shape[0]):
+                    p[e].copy_(one.initializer(generator, dev))
 
     def layers(self):
         """(group name, layer index, layer) of every decoder layer."""
@@ -206,7 +220,9 @@ class Model(Params):
         return x
 
     def _rope(self, positions: torch.Tensor):
-        return rope(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        cfg = self.cfg
+        dim = cfg.mla_qk_rope_dim if cfg.mla else cfg.head_dim
+        return rope(positions, dim, cfg.rope_theta)
 
     # ----------------------------------------------------------------- loss
     def loss(self, batch, *, remat: bool = True) -> torch.Tensor:
@@ -231,13 +247,32 @@ class Model(Params):
     # -------------------------------------------------------------- serving
     def cache_specs(self, batch: int, max_len: int) -> PyTree:
         cfg = self.cfg
+        dt = torch.bfloat16
+        names = ("layers", "batch", "seq", None)
         caches = {}
         for gi, g in enumerate(tfm.layer_groups(cfg)):
-            shape = (g.count, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-            names = ("layers", "batch", "seq", "kv_heads", None)
-            caches[f"group{gi}"] = {
-                kv: ParamSpec(shape, names, dtype=torch.bfloat16,
-                              init="zeros") for kv in ("k", "v")}
+            if cfg.mla:
+                c = {key: ParamSpec((g.count, batch, max_len, width), names,
+                                    dtype=dt, init="zeros")
+                     for key, width in (("ckv", cfg.mla_kv_lora_rank),
+                                        ("kr", cfg.mla_qk_rope_dim))}
+            else:
+                t = (min(max_len, cfg.window) if tfm.ring_cache(cfg)
+                     else max_len)
+                shape = (g.count, batch, t, cfg.num_kv_heads, cfg.head_dim)
+                c = {kv: ParamSpec(shape, names[:3] + ("kv_heads", None),
+                                   dtype=dt, init="zeros")
+                     for kv in ("k", "v")}
+            if cfg.hybrid_parallel:
+                d_in, _, n, k = ssm._dims(cfg)
+                c["conv"] = ParamSpec(
+                    (g.count, batch, k - 1, d_in),
+                    ("layers", "batch", None, "ffn"), dtype=dt, init="zeros")
+                c["ssm"] = ParamSpec(
+                    (g.count, batch, d_in, n),
+                    ("layers", "batch", "ffn", None), dtype=torch.float32,
+                    init="zeros")
+            caches[f"group{gi}"] = c
         return caches
 
     def init_cache(self, batch: int, max_len: int) -> PyTree:
@@ -248,17 +283,28 @@ class Model(Params):
     def prefill(self, batch, max_len: int):
         """Run the full prompt, return (last-token logits, decode cache).
 
-        Each layer's (k, v) lands in a zero cache of ``max(S, max_len)``
+        Each layer's cache lands in a zero cache of ``max(S, max_len)``
         slots, so the slots past S stay exact zeros (the reference's
-        ``_pad_prefill_cache``, in place)."""
+        ``_pad_prefill_cache``, in place).  The hybrid's ring keeps the
+        last ``min(S, T)`` positions, position p in slot ``p % T``, the
+        slots past S zero when S < T.  The reference keeps only S slots
+        then, and its decode overwrites token 0 (ROADMAP queue 3, R10)."""
         x = self._inputs(batch)
         b, s = x.shape[:2]
         sin, cos = self._rope(torch.arange(s, device=self.device))
         cache = self.init_cache(b, max(s, max_len))
         for g, li, layer in self.layers():
-            x, (k, v) = layer(x, sin, cos)
-            cache[g]["k"][li, :, :s] = k
-            cache[g]["v"][li, :, :s] = v
+            x, lc = layer(x, sin, cos)
+            for key, t in lc.items():
+                dst = cache[g][key][li]
+                if key in ("conv", "ssm"):
+                    dst.copy_(t)
+                elif key in ("k", "v") and tfm.ring_cache(self.cfg):
+                    lo = max(0, s - dst.shape[1])
+                    slots = torch.arange(lo, s, device=self.device)
+                    dst.index_copy_(1, slots % dst.shape[1], t[:, lo:])
+                else:
+                    dst[:, :s] = t
         logits = self._logits(x[:, -1:, :])[:, 0]
         return logits, cache
 
@@ -271,7 +317,7 @@ class Model(Params):
         x = self._embed(tokens)
         sin, cos = self._rope(pos.expand(tokens.shape[0], 1))
         for g, li, layer in self.layers():
-            lc = {k: cache[g][k][li] for k in ("k", "v")}
+            lc = {k: t[li] for k, t in cache[g].items()}
             x, _ = layer.decode(x, sin, cos, lc, pos)
         logits = self._logits(x)[:, 0]
         return logits, cache

@@ -37,6 +37,7 @@ __all__ = [
     "Dense",
     "rounded",
     "needs_grad",
+    "silu",
 ]
 
 PyTree = Any
@@ -181,6 +182,36 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
     var = xf.var(-1, keepdim=True, unbiased=False)
     normed = (xf - mu) * torch.rsqrt(var + eps)
     return (normed * weight.float() + bias.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activation
+# ---------------------------------------------------------------------------
+def _silu(x):
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+class _SiLU(torch.autograd.Function):
+    """``silu`` whose backward is JAX's (``logistic``'s rule ``d * (1 -
+    d)``), every step in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _silu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        d = 1 / (1 + torch.exp(-x))
+        return g * d + (x * g) * (d * (1 - d))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference's CPU lowering computes it, every
+    step in x's dtype; under autograd its backward is the reference's
+    (``_SiLU``)."""
+    return _SiLU.apply(x) if needs_grad(x) else _silu(x)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,9 @@ axis; the port keeps one module per layer, and m and v per parameter
 
 * ``params_from_jax(tree, model)`` loads a reference parameter tree
   (``jax.tree_util.tree_map(np.asarray, params)``) into a
-  :class:`~repro_torch.models.api.Model`, one layer at a time;
+  :class:`~repro_torch.models.api.Model`, one layer at a time, every leaf
+  in its own dtype (the MoE router and the SSM's ``dt_bias``, ``A_log``
+  and ``D`` are fp32; expert stacks ``[E, ...]`` stay whole per layer);
   ``opt_state_from_jax(state, model)`` turns the reference's ``OptState``
   into the port's.
 * ``train_state_tree(model, opt_state)`` is the port's training state as
@@ -177,7 +179,9 @@ def load_train_state(tree: Mapping, model, opt_state, step: int,
 
 
 def cache_from_jax(tree: Mapping, device=None) -> dict:
-    """The reference's decode cache (nested dicts of ``[L, B, T, KV, hd]``
-    arrays) as the port's, on ``device``."""
+    """The reference's decode cache (nested dicts of arrays stacked on the
+    layer axis: ``k``/``v``, MLA's ``ckv``/``kr``, the hybrid's ``conv``
+    and fp32 ``ssm``) as the port's, each leaf in its own dtype, on
+    ``device``."""
     return {k: cache_from_jax(v, device) if isinstance(v, Mapping)
             else to_torch(v, device) for k, v in tree.items()}

@@ -1,12 +1,16 @@
-"""Composable decoder-only transformer: GQA, dense FFN, local-global windows.
-Port of ``repro/models/transformer.py`` for the dense and VLM families.
+"""Composable decoder-only transformer: GQA / MoE / MLA / local-global /
+the hybrid SSM branch.  Port of ``repro/models/transformer.py``.
 
 One decoder layer is a :class:`DecoderLayer` module and a group of layers
 an ``nn.ModuleList``; the reference's ``lax.scan`` over stacked
 ``[count, ...]`` weights becomes a Python loop over layers, and each
-layer's ``window`` (0 = global) is a plain integer.  MLA, MoE and the
-hybrid SSM branch raise :class:`NotImplementedError` (ROADMAP queue 1,
-M10: the other families).
+layer's ``window`` (0 = global) is a plain integer.  Deepseek's leading
+dense layers before its MoE stack stay a group of their own
+(``layer_groups``).  The MoE layer is the reference's single-device
+dispatch (capacity, keep and drop rule, gates) computed with index
+operations; the expert-parallel dispatch of ``moe_distributed.py`` is the
+multi-device layer's (ROADMAP queue 1, item 6, M10d).  RWKV and the
+encoder-decoder raise :class:`NotImplementedError` (``OUT_OF_SLICE``).
 """
 from __future__ import annotations
 
@@ -16,7 +20,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.models import ssm
 from repro_torch.models.common import (
+    MASKED,
     ParamSpec,
     Params,
     apply_rope,
@@ -25,24 +31,19 @@ from repro_torch.models.common import (
     needs_grad,
     rms_norm,
     rounded,
+    silu,
 )
 from repro_torch.models.config import ArchConfig
 
 GLOBAL_WINDOW = 2 ** 30  # a window of 0 means global
-OUT_OF_SLICE = ("ROADMAP queue 1, item 6 (M10: the other families — MoE, "
-                "MLA, the hybrid SSM, RWKV, the encoder-decoder)")
+OUT_OF_SLICE = ("ROADMAP queue 1, item 6 (M10c, second half: RWKV and the "
+                "encoder-decoder)")
 
 
 def out_of_slice(cfg: ArchConfig) -> Optional[str]:
-    """Why ``cfg`` is outside the port's dense and VLM families, or None."""
-    if cfg.family not in ("dense", "vlm"):
+    """Why ``cfg`` is outside the families the port runs, or None."""
+    if cfg.family in ("ssm", "audio"):
         return f"family {cfg.family!r}"
-    if cfg.mla:
-        return "MLA attention"
-    if cfg.moe_num_experts:
-        return "MoE layers"
-    if cfg.hybrid_parallel:
-        return "the hybrid SSM branch"
     return None
 
 
@@ -54,6 +55,12 @@ def require_slice(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {why} is not ported to repro_torch yet; see "
             f"{OUT_OF_SLICE}")
+
+
+def ring_cache(cfg: ArchConfig) -> bool:
+    """Whether the k/v cache is a sliding ring of ``min(max_len, window)``
+    slots (the hybrid family's): position p lives in slot ``p % T``."""
+    return cfg.family == "hybrid" and bool(cfg.window)
 
 
 def _window(window: int, present: bool) -> Optional[int]:
@@ -112,15 +119,101 @@ def gqa_apply_train(cfg: ArchConfig, p, x, sin, cos, window: int):
 def gqa_apply_decode(cfg: ArchConfig, p, x, sin, cos, window: int, kc, vc,
                      pos: torch.Tensor):
     """Single-token decode; kc/vc: this layer's ``[B, T, KV, hd]`` caches,
-    written at slot ``pos`` (a 0-d device tensor) in place and returned."""
+    written in place and returned; ``pos`` is a 0-d device tensor.  The
+    hybrid family's cache is a ring of T slots: position ``pos`` lands in
+    slot ``pos % T`` and every valid slot is in the window."""
     q, k, v = gqa_qkv(cfg, p, x, sin, cos)
-    slot = pos.reshape(1)
+    t = kc.shape[1]
+    ring = ring_cache(cfg)
+    slot = (pos % t if ring else pos).reshape(1)
     kc.index_copy_(1, slot, k)
     vc.index_copy_(1, slot, v)
-    win = _window(window, bool(cfg.window or cfg.local_global_pattern))
-    out = decode_attention(q, kc, vc, pos + 1, softcap=cfg.attn_softcap,
-                           window=win)
+    if ring:
+        out = decode_attention(q, kc, vc, torch.clamp(pos + 1, max=t),
+                               softcap=cfg.attn_softcap)
+    else:
+        win = _window(window, bool(cfg.window or cfg.local_global_pattern))
+        out = decode_attention(q, kc, vc, pos + 1, softcap=cfg.attn_softcap,
+                               window=win)
     return _merge_heads(out, p["wo"]), (kc, vc)
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3) attention
+# ---------------------------------------------------------------------------
+def mla_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.mla_q_lora_rank, cfg.mla_kv_lora_rank
+    nope, rpe, vd = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim, cfg.mla_v_dim
+    dt = torch.bfloat16
+    return {
+        "wq_a": ParamSpec((d, qr), ("hidden", "rank"), dtype=dt),
+        "q_norm": ParamSpec((qr,), ("rank",), dtype=dt, init="ones"),
+        "wq_b": ParamSpec((qr, h, nope + rpe), ("rank", "heads", None),
+                          dtype=dt),
+        "wkv_a": ParamSpec((d, kvr + rpe), ("hidden", "rank"), dtype=dt),
+        "kv_norm": ParamSpec((kvr,), ("rank",), dtype=dt, init="ones"),
+        "wkv_b": ParamSpec((kvr, h, nope + vd), ("rank", "heads", None),
+                           dtype=dt),
+        "wo": ParamSpec((h, vd, d), ("heads", None, "hidden"), dtype=dt),
+    }
+
+
+def _mla_q(cfg: ArchConfig, p, x, sin, cos):
+    """(q_nope, q_rope) ``[B, S, H, nope]``, ``[B, S, H, rope]``."""
+    nope = cfg.mla_qk_nope_dim
+    q = _heads(rms_norm(x @ p["wq_a"], p["q_norm"]), p["wq_b"])
+    return q[..., :nope], apply_rope(q[..., nope:], sin, cos)
+
+
+def _mla_latent(cfg: ArchConfig, p, x, sin, cos):
+    """(c_kv ``[B, S, kv_lora]``, k_rope ``[B, S, 1, rope]``): what the
+    cache keeps."""
+    kvr = cfg.mla_kv_lora_rank
+    ckv_full = x @ p["wkv_a"]  # [B, S, kvr + rope]
+    c_kv = rms_norm(ckv_full[..., :kvr], p["kv_norm"])
+    return c_kv, apply_rope(ckv_full[..., None, kvr:], sin, cos)
+
+
+def mla_apply_train(cfg: ArchConfig, p, x, sin, cos, window: int):
+    """Full-sequence MLA: the latent expanded to per-head keys (qk
+    ``nope + rope`` wide) and values (``v_dim``).  Returns the block's
+    output and this layer's (c_kv, k_rope)."""
+    del window
+    nope, rpe = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim
+    q_nope, q_rope = _mla_q(cfg, p, x, sin, cos)
+    c_kv, k_rope = _mla_latent(cfg, p, x, sin, cos)
+    kvx = _heads(c_kv, p["wkv_b"])
+    k_nope, v = kvx[..., :nope], kvx[..., nope:]
+    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], rpe)], -1)
+    out = attention(torch.cat([q_nope, q_rope], -1), k, v, causal=True,
+                    q_chunk=1024, scale=1.0 / math.sqrt(nope + rpe))
+    return _merge_heads(out, p["wo"]), (c_kv, k_rope[:, :, 0, :])
+
+
+def mla_apply_decode(cfg: ArchConfig, p, x, sin, cos, window: int, ckv_c,
+                     kr_c, pos: torch.Tensor):
+    """Absorbed-matmul MLA decode: attention runs in the latent space, so
+    the cache stays ``[B, T, kv_lora]`` (+ ``[B, T, rope]``), written at
+    slot ``pos`` in place.  Scores in fp32, probabilities in bf16."""
+    del window
+    nope, rpe = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim
+    q_nope, q_rope = _mla_q(cfg, p, x, sin, cos)  # s == 1
+    c_kv, k_rope = _mla_latent(cfg, p, x, sin, cos)
+    slot = pos.reshape(1)
+    ckv_c.index_copy_(1, slot, c_kv)
+    kr_c.index_copy_(1, slot, k_rope[:, :, 0, :])
+    wkb = p["wkv_b"]  # [kvr, H, nope + vd]
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wkb[..., :nope])
+    scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), ckv_c.float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             kr_c.float())) * (1.0 / math.sqrt(nope + rpe))
+    mask = torch.arange(ckv_c.shape[1], device=x.device) <= pos
+    scores.masked_fill_(~mask, MASKED)
+    probs = torch.softmax(scores, dim=-1)
+    out_lat = torch.einsum("bhst,btr->bshr", probs.to(ckv_c.dtype), ckv_c)
+    out = torch.einsum("bshr,rhk->bshk", out_lat, wkb[..., nope:])
+    return _merge_heads(out, p["wo"]), (ckv_c, kr_c)
 
 
 # ---------------------------------------------------------------------------
@@ -150,10 +243,6 @@ def _gelu(x):
     return x * (0.5 * (1 + torch.tanh(c * (x + a * (x * x * x)))))
 
 
-def _silu(x):
-    return x * (1 / (1 + torch.exp(-x)))
-
-
 class _GELU(torch.autograd.Function):
     """Tanh-``gelu`` whose backward is JAX's derivative of the reference's
     expression, every step in x's dtype (XLA's CPU lowering rounds each)."""
@@ -174,31 +263,14 @@ class _GELU(torch.autograd.Function):
         return (g * (0.5 * (1 + t)) + s) + (a * s) * (3 * x2)
 
 
-class _SiLU(torch.autograd.Function):
-    """``silu`` whose backward is JAX's (``logistic``'s rule ``d * (1 -
-    d)``), every step in x's dtype."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return _silu(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        d = 1 / (1 + torch.exp(-x))
-        return g * d + (x * g) * (d * (1 - d))
-
-
 def _act(cfg: ArchConfig, x):
     """``jax.nn.gelu(approximate=True)`` or ``jax.nn.silu``, written out
     as the reference computes them: every step in x's dtype, the
     constants rounded to it.  Under autograd the backward is the
-    reference's too (``_GELU``, ``_SiLU``)."""
-    gelu = cfg.ffn_activation == "gelu"
-    if needs_grad(x):
-        return (_GELU if gelu else _SiLU).apply(x)
-    return _gelu(x) if gelu else _silu(x)
+    reference's too (``_GELU``, ``common._SiLU``)."""
+    if cfg.ffn_activation != "gelu":
+        return silu(x)
+    return _GELU.apply(x) if needs_grad(x) else _gelu(x)
 
 
 def ffn_apply(cfg: ArchConfig, p, x):
@@ -210,12 +282,94 @@ def ffn_apply(cfg: ArchConfig, p, x):
 
 
 # ---------------------------------------------------------------------------
-# Decoder layer
+# MoE block (the reference's single-device dispatch, by index operations)
+# ---------------------------------------------------------------------------
+def moe_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    eff = cfg.moe_d_ff or cfg.d_ff
+    ne = cfg.moe_num_experts
+    dt = torch.bfloat16
+    p: Dict[str, Any] = {
+        "router": ParamSpec((d, ne), ("hidden", None), dtype=torch.float32),
+        "wi": ParamSpec((ne, d, eff), ("experts", "hidden", None), dtype=dt),
+        "wg": ParamSpec((ne, d, eff), ("experts", "hidden", None), dtype=dt),
+        "wo": ParamSpec((ne, eff, d), ("experts", None, "hidden"), dtype=dt),
+    }
+    if cfg.moe_num_shared:
+        p["shared"] = ffn_specs(cfg, d_ff=eff * cfg.moe_num_shared)
+    return p
+
+
+def moe_capacity(cfg: ArchConfig, n_tok: int) -> int:
+    """Slots per expert for ``n_tok`` tokens: twice the mean load, at
+    least 4, at most ``n_tok``."""
+    cap = max(int(2 * n_tok * cfg.moe_top_k / cfg.moe_num_experts), 4)
+    return min(cap, n_tok)
+
+
+def moe_apply(cfg: ArchConfig, p, x, stats: Optional[dict] = None):
+    """Top-k routed experts + the optional shared expert; x ``[B, S, d]``.
+
+    The reference's single-device semantics: fp32 router logits, ``top_k``
+    then a softmax over the k gates; each (token, k) pair takes the next
+    slot of its expert's ``moe_capacity`` in (token, k) order, and pairs
+    past capacity are dropped (only the shared expert sees them).  The
+    reference builds one-hot ``[E, T, C]`` dispatch and ``[T, C, E]``
+    combine tensors; here the kept rows are gathered into an ``[E, C, d]``
+    buffer, the experts run as three batched matmuls, and each pair's
+    output is gathered back and summed with its bf16 gate (0 for a
+    dropped pair) in fp32, rounded once.  ``stats``, when given, receives
+    the 0-d device tensors ``dropped`` (pairs) and ``experts_hit``
+    (experts with a pair): no host sync."""
+    b, s, d = x.shape
+    ne, topk = cfg.moe_num_experts, cfg.moe_top_k
+    n_tok = b * s
+    xf = x.reshape(n_tok, d)
+    logits = xf.float() @ p["router"]  # [T, E]
+    gates, chosen = torch.topk(logits, topk, dim=-1)  # descending
+    gates = torch.softmax(gates, dim=-1).to(x.dtype).float()
+    cap = moe_capacity(cfg, n_tok)
+
+    # each pair's position within its expert, counted in (token, k) order
+    flat = chosen.reshape(-1)
+    onehot = torch.zeros((n_tok * topk, ne), dtype=torch.int32,
+                         device=x.device).scatter_(1, flat[:, None], 1)
+    seen = onehot.cumsum(0, dtype=torch.int32)  # [T*k, E]
+    pos = seen.gather(1, flat[:, None])[:, 0] - 1
+    keep = pos < cap
+    trash = ne * cap  # one slot past the experts': dropped pairs go there
+    dest = torch.where(keep, flat * cap + pos, trash)
+
+    # dispatch: each slot reads its token's row; an empty slot reads row
+    # 0, and its output is never read
+    src = torch.zeros((trash + 1,), dtype=torch.long, device=x.device)
+    src.index_copy_(0, dest, torch.arange(n_tok * topk, device=x.device)
+                    // topk)
+    expert_in = xf[src[:trash]].view(ne, cap, d)
+    h = _act(cfg, torch.bmm(expert_in, p["wg"])) * torch.bmm(expert_in,
+                                                             p["wi"])
+    expert_out = torch.bmm(h, p["wo"]).view(trash, d)  # [E * C, d]
+
+    # combine: each pair's row with its gate; a dropped pair's gate is 0
+    rows = expert_out[dest.clamp(max=trash - 1)].view(n_tok, topk, d)
+    gates = torch.where(keep.view(n_tok, topk), gates, 0.0)
+    acc = rows[:, 0].float() * gates[:, 0:1]
+    for j in range(1, topk):
+        acc = acc + rows[:, j].float() * gates[:, j:j + 1]
+    out = acc.to(x.dtype).view(b, s, d)
+    if stats is not None:
+        stats["dropped"] = (~keep).sum()
+        stats["experts_hit"] = (seen[-1] > 0).sum()
+    if cfg.moe_num_shared:
+        out = out + ffn_apply(cfg, p["shared"], x)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Decoder layer (dense or moe ffn; gqa or mla attention; optional ssm branch)
 # ---------------------------------------------------------------------------
 def layer_specs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
-    """A dense layer's specs (``require_slice`` refuses MoE layers)."""
     require_slice(cfg)
-    del kind
     d = cfg.d_model
     dt = torch.bfloat16
     p: Dict[str, Any] = {
@@ -225,8 +379,12 @@ def layer_specs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
     if cfg.post_block_norms:
         p["ln1_post"] = ParamSpec((d,), (None,), dtype=dt, init="ones")
         p["ln2_post"] = ParamSpec((d,), (None,), dtype=dt, init="ones")
-    p["attn"] = gqa_specs(cfg)
-    p["ffn"] = ffn_specs(cfg)
+    p["attn"] = mla_specs(cfg) if cfg.mla else gqa_specs(cfg)
+    if cfg.hybrid_parallel:
+        p["ssm"] = ssm.mamba_specs(cfg)
+        p["ssm_norm"] = ParamSpec((d,), (None,), dtype=dt, init="ones")
+        p["attn_norm"] = ParamSpec((d,), (None,), dtype=dt, init="ones")
+    p["ffn"] = moe_specs(cfg) if kind == "moe" else ffn_specs(cfg)
     return p
 
 
@@ -234,53 +392,82 @@ def _norm_offset(cfg: ArchConfig) -> float:
     return 1.0 if cfg.post_block_norms else 0.0
 
 
-def _ffn_residual(cfg: ArchConfig, p, x, attn_out):
+def _hybrid(p, attn_out, ssm_out):
+    """The hybrid's two branches, each normalized, averaged."""
+    return 0.5 * (rms_norm(attn_out, p["attn_norm"])
+                  + rms_norm(ssm_out, p["ssm_norm"]))
+
+
+def _ffn_residual(cfg: ArchConfig, kind: str, p, x, attn_out, stats):
     if cfg.post_block_norms:
         attn_out = rms_norm(attn_out, p["ln1_post"], offset=1.0)
     x = x + attn_out
     h = rms_norm(x, p["ln2"], offset=_norm_offset(cfg))
-    ffn_out = ffn_apply(cfg, p["ffn"], h)
+    if kind == "moe":
+        ffn_out = moe_apply(cfg, p["ffn"], h, stats)
+    else:
+        ffn_out = ffn_apply(cfg, p["ffn"], h)
     if cfg.post_block_norms:
         ffn_out = rms_norm(ffn_out, p["ln2_post"], offset=1.0)
     return x + ffn_out
 
 
 def layer_apply_train(cfg: ArchConfig, kind: str, p, x, sin, cos,
-                      window: int):
-    """Returns (x_out, (k, v)): prefill keeps the layer's cache, the loss
-    drops it."""
-    del kind  # dense only
+                      window: int, stats: Optional[dict] = None):
+    """Returns (x_out, this layer's cache): ``{"k", "v"}`` or MLA's
+    ``{"ckv", "kr"}`` over the S positions, plus the hybrid's final
+    ``{"conv", "ssm"}`` state.  Prefill keeps the cache, the loss drops
+    it.  ``stats``: see :func:`moe_apply`."""
     h = rms_norm(x, p["ln1"], offset=_norm_offset(cfg))
-    attn_out, kv = gqa_apply_train(cfg, p["attn"], h, sin, cos, window)
-    return _ffn_residual(cfg, p, x, attn_out), kv
+    attn_fn = mla_apply_train if cfg.mla else gqa_apply_train
+    attn_out, kv = attn_fn(cfg, p["attn"], h, sin, cos, window)
+    cache = dict(zip(("ckv", "kr") if cfg.mla else ("k", "v"), kv))
+    if cfg.hybrid_parallel:
+        ssm_out, cache["conv"], cache["ssm"] = ssm.mamba_prefill_state(
+            cfg, p["ssm"], h)
+        attn_out = _hybrid(p, attn_out, ssm_out)
+    return _ffn_residual(cfg, kind, p, x, attn_out, stats), cache
 
 
 def layer_apply_decode(cfg: ArchConfig, kind: str, p, x, sin, cos,
                        window: int, cache: Dict[str, torch.Tensor],
-                       pos: torch.Tensor):
-    """cache: this layer's ``{"k", "v"}`` (written in place); returns
-    (x, cache)."""
-    del kind
+                       pos: torch.Tensor, stats: Optional[dict] = None):
+    """cache: this layer's tensors (``layer_apply_train``'s keys), written
+    in place; returns (x, cache)."""
     h = rms_norm(x, p["ln1"], offset=_norm_offset(cfg))
-    attn_out, (kc, vc) = gqa_apply_decode(
-        cfg, p["attn"], h, sin, cos, window, cache["k"], cache["v"], pos)
-    return _ffn_residual(cfg, p, x, attn_out), {"k": kc, "v": vc}
+    if cfg.mla:
+        attn_out, _ = mla_apply_decode(cfg, p["attn"], h, sin, cos, window,
+                                       cache["ckv"], cache["kr"], pos)
+    else:
+        attn_out, _ = gqa_apply_decode(cfg, p["attn"], h, sin, cos, window,
+                                       cache["k"], cache["v"], pos)
+    if cfg.hybrid_parallel:
+        ssm_out, conv_s, ssm_s = ssm.mamba_apply_decode(
+            cfg, p["ssm"], h, cache["conv"], cache["ssm"])
+        cache["conv"].copy_(conv_s)
+        cache["ssm"].copy_(ssm_s)
+        attn_out = _hybrid(p, attn_out, ssm_out)
+    return _ffn_residual(cfg, kind, p, x, attn_out, stats), cache
 
 
 class DecoderLayer(Params):
-    """One decoder layer's weights (``layer_specs``), its kind and window."""
+    """One decoder layer's weights (``layer_specs``), its kind and window.
+    ``moe_stats``: None, or a dict that a caller set on a MoE layer to
+    receive its last call's ``dropped`` and ``experts_hit`` (0-d device
+    tensors)."""
 
     def __init__(self, cfg: ArchConfig, kind: str, window: int, device):
         super().__init__(layer_specs(cfg, kind), device)
         self.cfg, self.kind, self.window = cfg, kind, window
+        self.moe_stats: Optional[Dict[str, torch.Tensor]] = None
 
     def forward(self, x, sin, cos):
         return layer_apply_train(self.cfg, self.kind, self, x, sin, cos,
-                                 self.window)
+                                 self.window, self.moe_stats)
 
     def decode(self, x, sin, cos, cache, pos):
         return layer_apply_decode(self.cfg, self.kind, self, x, sin, cos,
-                                  self.window, cache, pos)
+                                  self.window, cache, pos, self.moe_stats)
 
 
 # ---------------------------------------------------------------------------

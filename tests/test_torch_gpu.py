@@ -22,6 +22,9 @@ kernels' shared state (K1's workspace, the launch counters) coherent.  The
 workloads: ``KVCacheCodec`` waits for the card nowhere and matches K5's and
 K3's plain versions; a compressed checkpoint at n = e = 64 holds every
 kernel call to its plain version and restores within relative rms 0.02.
+The LM path: the eight smoke models it serves (the MoE, MLA and hybrid
+families among them) on the card against the CPU, and decode steps that
+wait for the card nowhere.
 LM training: the smoke granite's train steps on the card track the CPU's
 within the CPU trajectory bounds, a raw checkpoint resumes bit for bit and
 a compressed one through counted K4, K1 and ``lut_idct`` launches."""
@@ -1523,7 +1526,9 @@ def test_autotune_cli_warms_a_cache_the_engines_use(cuda, tmp_path,
 # The LM serving path (M10a) on the card.
 # ---------------------------------------------------------------------------
 LM_SMOKE = ("granite_8b", "minitron_4b", "gemma2_27b", "qwen15_4b",
-            "internvl2_26b")
+            "internvl2_26b", "llama4_scout_17b_a16e", "deepseek_v3_671b",
+            "hymba_15b")
+LM_FAMILIES = ("llama4_scout_17b_a16e", "deepseek_v3_671b", "hymba_15b")
 LM_BOUND = 2.0 ** -6  # the CPU parity tests' bound: 2 bf16 ulps, relative
 
 
@@ -1599,6 +1604,38 @@ def test_lm_decode_step_waits_for_the_card_nowhere(cuda):
     torch.cuda.synchronize()
     assert cache["group0"]["k"] is k
     assert bool(k[:, :, 18].any()) and not bool(k[:, :, 19:].any())
+
+
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_lm_family_decode_waits_for_the_card_nowhere(cuda, arch):
+    """The MoE dispatch, MLA's absorbed decode and the hybrid's ring and
+    SSM step run under ``set_sync_debug_mode("error")`` after one warm
+    step; a MoE layer's drop count, when asked for, stays a tensor on the
+    card."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.train import make_serve_fns
+    from repro_torch.models import build_model
+
+    model = build_model(get_smoke(arch))
+    for _, _, layer in model.layers():
+        if layer.kind == "moe":
+            layer.moe_stats = {}
+    prefill_fn, decode_fn = make_serve_fns(model)
+    logits, cache = prefill_fn(_lm_batch(model.cfg, s=48), 56)
+    tok = logits.argmax(-1, keepdim=True)
+    decode_fn(cache, tok, 48)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(3):
+            logits, cache = decode_fn(cache, tok, 48 + i)
+            tok = logits.argmax(-1, keepdim=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(logits).all())
+    for _, _, layer in model.layers():
+        if layer.kind == "moe":
+            assert layer.moe_stats["dropped"].is_cuda
 
 
 def test_serve_lm_kv_compress_on_card_equals_the_codec(cuda, capsys):

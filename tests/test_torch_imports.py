@@ -32,7 +32,8 @@ def test_no_module_of_the_port_loads_jax_or_the_reference():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     for name in ("repro_torch.launch.train", "repro_torch.distributed."
                  "optimizer", "repro_torch.distributed.elastic",
-                 "repro_torch.models.convert", "repro_torch.kernels.ops"):
+                 "repro_torch.models.convert", "repro_torch.kernels.ops",
+                 "repro_torch.models.ssm"):
         assert name in out["modules"]
     assert out["loaded"] == []
 

@@ -1,19 +1,23 @@
-"""The port's LM serving path (M10a: ``repro_torch.models``) held against
-the JAX package on the CPU.
+"""The port's LM serving path (M10a, and M10c's MoE, MLA and hybrid
+families: ``repro_torch.models``) held against the JAX package on the CPU.
 
 Inputs are made from seeds with numpy and cross as arrays; bf16 arrays
 cross bit for bit (``models.convert.to_torch``), and the reference's
 parameters are loaded into the port's model with ``params_from_jax``.
 Every float output is held in relative L2 (``|got - ref| / |ref|``) to
 ``BOUND = 2**-6`` (2 bf16 ulps relative, about 1.6e-2), for single
-functions and for the five in-slice smoke models alike (the loss within
-``BOUND`` of the reference's, relative).  Measured on this tree (CPU,
-torch 2.13, JAX 0.9, the reference jitted): every single function 0 but
-the rope tables (1.8e-8, one fp32 ulp of ``sin``/``cos``); the models'
-prefill logits and caches 0 to 1.2e-7, decode logits 0 to 6.0e-3 (the
-VLM: one rounding in another summation order spreads), losses 0 to
-1.7e-5.  Cache slots past the prompt are
-exact zeros.  Families outside the slice raise ``NotImplementedError``.
+functions and for the eight smoke models alike (the loss within ``BOUND``
+of the reference's, relative).  Measured on this tree (CPU, torch 2.13,
+JAX 0.9, the reference jitted): every single function 0 but the rope
+tables (1.8e-8, one fp32 ulp of ``sin``/``cos``); the models' prefill
+logits 0 to 2.2e-3 (deepseek-v3: one bf16 rounding in the MoE's gated
+sum), caches 0 to 1.8e-3 (hymba's fp32 SSM state), the four decode
+steps' logits 0 to 1.33e-2 (llama4-scout's second step: single bf16
+roundings in another summation order, which then spread), losses 0 to
+9.0e-5.  Cache slots past the prompt are exact zeros.  The hybrid's ring
+is held at S >= its window; R10 (below) pins the reference's ring after a
+shorter prompt.  RWKV and the encoder-decoder raise
+``NotImplementedError``.
 """
 import functools
 import math
@@ -45,7 +49,8 @@ from repro_torch.models.convert import (
 
 BOUND = 2.0 ** -6  # 2 bf16 ulps, relative
 IN_SLICE = ("granite_8b", "minitron_4b", "gemma2_27b", "qwen15_4b",
-            "internvl2_26b")
+            "internvl2_26b", "llama4_scout_17b_a16e", "deepseek_v3_671b",
+            "hymba_15b")
 OUT_OF_SLICE = tuple(a for a in ARCH_IDS if a not in IN_SLICE)
 
 
@@ -182,14 +187,19 @@ def test_ffn_apply(arch, gated):
 # The five in-slice smoke models against the reference.
 # ---------------------------------------------------------------------------
 B, S, MAX_LEN = 2, 12, 24
+STEPS = 4  # greedy decode steps
+# the hybrid's ring cache is held at S >= its window (32 in the smoke
+# model): below it the reference's ring is S slots long (R10, below)
+PROMPT = {"hymba_15b": (40, 48)}  # arch -> (S, max_len)
+SSM_STATE = ("conv", "ssm")  # the hybrid's cache entries with no token axis
 
 
-def _batch(cfg):
+def _batch(cfg, s: int = S):
     """``tests/test_archs.py``'s batch: seeded tokens and labels, and the
     VLM's patch embeddings at 0.01."""
     rng = np.random.default_rng(0)
-    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab_size, (B, s)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (B, s)).astype(np.int32)
     ref = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
     port = {"tokens": torch.from_numpy(tokens),
             "labels": torch.from_numpy(labels)}
@@ -201,9 +211,9 @@ def _batch(cfg):
 
 @functools.lru_cache(maxsize=None)
 def run_both(arch: str) -> dict:
-    """Prefill, two greedy decode steps (the reference's tokens fed to
-    both), one decode step on the reference's own prefilled cache and the
-    loss of one smoke model in each package, on the reference's
+    """Prefill, ``STEPS`` greedy decode steps (the reference's tokens fed
+    to both), one decode step on the reference's own prefilled cache and
+    the loss of one smoke model in each package, on the reference's
     parameters.  The reference runs jitted: one compile a function."""
     ref_cfg = ref_get_smoke(arch)
     ref_model = ref_build_model(ref_cfg)
@@ -212,11 +222,12 @@ def run_both(arch: str) -> dict:
     params_from_jax(jax.tree_util.tree_map(np.asarray, params), model)
     ref_prefill = jax.jit(ref_model.prefill, static_argnums=(2,))
     ref_decode = jax.jit(ref_model.decode_step)
-    rb, pb = _batch(ref_cfg)
-    s = S + (ref_cfg.vision_prefix if ref_cfg.family == "vlm" else 0)
-    out = {"s": s}
-    rl, rc = ref_prefill(params, rb, MAX_LEN)
-    pl, pc = model.prefill(pb, MAX_LEN)
+    prompt, max_len = PROMPT.get(arch, (S, MAX_LEN))
+    rb, pb = _batch(ref_cfg, prompt)
+    s = prompt + (ref_cfg.vision_prefix if ref_cfg.family == "vlm" else 0)
+    out = {"s": s, "ring": ref_cfg.family == "hybrid"}
+    rl, rc = ref_prefill(params, rb, max_len)
+    pl, pc = model.prefill(pb, max_len)
     out["prefill"] = (pl, rl, {g: {k: t.clone() for k, t in c.items()}
                                for g, c in pc.items()}, rc)
     tok = np.asarray(jnp.argmax(rl, -1))[:, None].astype(np.int32)
@@ -224,7 +235,7 @@ def run_both(arch: str) -> dict:
     out["on_ref_cache"] = model.decode_step(carried, torch.from_numpy(tok),
                                             s)[0]
     steps = []
-    for i in range(2):
+    for i in range(STEPS):
         tok = np.asarray(jnp.argmax(rl, -1))[:, None].astype(np.int32)
         rl, rc = ref_decode(params, rc, jnp.asarray(tok), jnp.int32(s + i))
         pl, pc = model.decode_step(pc, torch.from_numpy(tok), s + i)
@@ -234,6 +245,12 @@ def run_both(arch: str) -> dict:
     out["loss"] = (model.loss(pb), jax.jit(ref_model.loss)(params, rb))
     out["params"] = params
     return out
+
+
+def _token_axis(out, key: str) -> bool:
+    """Whether ``key``'s slots past the prompt are zero padding: not the
+    hybrid's (full) ring or its SSM state."""
+    return key not in SSM_STATE and not (out["ring"] and key in ("k", "v"))
 
 
 @pytest.mark.parametrize("arch", IN_SLICE)
@@ -246,33 +263,35 @@ def test_prefill_logits(arch):
 
 @pytest.mark.parametrize("arch", IN_SLICE)
 def test_prefill_cache(arch):
-    """Every cache tensor within the bound; the slots past the prompt are
-    exact zeros, as the reference pads them."""
+    """Every cache tensor within the bound, in the reference's dtype; the
+    slots past the prompt are exact zeros, as the reference pads them."""
     out = run_both(arch)
     _, _, pc, rc = out["prefill"]
     assert sorted(pc) == sorted(rc)
     for g in rc:
-        assert sorted(pc[g]) == sorted(rc[g]) == ["k", "v"]
-        for k in ("k", "v"):
+        assert sorted(pc[g]) == sorted(rc[g])
+        for k in rc[g]:
             got, want = pc[g][k], rc[g][k]
             assert tuple(got.shape) == want.shape
-            assert got.dtype == torch.bfloat16
+            assert dtype_name(got.dtype) == dtype_name(want.dtype)
             assert rel_l2(got, want) <= BOUND
-            assert not bool(got[:, :, out["s"]:].any())
+            if _token_axis(out, k):
+                assert not bool(got[:, :, out["s"]:].any())
 
 
 @pytest.mark.parametrize("arch", IN_SLICE)
 def test_decode_steps(arch):
-    """Two decode steps on the port's own prefilled cache; the written
-    slots and the logits within the bound."""
+    """``STEPS`` decode steps on the port's own prefilled cache; the
+    written slots, the carried state and the logits within the bound."""
     out = run_both(arch)
     for pl, rl in out["decode"]:
         assert rel_l2(pl, rl) <= BOUND
     pc, rc = out["decode_cache"]
     for g in rc:
-        for k in ("k", "v"):
+        for k in rc[g]:
             assert rel_l2(pc[g][k], rc[g][k]) <= BOUND
-            assert not bool(pc[g][k][:, :, out["s"] + 2:].any())
+            if _token_axis(out, k):
+                assert not bool(pc[g][k][:, :, out["s"] + STEPS:].any())
 
 
 @pytest.mark.parametrize("arch", IN_SLICE)
@@ -362,6 +381,102 @@ def test_weights_follow_the_generator():
         if na.endswith(("wq", "unembed")):
             assert not torch.equal(pa, pc), na
     assert not torch.equal(a.group0[0].attn.wq, a.group0[1].attn.wq)
+
+
+def test_expert_stacks_are_drawn_one_expert_at_a_time(monkeypatch):
+    """R7 for expert stacks: each expert of ``wi``/``wg`` is drawn with std
+    ``1/sqrt(d)`` and of ``wo`` with ``1/sqrt(moe_d_ff)``, its own fan-in
+    (the reference's whole-leaf draw gives ``1/sqrt(E)``), and no draw is
+    a whole ``[E, ...]`` stack (no fp32 transient of the leaf)."""
+    cfg = get_smoke("llama4_scout_17b_a16e")  # d 64, moe_d_ff 128, E 4
+    ne, d, f = cfg.moe_num_experts, cfg.d_model, cfg.moe_d_ff
+    shapes = []
+    randn = torch.randn
+
+    def recorded(*size, **kw):
+        shapes.append(tuple(size[0]) if len(size) == 1 else tuple(size))
+        return randn(*size, **kw)
+
+    monkeypatch.setattr(torch, "randn", recorded)
+    model = build_model(cfg, device="cpu")
+    assert shapes and not {(ne, d, f), (ne, f, d)} & set(shapes)
+    for _, _, layer in model.layers():
+        ffn = layer.ffn
+        for name, fan_in in (("wi", d), ("wg", d), ("wo", f)):
+            w = ffn[name]
+            assert w.shape[0] == ne
+            for e in range(ne):
+                std = float(w[e].float().std())
+                assert abs(std * math.sqrt(fan_in) - 1) < 0.05, (name, e,
+                                                                 std)
+            assert not torch.equal(w[0], w[1])
+
+
+# ---------------------------------------------------------------------------
+# R10: the reference's hybrid ring after a prompt shorter than the ring.
+# ---------------------------------------------------------------------------
+R10_S, R10_MAX_LEN = 12, 24  # S < min(max_len, window 32) = 24 ring slots
+
+
+@functools.lru_cache(maxsize=None)
+def r10_both() -> dict:
+    """The hymba smoke model in both packages on the reference's weights:
+    ``prefill(S)`` and one decode step at S (the prompt's next token fed),
+    and ``prefill(S + 1)``."""
+    ref_cfg = ref_get_smoke("hymba_15b")
+    ref_model = ref_build_model(ref_cfg)
+    params = ref_init_params(ref_model.param_specs(), jax.random.PRNGKey(2))
+    model = build_model(get_smoke("hymba_15b"), device="cpu")
+    params_from_jax(jax.tree_util.tree_map(np.asarray, params), model)
+    rb, pb = _batch(ref_cfg, R10_S + 1)
+    rl, rc = jax.jit(ref_model.prefill, static_argnums=(2,))(
+        params, {"tokens": rb["tokens"][:, :R10_S]}, R10_MAX_LEN)
+    _, ref_after = jax.jit(ref_model.decode_step)(
+        params, rc, rb["tokens"][:, R10_S:], jnp.int32(R10_S))
+    pl, pc = model.prefill({"tokens": pb["tokens"][:, :R10_S]}, R10_MAX_LEN)
+    prefilled = {k: t.clone() for k, t in pc["group0"].items()}
+    step, after = model.decode_step(pc, pb["tokens"][:, R10_S:], R10_S)
+    longer, _ = model.prefill({"tokens": pb["tokens"]}, R10_MAX_LEN)
+    return {"ref_model": ref_model, "ref_cache": rc, "ref_after": ref_after,
+            "model": model, "prefilled": prefilled, "after": after["group0"],
+            "step": step, "longer": longer}
+
+
+def test_r10_the_reference_ring_is_only_the_prompt_long():
+    """Pinned: the reference's specs give the ring ``min(max_len, window)``
+    = 24 slots, its prefill keeps 12, and its decode at position 12 then
+    writes slot ``12 % 12 = 0``, over token 0."""
+    r = r10_both()
+    specs = r["ref_model"].cache_specs(B, R10_MAX_LEN)["group0"]
+    for k in ("k", "v"):
+        assert specs[k].shape == (2, B, 24, 2, 16)
+        assert r["ref_cache"]["group0"][k].shape == (2, B, R10_S, 2, 16)
+    before = np.asarray(r["ref_cache"]["group0"]["k"][:, :, 0])
+    after = np.asarray(r["ref_after"]["group0"]["k"][:, :, 0])
+    assert not np.array_equal(before, after)
+
+
+def test_r10_the_ports_ring_is_zero_padded_to_its_slots():
+    r = r10_both()
+    model = r["model"]
+    want = model.cache_specs(B, R10_MAX_LEN)["group0"]
+    for k in ("k", "v"):
+        got = r["prefilled"][k]
+        assert tuple(got.shape) == want[k].shape == (2, B, 24, 2, 16)
+        assert bool(got[:, :, :R10_S].any())
+        assert not bool(got[:, :, R10_S:].any())
+
+
+def test_r10_the_ports_decode_after_a_short_prompt_is_the_longer_prefill():
+    """``decode_step`` at 12 after ``prefill(12)`` writes slot 12 and keeps
+    token 0's slot, and gives ``prefill(13)``'s last logits within
+    ``BOUND`` (measured 0.012: the decode and prefill paths' bf16 sums)."""
+    r = r10_both()
+    for k in ("k", "v"):
+        assert torch.equal(r["after"][k][:, :, :R10_S],
+                           r["prefilled"][k][:, :, :R10_S])
+        assert bool(r["after"][k][:, :, R10_S].any())
+    assert rel_l2(r["step"], r["longer"]) <= BOUND
 
 
 def test_no_card_means_an_error(monkeypatch):

@@ -11,7 +11,9 @@ and through the deprecated shim (n = e = 16): one decode step's logits
 move by less than the reference's 0.15 in relative L2, and by the
 reference package's own drift on the same weights and cache to within
 ``DRIFT_TOL`` (measured on this tree: 0.0243 against 0.0244 for the
-codec, 0.0262 against 0.0267 for the shim)."""
+codec, 0.0262 against 0.0267 for the shim).  The deepseek-v3 and hymba
+smoke models' caches (MLA's latents, the hybrid's ring) go through the
+codec with a drift under 0.15."""
 import subprocess
 import sys
 
@@ -202,6 +204,60 @@ def test_decode_with_quantized_cache_logit_drift(method):
     got = _drift(lg_ref.float().numpy(), lg_cmp.float().numpy())
     assert got < 0.15, f"quantization-only KV cache moved logits {got}"
     assert abs(got - want) <= DRIFT_TOL * want, (got, want)
+
+
+# ---------------------------------------------------------------------------
+# The MLA and hybrid caches through the codec.
+# ---------------------------------------------------------------------------
+FAMILY_PROMPT = {"deepseek-v3-671b": 32, "hymba-15b": 48}  # hymba: S > 32
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_PROMPT))
+def test_kv_compress_of_the_mla_and_hybrid_caches(arch, capsys):
+    """``compress_cache`` walks MLA's ``ckv``/``kr`` latents (one-head
+    blocks) and the hybrid's k/v ring over its ``min(S, T)`` valid slots,
+    a table per block, and leaves the SSM state raw; one decode step on
+    the restored cache moves the logits by less than the reference's
+    0.15.  ``serve_lm --kv-compress`` runs the family end to end."""
+    s = FAMILY_PROMPT[arch]
+    model = build_model(get_smoke(arch), device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    cfg = model.cfg
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, s)))
+    logits, cache = model.prefill({"tokens": tokens}, s + 4)
+    blocks = list(serve_lm.cache_blocks(cache, s))
+    if cfg.mla:
+        assert [n[1] for n, _ in blocks] == ["ckv"] * 1 + ["kr"] * 1 + [
+            "ckv"] * 2 + ["kr"] * 2  # group0: 1 dense layer, group1: 2 MoE
+        widths = (cfg.mla_kv_lora_rank, cfg.mla_qk_rope_dim)
+        raw_want = cfg.num_layers * B * s * sum(widths) * 2
+    else:
+        t = min(s + 4, cfg.window)
+        assert all(blk.shape[1] == t for _, blk in blocks)
+        assert len(blocks) == 2 * cfg.num_layers
+        raw_want = 2 * cfg.num_layers * B * t * cfg.num_kv_heads * (
+            cfg.head_dim) * 2
+    assert all(blk.dim() == 4 for _, blk in blocks)
+    new = {g: {k: t.clone() for k, t in c.items()} for g, c in cache.items()}
+    with torch.inference_mode():
+        raw, comp = serve_lm.compress_cache(KVCacheCodec(device="cpu"), new,
+                                            s)
+    assert raw == raw_want and comp * 2 == raw
+    for g, c in cache.items():
+        for k in ("conv", "ssm"):
+            if k in c:
+                assert torch.equal(new[g][k], c[k])
+    tok = logits.argmax(-1, keepdim=True)
+    ref, _ = model.decode_step(cache, tok, s)
+    got, _ = model.decode_step(new, tok, s)
+    drift = _drift(ref.float().numpy(), got.float().numpy())
+    assert 0 < drift < 0.15, drift
+    gen = serve_lm.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--batch", "2", "--prompt-len", str(s), "--gen",
+                         "4", "--kv-compress"])
+    lines = _lines(capsys.readouterr().out)
+    assert lines[0].startswith("kv cache: ") and gen.shape == (2, 4)
 
 
 def test_kv_cache_example_runs_on_the_cpu(tmp_path):
