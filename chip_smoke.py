@@ -255,36 +255,45 @@ digests below must then match).  Phases, one JSON line each:
      and each checkpoint kernel's ms (warm, and its path call's own) and
      bound at the train state's shapes.
  15. families — (``families_phase()``; skipped when the driven port has no
-     ``repro_torch.models.ssm``) the MoE, MLA and hybrid families, one model
-     at a time, each freed before the next, TF32 and bf16 reduced-precision
-     reductions off, weights drawn on the card from ``--seed``
-     (``FAMILIES``): deepseek-v3 at full width cut to 4 layers (3 dense, 1
-     MoE of 256 experts, top 8, and the shared expert; 15.1 G parameters),
-     batch 2 x 4096; llama4-scout at full width cut to 4 layers (16
-     experts, top 1, and the shared expert; 10.9 G), batch 8 x 4096;
-     hymba-1.5b whole (32 layers), batch 8 x 2048, twice its 1024-token
-     window, so the ring wraps; 32 greedy tokens each.  For each model
-     (``family_run``, as for granite in phase 13): finite logits; prefill
-     ms and decode ms a token by CUDA events after a warm call, 12
-     generated ids of 4 rows, beside their bounds (``family_bounds``:
-     the matmuls as the port computes them, a MoE layer's experts at E x C
-     slots with the routed T x k pairs beside them, at 989 TFLOP/s bf16;
-     decode at the bytes read once, all experts and the experts a step
-     routes to); one prefill and one decode step under ``torch.profiler``;
-     peak memory; the (token, k) pairs each MoE layer dropped in each call;
-     the last token's logits of ``prefill(S)`` against ``prefill(S - 1)``
-     + ``decode_step`` within ``LM_CONSISTENCY_TOL`` (the hybrid within
-     ``HYBRID_CONSISTENCY_TOL``); the model's own cache through
-     ``serve_lm.compress_cache`` with every launch counter at 0: one K5 and
-     one K3 launch a block (MLA's ``ckv``/``kr`` latents, the k/v caches,
-     the hybrid's ring over its valid slots: 8 + 8, 8 + 8 and 64 + 64),
-     each held at once against its plain version (K5's levels exactly, K3
-     within ``REL_TOL``), the cache's bytes before and after, the SSM state
-     and the slots past S untouched, one decode step on the restored cache
-     within ``LM_DRIFT_TOL`` (the same with one table per key calibrated on
-     layer 0 is reported, not held), the codec's ms on one block; the
-     model's smoke config built on the CPU, prefill + 4 decode steps there
-     and, moved to the card, on the card, within ``LM_CARD_CPU_TOL``.
+     ``repro_torch.models.ssm``) the MoE, MLA, hybrid, RWKV and
+     encoder-decoder families, one model at a time, each freed before the
+     next, TF32 and bf16 reduced-precision reductions off, weights drawn on
+     the card from ``--seed`` (``FAMILIES``): deepseek-v3 at full width
+     cut to 4 layers (3 dense, 1 MoE of 256 experts, top 8, and the shared
+     expert; 15.1 G parameters), batch 2 x 4096; llama4-scout at full
+     width cut to 4 layers (16 experts, top 1, and the shared expert; 10.9
+     G), batch 8 x 4096; hymba-1.5b whole (32 layers), batch 8 x 2048,
+     twice its 1024-token window, so the ring wraps; rwkv6-3b whole (32
+     layers, 40 heads of 64; 3.07 G), batch 8 x 512 (the prompt cut:
+     ``FAMILIES``); whisper-tiny whole
+     (4 + 4 layers), batch 32 x 64 tokens over 1500 frames drawn N(0, 1)
+     from the seed; 32 greedy tokens each.  For each model (``family_run``,
+     as for granite in phase 13): finite logits; prefill ms and decode ms a
+     token by CUDA events after a warm call, 12 generated ids of 4 rows,
+     beside their bounds (``family_bounds``: the matmuls as the port
+     computes them, a MoE layer's experts at E x C slots with the routed T
+     x k pairs beside them, at 989 TFLOP/s bf16, RWKV's wkv recurrence at
+     67 TFLOP/s fp32; decode at the bytes read once, all experts and the
+     experts a step routes to, RWKV's state read and written, whisper's
+     cross cache read); one prefill and one decode step under
+     ``torch.profiler``; peak memory; the (token, k) pairs each MoE layer
+     dropped in each call; the last token's logits of ``prefill(S)``
+     against ``prefill(S - 1)`` + ``decode_step`` within
+     ``LM_CONSISTENCY_TOL`` (the hybrid within ``HYBRID_CONSISTENCY_TOL``);
+     the model's own cache through ``serve_lm.compress_cache``
+     (``family_kv``) with every launch counter at 0: one K5 and one K3
+     launch a block (MLA's ``ckv``/``kr`` latents, the k/v caches, the
+     hybrid's ring over its valid slots, whisper's self k/v and its cross
+     ck/cv over their 93 whole windows of 1500 frames: 8 + 8, 8 + 8, 64 +
+     64 and 16 + 16; RWKV's state has no block and none), each held at once
+     against its plain version (K5's levels exactly, K3 within
+     ``REL_TOL``), the cache's bytes before and after, the states, the
+     slots past S and a cross block's 12 raw slots untouched, one decode
+     step on the restored cache within ``LM_DRIFT_TOL`` (the same with one
+     table per key calibrated on layer 0 is reported, not held), the
+     codec's ms on one block; the model's smoke config built on the CPU,
+     prefill + 4 decode steps there and, moved to the card, on the card,
+     within ``LM_CARD_CPU_TOL``.
 
 Then the ``{"kernels": [...]}`` line (K5's and K3's entries also carry
 the LM path's launches, ``lm_launches``, and the families phase's,
@@ -2383,11 +2392,17 @@ def train_phase(smi: str, seed: int) -> dict:
         "seconds": time.perf_counter() - t_phase}
 
 
-# -- 15. families: the MoE, MLA and hybrid families served ------------------
-# (arch, layers kept (None: all), batch, prompt tokens, generated tokens)
+# -- 15. families: the MoE, MLA, hybrid, RWKV and encoder-decoder families -
+# (arch, layers kept (None: all), batch, prompt tokens, generated tokens).
+# rwkv6-3b's prompt is cut to 512: its prefill is two launches a step of
+# the wkv loop, and the profiler's pass over a 2048-token prefill (138194
+# kernels) took 172 s of its run on the H100 (``families_probe.py
+# rwkv6-3b:2048``)
 FAMILIES = (("deepseek-v3-671b", 4, 2, 4096, 32),
             ("llama4-scout-17b-a16e", 4, 8, 4096, 32),
-            ("hymba-15b", None, 8, 2048, 32))
+            ("hymba-15b", None, 8, 2048, 32),
+            ("rwkv6-3b", None, 8, 512, 32),
+            ("whisper-tiny", None, 32, 64, 32))
 
 
 def family_config(arch: str, layers):
@@ -2401,32 +2416,44 @@ def family_config(arch: str, layers):
 def family_bounds(model, b: int, s: int, t: int, hit=None) -> dict:
     """The card's least time for a prefill of ``s`` tokens and one decode
     step over ``t`` positions, the larger of two times: every weight
-    matrix's product with the tokens at the bf16 peak (a MoE
+    matrix's product with the tokens it meets at the bf16 peak (a MoE
     layer's experts at its ``E * C`` slots, as computed, the routed ``T *
-    k`` pairs beside them), the attention's score and value products over
-    the rectangle computed (MLA: qk ``nope + rope``, v ``v_dim``; its
-    absorbed decode over the latent; the hybrid's ring over its slots),
-    the last token's unembedding; against the bytes read once at 3.35
-    TB/s (the weights but the embedding, the cache written or read, the
-    SSM state, the logits).  The attention counts the whole S x S score
-    rectangle, as the reference computes it (a causal kernel could skip
-    half).  ``hit``: experts a decode step routes to, for its bound on
-    what the data needs (None: every expert)."""
+    k`` pairs beside them; whisper's encoder and cross k/v projections at
+    its frames), the attention's score and value products over the
+    rectangle computed (MLA: qk ``nope + rope``, v ``v_dim``; its absorbed
+    decode over the latent; the hybrid's ring over its slots; whisper's
+    bidirectional F x F encoder and its S x F cross rectangle), RWKV's wkv
+    recurrence at the fp32 peak (``5 hd^2 + 4 hd`` a head and token), the
+    last token's unembedding; against the bytes read once at 3.35 TB/s
+    (the weights but the embedding and the position tables, the frames,
+    the cache written or read, the SSM or RWKV state, the logits).  The
+    attention counts the whole S x S score rectangle, as the reference
+    computes it (a causal kernel could skip half).  ``hit``: experts a
+    decode step routes to, for its bound on what the data needs (None:
+    every expert)."""
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models import transformer as tfm
 
     cfg = model.cfg
     h = cfg.num_heads
-    embed_bytes = model.embed.numel() * model.embed.element_size()
+    tables = ("embed", "pos_embed", "enc_pos_embed")
+    table_bytes = sum(model[k].numel() * model[k].element_size()
+                      for k in tables if k in model)
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     ring = min(t, cfg.window) if cfg.family == "hybrid" else t
+    audio = cfg.family == "audio"
+    frames = cfg.encoder_seq if audio else 0
+    enc_layers = cfg.encoder_layers if audio else 0
+    per_key = 4.0 * cfg.head_dim
 
     def layer_ops(tokens, keys, q):
+        """(dense, slots, routed, attn, expert_bytes) of every layer on
+        ``tokens`` tokens (whisper's encoder and cross k/v on b x F)."""
         dense = slots = routed = expert_bytes = 0
-        for _, _, layer in model.layers():
+        for stack, _, layer in model.layers():
             for name, p in layer.named_parameters():
-                if p.dim() < 2 or name.endswith(("conv_w", "A_log")):
+                if p.dim() < 2 or name.endswith(("conv_w", "A_log", "tm.u")):
                     continue
                 if layer.kind == "moe" and name in ("ffn.wi", "ffn.wg",
                                                     "ffn.wo"):
@@ -2435,49 +2462,75 @@ def family_bounds(model, b: int, s: int, t: int, hit=None) -> dict:
                         cfg, tokens) * per
                     routed += 2.0 * tokens * cfg.moe_top_k * per
                     expert_bytes += p.numel() * p.element_size()
+                elif stack == "encoder" or name in ("cross.wk", "cross.wv"):
+                    dense += 2.0 * b * frames * p.numel() * (q > 1)
                 else:
                     dense += 2.0 * tokens * p.numel()
+        if cfg.family == "ssm":
+            return dense, slots, routed, 0.0, expert_bytes
         if cfg.mla:
             nope, rpe = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim
-            per_key = (2.0 * (nope + rpe + cfg.mla_v_dim) if q > 1 else
-                       2.0 * (2 * cfg.mla_kv_lora_rank + rpe))
+            per = (2.0 * (nope + rpe + cfg.mla_v_dim) if q > 1 else
+                   2.0 * (2 * cfg.mla_kv_lora_rank + rpe))
         else:
-            per_key = 4.0 * cfg.head_dim
-        attn = cfg.num_layers * b * h * q * keys * per_key
+            per = per_key
+        attn = cfg.num_layers * b * h * q * (keys + frames) * per
+        if q > 1:  # the encoder's bidirectional F x F
+            attn += enc_layers * b * h * frames * frames * per
         return dense, slots, routed, attn, expert_bytes
 
     unembed = 2.0 * b * cfg.d_model * cfg.vocab_size
     if cfg.mla:
         per_token = 2 * (cfg.mla_kv_lora_rank + cfg.mla_qk_rope_dim)
+    elif cfg.family == "ssm":
+        per_token = 0
     else:
         per_token = 2 * 2 * cfg.num_kv_heads * cfg.head_dim
     cache_token = cfg.num_layers * b * per_token  # bytes a position
+    cross = cache_token * frames  # whisper's ck/cv, written once, read
     state = 0
     if cfg.hybrid_parallel:
         d_in, _, n, k = ssm_mod._dims(cfg)
         state = cfg.num_layers * b * (4 * d_in * n + 2 * (k - 1) * d_in)
+    if cfg.family == "ssm":
+        hd = cfg.rwkv_head_size
+        heads = cfg.d_model // hd
+        state = cfg.num_layers * b * (4 * heads * hd * hd + 2 * 2
+                                      * cfg.d_model)
 
-    def bound(nbytes, ops):
-        tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_BF16_PER_S * 1e3
+    def recurrence(tokens):
+        if cfg.family != "ssm":
+            return 0.0
+        return float(cfg.num_layers * tokens * heads * (5 * hd * hd
+                                                        + 4 * hd))
+
+    def bound(nbytes, ops, fp32_ops):
+        tb = nbytes / PEAK_BYTES_PER_S * 1e3
+        to = (ops / PEAK_BF16_PER_S + fp32_ops / PEAK_FP32_PER_S) * 1e3
         return {"ms": max(tb, to), "by": "bytes" if tb >= to else
-                "operations", "bytes": nbytes, "operations": ops}
+                "operations", "bytes": nbytes, "operations": ops,
+                "fp32_operations": fp32_ops}
 
     # prefill: every query over the keys the mask keeps in the rectangle
     # computed (the whole S x S; the ring's window still computes S x S)
     dense, slots, routed, attn, expert_bytes = layer_ops(b * s, s, s)
-    pre_bytes = (weight_bytes - embed_bytes + 8 * b * s
+    pre_bytes = (weight_bytes - table_bytes + 8 * b * s
+                 + 2 * b * frames * cfg.d_model + cross
                  + cache_token * min(s, ring) + state
                  + 2 * b * cfg.vocab_size)
-    prefill = bound(pre_bytes, dense + slots + attn + unembed)
+    prefill = bound(pre_bytes, dense + slots + attn + unembed,
+                    recurrence(b * s))
     prefill["routed_operations"] = dense + routed + attn + unembed
     prefill["moe_slot_operations"] = slots
     prefill["moe_routed_operations"] = routed
     dense, slots, routed, attn, _ = layer_ops(b, ring, 1)
-    dec_bytes = (weight_bytes - embed_bytes + cache_token * (ring + 1)
-                 + 2 * state + 2 * b * cfg.vocab_size)
-    decode = bound(dec_bytes, dense + slots + attn + unembed)
-    decode["weights_only_ms"] = ((weight_bytes - embed_bytes)
+    dec_bytes = (weight_bytes - table_bytes + cache_token * (ring + 1)
+                 + cross + 2 * state + 2 * b * cfg.vocab_size)
+    decode = bound(dec_bytes, dense + slots + attn + unembed, recurrence(b))
+    decode["weights_only_ms"] = ((weight_bytes - table_bytes)
                                  / PEAK_BYTES_PER_S * 1e3)
+    decode["state_bytes"] = state
+    decode["cross_cache_bytes"] = cross
     if hit is not None and expert_bytes:
         need = dec_bytes - expert_bytes + expert_bytes * hit / (
             cfg.moe_num_experts * sum(lay.kind == "moe"
@@ -2502,6 +2555,122 @@ def _ints(drops: dict) -> dict:
     return {k: {s: int(v) for s, v in d.items()} for k, d in drops.items()}
 
 
+def family_kv(arch: str, cfg, cache, s: int, first, decode_fn, clone,
+              device: str) -> dict:
+    """The model's own prefilled cache through ``serve_lm.compress_cache``
+    (phases 13 and 15; see the module docstring): every block's K5 and K3
+    launch held to its plain version, what it must leave raw untouched,
+    the logits' drift after it.  RWKV's cache is its state, with no
+    token-axis block: nothing is compressed."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_lm import (
+        cache_blocks,
+        compress_cache,
+        compressible,
+    )
+    from repro_torch.models.api import CROSS_KEYS, STATE_KEYS
+    from repro_torch.serving import KVCacheCodec
+
+    cache_bytes = sum(t.numel() * t.element_size() for _, t in _flat(cache))
+    blocks = list(cache_blocks(cache, s))
+    n_blocks = len(blocks)
+    want = 0 if cfg.family == "ssm" else 2 * cfg.num_layers * (
+        2 if cfg.cross_attention else 1)
+    check(n_blocks == want, f"{arch}: {n_blocks} cache blocks, {want} "
+          f"expected of {cfg.num_layers} layers")
+    if not blocks:
+        return {"blocks": 0, "cache_bytes": cache_bytes, "launches": {},
+                "what": "no token-axis block: the cache is the model's "
+                "state, kept raw"}
+    n = KVCacheCodec(device=device).config.n
+
+    def raw_part(key, t):  # what compress_cache must leave as it was
+        if key in STATE_KEYS:
+            return t
+        if key in CROSS_KEYS:
+            return t[:, :, t.shape[2] - t.shape[2] % n:]
+        return t[:, :, s:]
+
+    with torch.inference_mode():
+        ref, _ = decode_fn(clone(cache), first, s)
+        restored = clone(cache)
+        ops.reset_launches()
+        with kv_kernels_held() as held:
+            t0 = time.perf_counter()
+            raw, comp = compress_cache(KVCacheCodec(device=device), restored,
+                                       s)
+            torch.cuda.synchronize()
+            sweep_s = time.perf_counter() - t0
+        kv_launches = dict(ops.LAUNCHES)
+        check(kv_launches == {k: n_blocks * (k in ("dct_quant",
+                                                   "idct_dequant"))
+                              for k in kv_launches},
+              f"{arch}: KV cache launch counts {kv_launches}, {n_blocks} "
+              f"blocks")
+        check(held["dct_quant"]["calls"] == n_blocks
+              and held["dct_quant"]["flips"] == 0,
+              f"{arch}: K5 on the model's cache against its plain "
+              f"version: {held['dct_quant']}")
+        check(held["idct_dequant"]["calls"] == n_blocks
+              and held["idct_dequant"]["rel_err"] <= REL_TOL,
+              f"{arch}: K3 on the model's cache against its plain "
+              f"version: {held['idct_dequant']}")
+        kept = dict(blocks)
+        block_err = max(rel_l2(blk, kept[name])
+                        for name, blk in cache_blocks(restored, s))
+        untouched = all(
+            torch.equal(raw_part(key.split(".")[-1], got),
+                        raw_part(key.split(".")[-1], t))
+            for (key, t), (_, got) in zip(_flat(cache), _flat(restored)))
+        check(untouched, f"{arch}: compress_cache touched a state, the "
+              f"slots past S or a cross block's raw tail")
+        got, _ = decode_fn(restored, first, s)
+        drift = rel_l2(got, ref)
+        check(drift < LM_DRIFT_TOL, f"{arch}: decode on the restored "
+              f"cache: logit drift {drift} >= {LM_DRIFT_TOL}")
+        del restored, got
+        # one table per (group, key) calibrated on layer 0 and shared by
+        # every layer (the reference example's flow): reported, not held
+        shared, codec = clone(cache), KVCacheCodec(device=device)
+        for name, blk in cache_blocks(shared, s):
+            blk, table = compressible(name, blk, n), name[:-1]
+            if name[-1] == 0:
+                codec.calibrate(blk, layer=table)
+            blk.copy_(codec.decompress(codec.compress(blk, layer=table),
+                                       layer=table))
+        got, _ = decode_fn(shared, first, s)
+        shared_drift = rel_l2(got, ref)
+        del shared, got, ref
+        # the codec's ms on one block: the first key's last layer
+        key = blocks[0][0][:-1]
+        one = [blk for name, blk in blocks if name[:-1] == key][-1]
+        codec = KVCacheCodec(device=device)
+        codec.calibrate(one, layer="one")
+        ckv = codec.compress(one, layer="one")
+        kv_ms = {"compress": cuda_ms(lambda: codec.compress(
+                     one, layer="one")),
+                 "decompress": cuda_ms(lambda: codec.decompress(
+                     ckv, layer="one"))}
+        kv_bound = bound_ms(3 * one.numel(),
+                            2.0 * one.numel() * codec.config.e)[0]
+    return {"blocks": n_blocks, "cache_bytes": cache_bytes,
+            "prefilled_bytes": raw, "compressed_bytes": comp,
+            "ratio": comp / raw,
+            "tables": "one per block (group, key, layer), each calibrated "
+            "on its own block; a cross block's whole windows, its tail raw",
+            "sweep_s": sweep_s,
+            "sweep_what": "calibrate, compress, decompress and both plain "
+            "checks of every block",
+            "launches": kv_launches, "k5_vs_plain": held["dct_quant"],
+            "k3_vs_plain": held["idct_dequant"],
+            "max_block_rel_l2": block_err, "drift_rel_l2": drift,
+            "drift_tol": LM_DRIFT_TOL,
+            "layer0_tables_drift_rel_l2": shared_drift,
+            "ms_per_block": kv_ms, "bound_ms_per_block": kv_bound}
+
+
 def family_run(arch: str, cfg, b: int, s: int, gen: int, seed: int,
                device: str = "cuda") -> dict:
     """One model served on the card: granite-8b in phase 13, each family
@@ -2512,16 +2681,14 @@ def family_run(arch: str, cfg, b: int, s: int, gen: int, seed: int,
 
     from repro_torch.configs import get_arch, get_smoke
     from repro_torch.distributed.train import make_serve_fns
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve_lm import cache_blocks, compress_cache
     from repro_torch.models import build_model
-    from repro_torch.serving import KVCacheCodec
 
     t_run = time.perf_counter()
     full = get_arch(arch)
     for key in ("d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff",
                 "vocab_size", "moe_num_experts", "moe_top_k", "moe_d_ff",
-                "mla_kv_lora_rank", "ssm_state", "window"):
+                "mla_kv_lora_rank", "ssm_state", "window", "rwkv_head_size",
+                "encoder_seq"):
         check(getattr(cfg, key) == getattr(full, key),
               f"{arch}: {key} {getattr(cfg, key)} is not the full width's "
               f"{getattr(full, key)}")
@@ -2534,6 +2701,11 @@ def family_run(arch: str, cfg, b: int, s: int, gen: int, seed: int,
         device=device).manual_seed(seed))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    parts, mark = {}, [time.perf_counter()]  # the run's seconds by part
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        parts[name], mark[0] = now - mark[0], now
     n_params = sum(p.numel() for p in model.parameters())
     for _, _, layer in model.layers():
         if layer.kind == "moe":
@@ -2542,6 +2714,11 @@ def family_run(arch: str, cfg, b: int, s: int, gen: int, seed: int,
     rng = np.random.default_rng(seed)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
     batch = {"tokens": tokens}
+    if cfg.family == "audio":  # whisper's frames, N(0, 1) from the seed
+        batch["frames"] = torch.randn(
+            (b, cfg.encoder_seq, cfg.d_model), device=device,
+            generator=torch.Generator(device=device).manual_seed(seed)
+        ).to(torch.bfloat16)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
 
@@ -2560,8 +2737,7 @@ def family_run(arch: str, cfg, b: int, s: int, gen: int, seed: int,
     first = logits.argmax(-1, keepdim=True)
 
     def clone(c):  # a decode step writes the cache and the SSM state
-        return {g: {k: t.clone() for k, t in grp.items()}
-                for g, grp in c.items()}
+        return _tree_map(lambda t: t.clone(), c)
 
     prefilled = clone(cache)  # for the consistency and the KV checks
     decode_fn(clone(cache), first, s)  # warm
@@ -2584,15 +2760,17 @@ def family_run(arch: str, cfg, b: int, s: int, gen: int, seed: int,
     if drops["decode"] and drops["decode"][-1]:
         hit = sum(d["experts_hit"] for d in drops["decode"][-1].values())
     bounds = family_bounds(model, b, s, s + gen // 2, hit)
-    profiles = {
-        "decode_step": device_profile(
-            lambda: decode_fn(cache, tok, max_len - 1), decode_ms),
-        "prefill": device_profile(
-            lambda: prefill_fn(batch, max_len), prefill_ms)}
+    lap("serve")
+    profiles = {"decode_step": device_profile(
+        lambda: decode_fn(cache, tok, max_len - 1), decode_ms)}
+    lap("profile_decode_step")
+    profiles["prefill"] = device_profile(lambda: prefill_fn(batch, max_len),
+                                         prefill_ms)
+    lap("profile_prefill")
 
     # -- prefill(S) against prefill(S - 1) + one decode step ---------------
     del cache
-    _, part = prefill_fn({"tokens": tokens[:, :s - 1]}, max_len)
+    _, part = prefill_fn({**batch, "tokens": tokens[:, :s - 1]}, max_len)
     step, part = decode_fn(part, tokens[:, s - 1:], s - 1)
     consistency = rel_l2(step, logits)
     tol = HYBRID_CONSISTENCY_TOL if cfg.hybrid_parallel else \
@@ -2601,77 +2779,12 @@ def family_run(arch: str, cfg, b: int, s: int, gen: int, seed: int,
           f"relative L2 {consistency} >= {tol}")
     del part, step
     torch.cuda.empty_cache()
+    lap("consistency")
 
     # -- the model's own cache through K5 / K3 -----------------------------
     cache = prefilled
-    with torch.inference_mode():
-        ref, _ = decode_fn(clone(cache), first, s)
-        restored = clone(cache)
-        ops.reset_launches()
-        with kv_kernels_held() as held:
-            t0 = time.perf_counter()
-            raw, comp = compress_cache(KVCacheCodec(device=device), restored,
-                                       s)
-            torch.cuda.synchronize()
-            sweep_s = time.perf_counter() - t0
-        kv_launches = dict(ops.LAUNCHES)
-        blocks = list(cache_blocks(cache, s))
-        n_blocks = len(blocks)
-        check(n_blocks == 2 * cfg.num_layers,
-              f"{arch}: {n_blocks} cache blocks, {cfg.num_layers} layers")
-        check(kv_launches == {k: n_blocks * (k in ("dct_quant",
-                                                   "idct_dequant"))
-                              for k in kv_launches},
-              f"{arch}: KV cache launch counts {kv_launches}, {n_blocks} "
-              f"blocks")
-        check(held["dct_quant"]["calls"] == n_blocks
-              and held["dct_quant"]["flips"] == 0,
-              f"{arch}: K5 on the model's cache against its plain "
-              f"version: {held['dct_quant']}")
-        check(held["idct_dequant"]["calls"] == n_blocks
-              and held["idct_dequant"]["rel_err"] <= REL_TOL,
-              f"{arch}: K3 on the model's cache against its plain "
-              f"version: {held['idct_dequant']}")
-        kept = dict(blocks)
-        block_err = max(rel_l2(blk, kept[name])
-                        for name, blk in cache_blocks(restored, s))
-        untouched = all(
-            torch.equal(restored[g][k], t) if k in ("conv", "ssm")
-            else torch.equal(restored[g][k][:, :, s:], t[:, :, s:])
-            for g, c in cache.items() for k, t in c.items())
-        check(untouched, f"{arch}: compress_cache touched the SSM state "
-              f"or the slots past S")
-        cache_bytes = sum(t.numel() * t.element_size()
-                          for c in cache.values() for t in c.values())
-        got, _ = decode_fn(restored, first, s)
-        drift = rel_l2(got, ref)
-        check(drift < LM_DRIFT_TOL, f"{arch}: decode on the restored "
-              f"cache: logit drift {drift} >= {LM_DRIFT_TOL}")
-        del restored, got
-        # one table per (group, key) calibrated on layer 0 and shared by
-        # every layer (the reference example's flow): reported, not held
-        shared, codec = clone(cache), KVCacheCodec(device=device)
-        for (g, k, layer), blk in cache_blocks(shared, s):
-            if layer == 0:
-                codec.calibrate(blk, layer=(g, k))
-            blk.copy_(codec.decompress(codec.compress(blk, layer=(g, k)),
-                                       layer=(g, k)))
-        got, _ = decode_fn(shared, first, s)
-        shared_drift = rel_l2(got, ref)
-        del shared, got, ref
-        # the codec's ms on one block: the first key's last layer
-        key = blocks[0][0][:2]
-        one = [blk for name, blk in blocks if name[:2] == key][-1]
-        codec = KVCacheCodec(device=device)
-        codec.calibrate(one, layer="one")
-        ckv = codec.compress(one, layer="one")
-        kv_ms = {"compress": cuda_ms(lambda: codec.compress(
-                     one, layer="one")),
-                 "decompress": cuda_ms(lambda: codec.decompress(
-                     ckv, layer="one"))}
-        kv_bound = bound_ms(3 * one.numel(),
-                            2.0 * one.numel() * codec.config.e)[0]
-        del ckv, codec, one, blocks, kept
+    kv = family_kv(arch, cfg, cache, s, first, decode_fn, clone, device)
+    lap("kv")
     peak = torch.cuda.max_memory_allocated()
     layers = [layer.kind for _, _, layer in model.layers()]
     del cache, logits, model, prefill_fn, decode_fn, first, tok, outs
@@ -2684,11 +2797,15 @@ def family_run(arch: str, cfg, b: int, s: int, gen: int, seed: int,
     small = build_model(smoke, device="cpu",
                         generator=torch.Generator().manual_seed(seed))
     sb, ss = 2, 32
-    stoks = torch.from_numpy(rng.integers(0, smoke.vocab_size, (sb, ss)))
+    sbatch = {"tokens": torch.from_numpy(rng.integers(0, smoke.vocab_size,
+                                                      (sb, ss)))}
+    if smoke.family == "audio":
+        sbatch["frames"] = torch.from_numpy(rng.standard_normal(
+            (sb, smoke.encoder_seq, smoke.d_model))).to(torch.bfloat16)
     arms = {}
     for dev in ("cpu", device):
         p_fn, d_fn = make_serve_fns(small, dev)
-        lg, c = p_fn({"tokens": stoks}, ss + LM_SMOKE_STEPS)
+        lg, c = p_fn(sbatch, ss + LM_SMOKE_STEPS)
         arm = [lg.float().cpu()]
         for i in range(LM_SMOKE_STEPS):
             want = (arms["cpu"] if arms else arm)[i].argmax(-1, keepdim=True)
@@ -2700,6 +2817,7 @@ def family_run(arch: str, cfg, b: int, s: int, gen: int, seed: int,
           f"{arch}: smoke model on the card against the CPU: {card_cpu}")
     del small
     gc.collect()
+    lap("card_vs_cpu_smoke")
     return {
         "arch": arch, "layers": layers,
         "config": {"layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -2708,7 +2826,12 @@ def family_run(arch: str, cfg, b: int, s: int, gen: int, seed: int,
                    "vocab": cfg.vocab_size, "experts": cfg.moe_num_experts,
                    "top_k": cfg.moe_top_k, "expert_d_ff": cfg.moe_d_ff,
                    "mla": cfg.mla, "window": cfg.window,
-                   "ssm_state": cfg.ssm_state},
+                   "ssm_state": cfg.ssm_state,
+                   "rwkv_head_size": (cfg.rwkv_head_size
+                                      if cfg.family == "ssm" else None),
+                   "encoder_layers": cfg.encoder_layers,
+                   "encoder_seq": (cfg.encoder_seq if cfg.cross_attention
+                                   else None)},
         "parameters": n_params, "weight_bytes": bounds["weight_bytes"],
         "expert_bytes": bounds["expert_bytes"],
         "batch": b, "prompt": s, "generated": gen, "max_len": max_len,
@@ -2722,28 +2845,17 @@ def family_run(arch: str, cfg, b: int, s: int, gen: int, seed: int,
         "moe_dropped": drops,
         "generated_ids": generated[:4, :12].tolist(),
         "consistency_rel_l2": consistency, "consistency_tol": tol,
-        "kv": {"blocks": n_blocks, "cache_bytes": cache_bytes, "prefilled_bytes": raw,
-               "compressed_bytes": comp, "ratio": comp / raw,
-               "tables": "one per (group, key, layer), each calibrated on "
-               "its own block", "sweep_s": sweep_s,
-               "sweep_what": "calibrate, compress, decompress and both "
-               "plain checks of every block",
-               "launches": kv_launches, "k5_vs_plain": held["dct_quant"],
-               "k3_vs_plain": held["idct_dequant"],
-               "max_block_rel_l2": block_err, "drift_rel_l2": drift,
-               "drift_tol": LM_DRIFT_TOL,
-               "layer0_tables_drift_rel_l2": shared_drift,
-               "ms_per_block": kv_ms, "bound_ms_per_block": kv_bound},
+        "kv": kv,
         "card_vs_cpu_smoke": {"arch": smoke.name, "batch": sb, "prompt": ss,
                               "decode_steps": LM_SMOKE_STEPS,
                               "rel_l2": card_cpu, "tol": LM_CARD_CPU_TOL},
-        "seconds": time.perf_counter() - t_run}
+        "seconds": time.perf_counter() - t_run, "seconds_by_part": parts}
 
 
 def families_phase(smi: str, seed: int, device: str = "cuda") -> dict:
-    """Phase 15: the MoE, MLA and hybrid families (M10c, first half) on
-    the card, one model at a time (see the module docstring).  Returns
-    its JSON line."""
+    """Phase 15: the MoE, MLA, hybrid, RWKV and encoder-decoder families
+    (M10c) on the card, one model at a time (see the module docstring).
+    Returns its JSON line."""
     t_phase = time.perf_counter()
     with exact_bf16_sums() as precision:
         runs = [family_run(arch, family_config(arch, layers), b, s, gen,
@@ -2751,10 +2863,11 @@ def families_phase(smi: str, seed: int, device: str = "cuda") -> dict:
                 for arch, layers, b, s, gen in FAMILIES]
     launches = {k: sum(r["kv"]["launches"].get(k, 0) for r in runs)
                 for k in ("dct_quant", "idct_dequant")}
-    max_abs = {"dct_quant": max(r["kv"]["k5_vs_plain"]["max_abs_err"]
-                                for r in runs),
-               "idct_dequant": max(r["kv"]["k3_vs_plain"]["max_abs_err"]
-                                   for r in runs)}
+    held = [r["kv"] for r in runs if r["kv"]["blocks"]]
+    max_abs = {"dct_quant": max(kv["k5_vs_plain"]["max_abs_err"]
+                                for kv in held),
+               "idct_dequant": max(kv["k3_vs_plain"]["max_abs_err"]
+                                   for kv in held)}
     return {"phase": "families", "nvidia_smi": smi, "precision": precision,
             **RUN_WHAT, "runs": runs, "launches": launches, "max_abs_err": max_abs,
             "seconds": time.perf_counter() - t_phase}

@@ -9,12 +9,16 @@ The reference's flags, plus ``--device`` (default: the card; ``cpu`` runs
 the same arithmetic on the host), ``--seed`` (weights and prompts) and
 ``--kv-compress``: after prefill, every layer's prefilled attention-cache
 block (``cache_blocks``: k and v ``[:, :S]``, the hybrid's ring over its
-valid slots, MLA's latents) is compressed (K5) and decompressed (K3) in
-place through ``KVCacheCodec``, each on a table calibrated on that block,
-and the cache's bytes before and after are printed; each block's length
-must be a multiple of the ``kv`` domain's window.  The hybrid's SSM state
-stays raw.  Decode starts at position ``S`` (a VLM's
-patch prefix included) and the cache holds ``S + gen`` slots.
+valid slots, MLA's latents, whisper's cross-attention k/v over the
+frames) is compressed (K5) and decompressed (K3) in place through
+``KVCacheCodec``, each on a table calibrated on that block, and the
+cache's bytes before and after are printed; each prompt-indexed block's
+length must be a multiple of the ``kv`` domain's window, while a cross
+block compresses its whole windows and keeps its tail raw.  The hybrid's
+SSM state and RWKV's state stay raw (RWKV has no block: the line says
+so).  Whisper's frames are zeros, as the reference feeds them.  Decode
+starts at position ``S`` (a VLM's patch prefix included) and the cache
+holds ``S + gen`` slots.
 """
 from __future__ import annotations
 
@@ -28,45 +32,74 @@ import torch
 from repro_torch.configs import get_arch, get_smoke
 from repro_torch.distributed.train import make_serve_fns
 from repro_torch.models import build_model
+from repro_torch.models.api import CROSS_KEYS, STATE_KEYS
 from repro_torch.serving.engine import resolve_device
 from repro_torch.serving.workloads import KVCacheCodec
 
-__all__ = ["main", "compress_cache", "cache_blocks"]
+__all__ = ["main", "compress_cache", "cache_blocks", "compressible"]
 
 MULTI_DEVICE = ("ROADMAP queue 1, item 6 (M10: the multi-device layer — LM "
                 "sharding)")
 
 
-def cache_blocks(cache, s: int):
-    """``(table group, block)`` of every attention-cache block a prefill
-    of ``s`` slots filled, each a ``[B, s', H, D]`` view of one layer:
-    ``k``/``v`` ``[:, :s]``, the hybrid's ring over its ``min(s, T)``
-    valid slots, MLA's ``ckv``/``kr`` latents as one-head blocks.  The
-    SSM state (``conv``, ``ssm``) is not a token axis and stays raw."""
+def _entries(cache):
+    """``(name prefix, key, tensor)`` of a cache nested by group or flat."""
     for g, grp in cache.items():
-        for key, t in grp.items():
-            if key in ("conv", "ssm"):
-                continue
-            for layer, kv in enumerate(t):
-                if kv.dim() == 3:  # [B, T, R] latent
-                    kv = kv.unsqueeze(2)
-                yield (g, key, layer), kv[:, :min(s, kv.shape[1])]
+        if isinstance(grp, torch.Tensor):
+            yield (), g, grp
+        else:
+            for key, t in grp.items():
+                yield (g,), key, t
+
+
+def cache_blocks(cache, s: int):
+    """``(name, block)`` of every attention-cache block a prefill of ``s``
+    slots filled, each a ``[B, s', H, D]`` view of one layer, named
+    ``(group, key, layer)`` (``(key, layer)`` in a flat cache): ``k``/
+    ``v`` ``[:, :s]``, the hybrid's ring over its ``min(s, T)`` valid
+    slots, MLA's ``ckv``/``kr`` latents as one-head blocks, whisper's
+    ``ck``/``cv`` over all their frames.  A state (the hybrid's ``conv``,
+    ``ssm``; RWKV's ``shift1``, ``shift2``, ``wkv``) is not a token axis
+    and stays raw."""
+    for prefix, key, t in _entries(cache):
+        if key in STATE_KEYS:
+            continue
+        for layer, kv in enumerate(t):
+            if kv.dim() == 3:  # [B, T, R] latent
+                kv = kv.unsqueeze(2)
+            valid = kv.shape[1] if key in CROSS_KEYS else min(s,
+                                                              kv.shape[1])
+            yield prefix + (key, layer), kv[:, :valid]
+
+
+def compressible(name, block: torch.Tensor, n: int) -> torch.Tensor:
+    """The part of ``cache_blocks``' block ``name`` that the kv domain's
+    windows of ``n`` tokens cover: a cross block's whole windows (its
+    last ``T % n`` slots stay raw), any other block whole, its length a
+    multiple of ``n`` (else ``ValueError``)."""
+    if name[-2] in CROSS_KEYS:
+        return block[:, :block.shape[1] - block.shape[1] % n]
+    if block.shape[1] % n:
+        raise ValueError(
+            f"{name}: {block.shape[1]} prefilled slots: the kv domain "
+            f"compresses windows of {n} tokens, so S must be a multiple "
+            f"of {n}")
+    return block
 
 
 def compress_cache(codec: KVCacheCodec, cache, s: int) -> Tuple[int, int]:
     """Compress and decompress every block of ``cache_blocks(cache, s)``
     in place through ``codec``, each on a table calibrated on that block
-    (one per (group, key, layer): a table shared across a group's layers
-    clips the deeper layers' token-axis DC, whose range layer 0 does not
-    reach).  Returns the blocks' raw bytes and their compressed bytes."""
-    n = codec.config.n
+    (one per block: a table shared across a group's layers clips the
+    deeper layers' token-axis DC, whose range layer 0 does not reach).  A
+    cross block goes through in its whole windows of the kv domain's n
+    tokens; its last ``T % n`` slots stay raw (whisper's 1500 frames: 93
+    windows and 12 raw slots; ``compressible``).  Returns the compressed
+    slots' raw bytes and their compressed bytes (0, 0 when the cache has
+    no block)."""
     raw = comp = 0
     for name, block in cache_blocks(cache, s):
-        if block.shape[1] % n:
-            raise ValueError(
-                f"{name}: {block.shape[1]} prefilled slots: the kv domain "
-                f"compresses windows of {n} tokens, so S must be a "
-                f"multiple of {n}")
+        block = compressible(name, block, codec.config.n)
         codec.calibrate(block, layer=name)
         ckv = codec.compress(block, layer=name)
         block.copy_(codec.decompress(ckv, layer=name))
@@ -113,6 +146,9 @@ def main(argv=None):
         batch["patch_embeds"] = torch.zeros(
             (args.batch, cfg.vision_prefix, cfg.d_model), dtype=torch.bfloat16)
         s += cfg.vision_prefix
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros(
+            (args.batch, cfg.encoder_seq, cfg.d_model), dtype=torch.bfloat16)
     max_len = s + args.gen
 
     _sync(dev)
@@ -124,7 +160,10 @@ def main(argv=None):
     if args.kv_compress:
         with torch.inference_mode():
             raw, comp = compress_cache(KVCacheCodec(device=dev), cache, s)
-        print(f"kv cache: {raw} B -> {comp} B (ratio {comp / raw:.3f})")
+        if raw:
+            print(f"kv cache: {raw} B -> {comp} B (ratio {comp / raw:.3f})")
+        else:
+            print("kv cache: nothing compressed (no token-axis block)")
 
     tok = logits.argmax(-1, keepdim=True)
     outs = [tok]

@@ -14,9 +14,9 @@ newest checkpoint in ``--ckpt-dir``: kill it mid-run and relaunch.
 
 The reference's flags, plus ``--device`` (default: the card; ``cpu`` runs
 the same arithmetic on the host) and ``--seed`` (weights and data).
-``--data`` or ``--model-par`` above 1, families outside the port and the
-MoE, MLA and hybrid families (served, not trained yet: ``UNTRAINED``)
-raise ``NotImplementedError``; ``--compression`` is accepted and, on one
+``--data`` or ``--model-par`` above 1 and the MoE, MLA, hybrid, RWKV and
+encoder-decoder families (served, not trained yet: ``UNTRAINED``) raise
+``NotImplementedError``; ``--compression`` is accepted and, on one
 device, leaves the step uncompressed, as the reference does without a pod
 axis.
 """
@@ -41,15 +41,17 @@ __all__ = ["main", "make_batch"]
 
 MULTI_DEVICE = ("ROADMAP queue 1, item 6 (M10d: the multi-device layer — "
                 "data and model parallelism)")
-UNTRAINED = ("ROADMAP queue 1, item 6 (M10c training: the MoE, MLA and "
-             "hybrid backward)")
+UNTRAINED = ("ROADMAP queue 1, item 6 (M10c training: the MoE, MLA, "
+             "hybrid, RWKV and encoder-decoder backward)")
 
 
 def untrained(cfg) -> str:
     """What of ``cfg`` the port serves but does not train yet, or ''."""
     return ", ".join(what for what, present in (
         ("MoE layers", cfg.moe_num_experts), ("MLA attention", cfg.mla),
-        ("the hybrid SSM branch", cfg.hybrid_parallel)) if present)
+        ("the hybrid SSM branch", cfg.hybrid_parallel),
+        ("the RWKV time mix", cfg.family == "ssm"),
+        ("the encoder-decoder", cfg.family == "audio")) if present)
 
 
 def make_batch(cfg, pipe: TokenPipeline, step: int) -> dict:

@@ -101,10 +101,12 @@ def init_params(specs: PyTree, generator: torch.Generator,
 class Params(nn.Module):
     """A spec tree as a module: leaves become parameters (no gradient: the
     serving path), dicts submodules.  ``p["wq"]`` and ``"bq" in p`` read it
-    as the reference's functions read their dict of arrays."""
+    as the reference's functions read their dict of arrays; ``specs`` is
+    the tree it was built from."""
 
     def __init__(self, specs: Dict[str, Any], device):
         super().__init__()
+        self.specs = specs
         for name, s in specs.items():
             if isinstance(s, ParamSpec):
                 self.register_parameter(name, nn.Parameter(
@@ -114,6 +116,8 @@ class Params(nn.Module):
                 self.add_module(name, Params(s, device))
 
     def __getitem__(self, name: str):
+        if name in self._modules:  # a stack named as a method (``layers``)
+            return self._modules[name]
         return getattr(self, name)
 
     def __contains__(self, name: str) -> bool:

@@ -2,7 +2,8 @@
 layout and the port's.
 
 The reference keeps a model's parameters, and Adam's m and v beside them,
-as nested dicts whose ``group<i>`` leaves are stacked on a leading layer
+as nested dicts whose stacks' leaves (``group<i>``, RWKV's ``layers``,
+whisper's ``encoder`` and ``decoder``) are stacked on a leading layer
 axis; the port keeps one module per layer, and m and v per parameter
 (``OptState.m`` and ``.v`` keyed by ``model.named_parameters()`` names).
 
@@ -50,11 +51,17 @@ def to_torch(arr: Any, device=None) -> torch.Tensor:
     return torch.tensor(arr, device=device)
 
 
+def _in_stack(path: Tuple[str, ...]) -> bool:
+    """Whether a spec leaf lies in a stack of layers: every top-level
+    leaf is a ``ParamSpec``, every stack a subtree."""
+    return len(path) > 1
+
+
 def _leaf_names(model) -> Iterator[Tuple[Tuple[str, ...], List[str]]]:
     """``(reference path, port names)`` of every leaf of the model's spec
-    tree: a stacked ``group<i>`` leaf has one parameter name per layer."""
+    tree: a stacked leaf has one parameter name per layer."""
     for path, _ in spec_leaves(model.param_specs()):
-        if path[0].startswith("group"):
+        if _in_stack(path):
             count = len(model[path[0]])
             yield path, [".".join((path[0], str(li)) + path[1:])
                          for li in range(count)]
@@ -85,7 +92,7 @@ def _unstacked(tree: Mapping, model) -> Dict[str, Any]:
         leaf = tree
         for k in path:
             leaf = leaf[k]
-        if path[0].startswith("group"):
+        if _in_stack(path):
             leaf = leaf if isinstance(leaf, torch.Tensor) else np.asarray(
                 leaf)
             for li, name in enumerate(names):
@@ -102,7 +109,7 @@ def _stacked(model, by_name: Mapping[str, torch.Tensor]) -> dict:
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        if path[0].startswith("group"):
+        if _in_stack(path):
             node[path[-1]] = torch.stack([by_name[n] for n in names])
         else:
             node[path[-1]] = by_name[names[0]]
@@ -179,9 +186,10 @@ def load_train_state(tree: Mapping, model, opt_state, step: int,
 
 
 def cache_from_jax(tree: Mapping, device=None) -> dict:
-    """The reference's decode cache (nested dicts of arrays stacked on the
-    layer axis: ``k``/``v``, MLA's ``ckv``/``kr``, the hybrid's ``conv``
-    and fp32 ``ssm``) as the port's, each leaf in its own dtype, on
-    ``device``."""
+    """The reference's decode cache (dicts of arrays stacked on the layer
+    axis, nested by group or flat: ``k``/``v``, MLA's ``ckv``/``kr``, the
+    hybrid's ``conv`` and fp32 ``ssm``, RWKV's ``shift1``/``shift2`` and
+    fp32 ``wkv``, whisper's ``k``/``v``/``ck``/``cv``) as the port's, each
+    leaf in its own dtype, on ``device``."""
     return {k: cache_from_jax(v, device) if isinstance(v, Mapping)
             else to_torch(v, device) for k, v in tree.items()}

@@ -10,7 +10,7 @@ dense layers before its MoE stack stay a group of their own
 dispatch (capacity, keep and drop rule, gates) computed with index
 operations; the expert-parallel dispatch of ``moe_distributed.py`` is the
 multi-device layer's (ROADMAP queue 1, item 6, M10d).  RWKV and the
-encoder-decoder raise :class:`NotImplementedError` (``OUT_OF_SLICE``).
+encoder-decoder have modules of their own (``rwkv.py``, ``encdec.py``).
 """
 from __future__ import annotations
 
@@ -36,25 +36,6 @@ from repro_torch.models.common import (
 from repro_torch.models.config import ArchConfig
 
 GLOBAL_WINDOW = 2 ** 30  # a window of 0 means global
-OUT_OF_SLICE = ("ROADMAP queue 1, item 6 (M10c, second half: RWKV and the "
-                "encoder-decoder)")
-
-
-def out_of_slice(cfg: ArchConfig) -> Optional[str]:
-    """Why ``cfg`` is outside the families the port runs, or None."""
-    if cfg.family in ("ssm", "audio"):
-        return f"family {cfg.family!r}"
-    return None
-
-
-def require_slice(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port does not
-    run yet; it never runs part of a model."""
-    why = out_of_slice(cfg)
-    if why is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {why} is not ported to repro_torch yet; see "
-            f"{OUT_OF_SLICE}")
 
 
 def ring_cache(cfg: ArchConfig) -> bool:
@@ -369,7 +350,6 @@ def moe_apply(cfg: ArchConfig, p, x, stats: Optional[dict] = None):
 # Decoder layer (dense or moe ffn; gqa or mla attention; optional ssm branch)
 # ---------------------------------------------------------------------------
 def layer_specs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
-    require_slice(cfg)
     d = cfg.d_model
     dt = torch.bfloat16
     p: Dict[str, Any] = {

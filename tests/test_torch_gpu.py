@@ -22,9 +22,9 @@ kernels' shared state (K1's workspace, the launch counters) coherent.  The
 workloads: ``KVCacheCodec`` waits for the card nowhere and matches K5's and
 K3's plain versions; a compressed checkpoint at n = e = 64 holds every
 kernel call to its plain version and restores within relative rms 0.02.
-The LM path: the eight smoke models it serves (the MoE, MLA and hybrid
-families among them) on the card against the CPU, and decode steps that
-wait for the card nowhere.
+The LM path: the ten smoke models it serves (the MoE, MLA, hybrid, RWKV
+and encoder-decoder families among them) on the card against the CPU, and
+decode steps that wait for the card nowhere.
 LM training: the smoke granite's train steps on the card track the CPU's
 within the CPU trajectory bounds, a raw checkpoint resumes bit for bit and
 a compressed one through counted K4, K1 and ``lut_idct`` launches."""
@@ -1527,8 +1527,9 @@ def test_autotune_cli_warms_a_cache_the_engines_use(cuda, tmp_path,
 # ---------------------------------------------------------------------------
 LM_SMOKE = ("granite_8b", "minitron_4b", "gemma2_27b", "qwen15_4b",
             "internvl2_26b", "llama4_scout_17b_a16e", "deepseek_v3_671b",
-            "hymba_15b")
-LM_FAMILIES = ("llama4_scout_17b_a16e", "deepseek_v3_671b", "hymba_15b")
+            "hymba_15b", "rwkv6_3b", "whisper_tiny")
+LM_FAMILIES = ("llama4_scout_17b_a16e", "deepseek_v3_671b", "hymba_15b",
+               "rwkv6_3b", "whisper_tiny")
 LM_BOUND = 2.0 ** -6  # the CPU parity tests' bound: 2 bf16 ulps, relative
 
 
@@ -1545,6 +1546,9 @@ def _lm_batch(cfg, b: int = 2, s: int = 16) -> dict:
     if cfg.family == "vlm":
         batch["patch_embeds"] = torch.full(
             (b, cfg.vision_prefix, cfg.d_model), 0.01, dtype=torch.bfloat16)
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model))).to(torch.bfloat16)
     return batch
 
 
@@ -1608,10 +1612,10 @@ def test_lm_decode_step_waits_for_the_card_nowhere(cuda):
 
 @pytest.mark.parametrize("arch", LM_FAMILIES)
 def test_lm_family_decode_waits_for_the_card_nowhere(cuda, arch):
-    """The MoE dispatch, MLA's absorbed decode and the hybrid's ring and
-    SSM step run under ``set_sync_debug_mode("error")`` after one warm
-    step; a MoE layer's drop count, when asked for, stays a tensor on the
-    card."""
+    """The MoE dispatch, MLA's absorbed decode, the hybrid's ring and SSM
+    step, RWKV's state and whisper's two caches run under
+    ``set_sync_debug_mode("error")`` after one warm step; a MoE layer's
+    drop count, when asked for, stays a tensor on the card."""
     from repro_torch.configs import get_smoke
     from repro_torch.distributed.train import make_serve_fns
     from repro_torch.models import build_model

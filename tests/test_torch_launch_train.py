@@ -81,7 +81,8 @@ def test_relaunch_from_a_compressed_checkpoint(tmp_path, capsys):
     (["--data", "2"], "ROADMAP queue 1, item 6"),
     (["--model-par", "2"], "ROADMAP queue 1, item 6"),
     (["--arch", "deepseek-v3-671b"], r"item 6 \(M10c training"),
-    (["--arch", "rwkv6-3b"], r"item 6 \(M10c, second half"),
+    (["--arch", "rwkv6-3b"], r"item 6 \(M10c training"),
+    (["--arch", "whisper-tiny"], r"item 6 \(M10c training"),
 ])
 def test_refusals(argv, match):
     with pytest.raises(NotImplementedError, match=match):

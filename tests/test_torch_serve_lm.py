@@ -80,8 +80,6 @@ def test_serve_lm_refuses_what_it_cannot_run(monkeypatch):
     for flag in ("--data", "--model-par"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             serve_lm.main(ARGS + [flag, "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        serve_lm.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_lm.main(ARGS[:3])
@@ -258,6 +256,86 @@ def test_kv_compress_of_the_mla_and_hybrid_caches(arch, capsys):
                          "4", "--kv-compress"])
     lines = _lines(capsys.readouterr().out)
     assert lines[0].startswith("kv cache: ") and gen.shape == (2, 4)
+
+
+def test_serve_lm_serves_rwkv_with_nothing_to_compress(capsys):
+    """RWKV's cache is its state, with no token axis: ``--kv-compress``
+    finds no block, says so, and the serve runs on."""
+    gen = serve_lm.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu",
+                         "--batch", "2", "--prompt-len", "12", "--gen", "4",
+                         "--kv-compress"])
+    lines = _lines(capsys.readouterr().out)
+    assert lines[0] == "kv cache: nothing compressed (no token-axis block)"
+    assert lines[1].startswith("prefill: ") and gen.shape == (2, 4)
+    model = build_model(get_smoke("rwkv6_3b"), device="cpu")
+    _, cache = model.prefill({"tokens": torch.zeros((2, 12),
+                                                    dtype=torch.long)}, 16)
+    assert sorted(cache) == ["shift1", "shift2", "wkv"]
+    assert list(serve_lm.cache_blocks(cache, 12)) == []
+    assert serve_lm.compress_cache(KVCacheCodec(device="cpu"), cache,
+                                   12) == (0, 0)
+
+
+def _whisper(encoder_seq=None):
+    cfg = get_smoke("whisper_tiny")
+    if encoder_seq is not None:
+        cfg = cfg.replace(encoder_seq=encoder_seq)
+    model = build_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (B, 16))),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (B, cfg.encoder_seq, cfg.d_model))).to(torch.bfloat16)}
+    logits, cache = model.prefill(batch, 20)
+    return model, logits, cache
+
+
+def test_kv_compress_of_the_whisper_caches(capsys):
+    """Whisper's self k/v over the prompt and its cross k/v over all 64
+    frames go through the codec, a table per block; one decode step on
+    the restored cache moves the logits by less than the reference's
+    0.15.  ``serve_lm --kv-compress`` serves the family end to end."""
+    model, logits, cache = _whisper()
+    cfg = model.cfg
+    blocks = list(serve_lm.cache_blocks(cache, 16))
+    assert [n for n, _ in blocks] == [(k, li) for k in ("k", "v", "ck", "cv")
+                                      for li in range(cfg.num_layers)]
+    assert [blk.shape[1] for _, blk in blocks] == [16] * 4 + [64] * 4
+    new = {k: t.clone() for k, t in cache.items()}
+    raw, comp = serve_lm.compress_cache(KVCacheCodec(device="cpu"), new, 16)
+    per_slot = B * cfg.num_kv_heads * cfg.head_dim * 2
+    assert raw == cfg.num_layers * 2 * (16 + 64) * per_slot
+    assert comp * 2 == raw
+    for k in ("k", "v"):
+        assert torch.equal(new[k][:, :, 16:], cache[k][:, :, 16:])
+    for k in ("ck", "cv"):
+        assert not torch.equal(new[k], cache[k])
+    tok = logits.argmax(-1, keepdim=True)
+    ref, _ = model.decode_step(cache, tok, 16)
+    got, _ = model.decode_step(new, tok, 16)
+    drift = _drift(ref.float().numpy(), got.float().numpy())
+    assert 0 < drift < 0.15, drift
+    gen = serve_lm.main(["--arch", "whisper-tiny", "--smoke", "--device",
+                         "cpu", "--batch", "2", "--prompt-len", "16",
+                         "--gen", "4", "--kv-compress"])
+    lines = _lines(capsys.readouterr().out)
+    assert lines[0].startswith("kv cache: ") and gen.shape == (2, 4)
+
+
+def test_a_cross_block_keeps_its_tail_raw():
+    """Frames that are not a multiple of the window: the cross blocks
+    compress their whole windows (64 of 70 slots) and leave the last 6
+    slots as they were, bit for bit."""
+    model, _, cache = _whisper(encoder_seq=70)
+    new = {k: t.clone() for k, t in cache.items()}
+    raw, _ = serve_lm.compress_cache(KVCacheCodec(device="cpu"), new, 16)
+    cfg = model.cfg
+    per_slot = B * cfg.num_kv_heads * cfg.head_dim * 2
+    assert raw == cfg.num_layers * 2 * (16 + 64) * per_slot
+    for k in ("ck", "cv"):
+        assert torch.equal(new[k][:, :, 64:], cache[k][:, :, 64:])
+        assert not torch.equal(new[k][:, :, :64], cache[k][:, :, :64])
 
 
 def test_kv_cache_example_runs_on_the_cpu(tmp_path):
