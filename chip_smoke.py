@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched decode, encode and transcode paths,
 its workloads, its serving frontend and its LM serving and training paths
-on one NVIDIA GPU.
+(every family it trains) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--src DIR]
 
@@ -294,11 +294,43 @@ digests below must then match).  Phases, one JSON line each:
      codec's ms on one block; the model's smoke config built on the CPU,
      prefill + 4 decode steps there and, moved to the card, on the card,
      within ``LM_CARD_CPU_TOL``.
+ 16. families_train — (``families_train_phase()``; skipped when the driven
+     port's ``launch.train.untrained(get_arch("whisper-tiny"))`` is not
+     empty) the MoE, MLA and encoder-decoder families trained at full
+     width, one model at a time, each freed before the next, TF32 and bf16
+     reduced-precision reductions off, weights drawn on the card from
+     ``--seed``, ``make_train_step`` at ``TRAIN_OPT`` (``FT_RUNS``):
+     whisper-tiny whole (4 + 4 layers, 72.7 M parameters), batch 16 x 448
+     tokens (Whisper's decoder length) over 1500 frames drawn N(0, 1) from
+     the seed; deepseek-v3 cut to its first 2 layers (both dense MLA
+     layers; 3.60 G), batch 2 x 2048; llama4-scout cut to 1 MoE layer (16
+     experts, top 1, the shared expert; 4.27 G), batch 2 x 2048.  For each
+     (``family_train_run``): run A's four steps (every loss and grad norm
+     finite; each step's MoE dropped pairs), step ms by CUDA events (steps
+     1-3) beside ``train_bound``, one more step under ``torch.profiler``,
+     peak memory, 8 steps on one repeated batch (the last loss below the
+     first).  whisper-tiny also run B, phase 14's resume through a
+     compressed checkpoint after step 1 (``compressed_resume``: every K4
+     and K1 / ``lut_idct`` call held at once against its plain version, the
+     launch counts, every raw leaf bit for bit, every compressed leaf
+     within ``TRAIN_CKPT_GUARD``), B's step-3 loss within
+     ``TRAIN_RESUME_TOL`` of A's, printed beside step 3's own change.
+     llama4-scout also, before its m and v exist, one batch's gradients
+     with remat on, on again and off (``grads_twice``): the losses bit for
+     bit, every leaf within ``FT_REPEAT_TOL``, and each MoE layer's
+     ``dropped`` and ``experts_hit`` the same in every forward, the
+     recomputed ones included (``MoeStatsLog``).  Then the smoke
+     deepseek-v3 (MLA + MoE) and whisper-tiny, 3 steps on the CPU and on
+     the card (``smoke_card_vs_cpu``, as phase 14's granite), and the
+     smoke deepseek-v3's compressed resume on the card (``smoke_resume``:
+     its expert stacks' m and v through K4 and K1 / ``lut_idct``).
 
 Then the ``{"kernels": [...]}`` line (K5's and K3's entries also carry
 the LM path's launches, ``lm_launches``, and the families phase's,
 ``families_launches``; the four checkpoint kernels' the
-train phase's, ``train_launches`` and ``train_max_abs_err``), and last
+train phase's, ``train_launches`` and ``train_max_abs_err``, and the
+families train phase's, ``families_train_launches`` and
+``families_train_max_abs_err``), and last
 ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
 the last line.
 """
@@ -308,6 +340,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1978,23 +2011,29 @@ TRAIN_CARD_CPU_CHANGE_TOL = 2.0 ** -2
 
 def train_bound(model, tokens: int, b: int, s: int) -> dict:
     """The card's least time for one train step: the matmul operations at
-    the bf16 peak (each layer's weights forward, again in the
-    rematerialized forward, and twice in the backward; the attention's
-    unmasked S x S score products as the reference computes them, in the
-    same four passes; the unembedding forward and twice backward) against
-    the bytes (the weights, m and v read once and written once), the
-    larger."""
+    the bf16 peak, the layers' as ``forward_ops`` counts a forward over
+    the batch (the weights at every token, a MoE layer's experts at its
+    ``E * C`` slots, the attention's unmasked S x S score rectangle as the
+    reference computes it, MLA's qk ``nope + rope`` and v ``v_dim``,
+    whisper's encoder and cross k/v at its frames, its F x F encoder and
+    S x F cross rectangles) in four passes: the forward, the
+    rematerialized forward and twice in the backward; the unembedding at
+    every token forward and twice backward; against the bytes (the
+    weights, m and v read once and written once, the tokens and labels,
+    whisper's frames), the larger."""
     cfg = model.cfg
-    layer_macs = sum(p.numel() for _, _, layer in model.layers()
-                     for p in layer.parameters() if p.dim() > 1)
-    attn = 4.0 * b * cfg.num_heads * s * s * cfg.head_dim * cfg.num_layers
-    ops_ = (8.0 * layer_macs * tokens + 4 * attn
-            + 6.0 * cfg.d_model * cfg.vocab_size * tokens)
-    n = sum(p.numel() for p in model.parameters())
-    nbytes = 2 * (2 * n + 8 * n) + 8 * tokens
+    dense, slots, routed, attn, _ = forward_ops(model, b, tokens, s, s)
+    unembed = 2.0 * cfg.d_model * cfg.vocab_size * tokens
+    ops_ = 4.0 * (dense + slots + attn) + 3.0 * unembed
+    nbytes = 2 * sum(p.numel() * (p.element_size() + 8)
+                     for p in model.parameters()) + 8 * tokens
+    if cfg.family == "audio":
+        nbytes += 2 * b * cfg.encoder_seq * cfg.d_model
     tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops_ / PEAK_BF16_PER_S * 1e3
     return {"ms": max(tb, to), "by": "bytes" if tb >= to else "operations",
-            "bytes": nbytes, "operations": ops_}
+            "bytes": nbytes, "operations": ops_,
+            "routed_operations": 4.0 * (dense + routed + attn)
+            + 3.0 * unembed, "moe_slot_operations": 4.0 * slots}
 
 
 @contextlib.contextmanager
@@ -2063,6 +2102,259 @@ def ckpt_kernels_held(names):
             setattr(mod, attr, fn)
 
 
+def train_batches(cfg, b: int, s: int, seed: int, n: int, device) -> list:
+    """``n`` batches of ``TokenPipeline`` tokens (``launch.train``'s
+    ``make_batch``), the audio family's frames N(0, 1) drawn on ``device``
+    from ``seed + i`` in place of the launcher's zeros."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.train import make_batch
+
+    pipe = TokenPipeline(cfg.vocab_size, b, s, seed=seed)
+    out = []
+    for i in range(n):
+        batch = make_batch(cfg, pipe, i)
+        if cfg.family == "audio":
+            batch["frames"] = torch.randn(
+                tuple(batch["frames"].shape), device=device,
+                generator=torch.Generator(device=device).manual_seed(
+                    seed + i)).to(torch.bfloat16)
+        out.append(batch)
+    return out
+
+
+def smoke_card_vs_cpu(arch: str, seed: int, b: int = 2, s: int = 64
+                      ) -> dict:
+    """The smoke ``arch`` drawn on the CPU from ``seed``, 3 train steps
+    there and 3 on the card from the same draw: the losses within
+    ``TRAIN_CARD_CPU_LOSS_TOL`` and the weights' change within
+    ``TRAIN_CARD_CPU_CHANGE_TOL`` (phases 14 and 16)."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
+    from repro_torch.distributed.train import make_train_step
+    from repro_torch.models import build_model
+
+    smoke = get_smoke(arch)
+    batches = train_batches(smoke, b, s, seed, 3, "cpu")
+    arms = {}
+    for dev in ("cpu", "cuda"):
+        small = build_model(smoke, device="cpu",
+                            generator=torch.Generator().manual_seed(seed))
+        start_w = {n: p.detach().float().clone()
+                   for n, p in small.named_parameters()}
+        sts = make_train_step(small, AdamW(AdamWConfig(**TRAIN_OPT)), dev)
+        sst, losses = sts.init(), []
+        for batch in batches:
+            sst, met = sts.step_fn(sst, batch)
+            losses.append(float(met["loss"]))
+        arms[dev] = (losses, {n: p.detach().float().cpu() - start_w[n]
+                              for n, p in small.named_parameters()})
+    (lc, dc), (lg, dg) = arms["cpu"], arms["cuda"]
+    loss_rel = max(abs(g - c) / abs(c) for g, c in zip(lg, lc))
+    num = sum(float(torch.sum((dg[n] - dc[n]) ** 2)) for n in dc)
+    den = sum(float(torch.sum(dc[n] ** 2)) for n in dc)
+    change_rel = (num / den) ** 0.5
+    check(loss_rel <= TRAIN_CARD_CPU_LOSS_TOL
+          and change_rel <= TRAIN_CARD_CPU_CHANGE_TOL,
+          f"smoke {arch}'s 3 steps, card against CPU: losses {lg} vs "
+          f"{lc} ({loss_rel}), weights' change {change_rel}")
+    return {"arch": smoke.name, "steps": 3, "losses_cpu": lc,
+            "losses_card": lg, "loss_rel": loss_rel,
+            "change_rel_l2": change_rel,
+            "tol": [TRAIN_CARD_CPU_LOSS_TOL, TRAIN_CARD_CPU_CHANGE_TOL]}
+
+
+def compressed_resume(model, st, opt, tmp: str, step: int) -> tuple:
+    """A train state's resume through a compressed checkpoint on the card
+    (phases 14 and 16): with every launch counter at 0,
+    ``save_checkpoint(compress=True)`` of ``train_state_tree`` at ``step``,
+    every K4 call held at once against its plain version
+    (``ckpt_kernels_held``); the live weights, m and v overwritten with
+    NaN; ``restore_latest`` with every K1 / ``lut_idct`` call held the same
+    way, and ``load_train_state``.  Held: the manifest (v2, one
+    ``state.fptc``, m and v's leaves of 4096 elements or more in it, every
+    other leaf a raw ``.npy``), the launch counts (K4 once per encode
+    bucket, K1 and ``lut_idct`` once per engine call:
+    ``workloads.engine_calls``), every raw leaf bit for bit, every
+    compressed leaf within ``TRAIN_CKPT_GUARD`` (each leaf's relative rms
+    and the state's reported against the reference's
+    ``TRAIN_CKPT_REL_RMS``), the blob under 0.8 of the compressed leaves'
+    float bytes.  Returns the restored ``OptState`` and the report: the
+    save and restore walls split into their steps (with and without the
+    in-line checks), peak memory in each, the bytes, each kernel's ms and
+    bound at the state's shapes."""
+    import torch
+
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.kernels import ops
+    from repro_torch.models.convert import (
+        load_train_state,
+        train_state_tree,
+    )
+    from repro_torch.serving import workloads as wl
+    from repro_torch.serving.engine import p2
+
+    tree = train_state_tree(model, st)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    save_specs = [(ckpt, "calibrate_train_state", "calibrate"),
+                  (wl, "shard_state", "shard"),
+                  (ckpt, "state_to_containers", "shard_encode")]
+    restore_specs = [(ckpt, "_read_containers", "read_crc"),
+                     (ckpt, "state_from_containers", "decode_unshard"),
+                     (wl, "unshard_state", "unshard"),
+                     (ckpt, "_place", "to_device")]
+    ops.reset_launches()
+    with ckpt_kernels_held(CKPT_KERNELS) as held_save, \
+            timers(save_specs) as ssec:
+        t0 = time.perf_counter()
+        path = ckpt.save_checkpoint(tmp, step, tree, compress=True)
+        save_s = time.perf_counter() - t0
+    save_launches = dict(ops.LAUNCHES)
+    peak_save = torch.cuda.max_memory_allocated()
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    files = sorted(os.listdir(path))
+    disk = {name: os.path.getsize(os.path.join(path, name))
+            for name in files}
+    # what was saved, kept to compare; then the live state overwritten
+    saved = _tree_map(lambda t: t.clone(), tree)
+    del tree
+    with torch.no_grad():
+        for p in model.parameters():
+            p.fill_(float("nan"))
+        for t in (*st.m.values(), *st.v.values()):
+            t.fill_(float("nan"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with ckpt_kernels_held(CKPT_KERNELS) as held_restore, \
+            timers(restore_specs) as rsec:
+        t0 = time.perf_counter()
+        got_step, got = ckpt.restore_latest(tmp, saved)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    restore_launches = dict(ops.LAUNCHES)
+    peak_restore = torch.cuda.max_memory_allocated()
+    state = manifest["state"]
+    check(manifest["version"] == 2 and state["file"] == "state.fptc"
+          and got_step == step, f"checkpoint: version "
+          f"{manifest['version']}, state {state.get('file')}, step "
+          f"{got_step}")
+    leaves = manifest["leaves"]
+    compressed = {k for k, e in leaves.items()
+                  if e.get("codec") == "fptc_state"}
+    raw_leaves = set(leaves) - compressed
+    check(compressed == {k for k, e in leaves.items()
+                         if not k.startswith("['params']")
+                         and math.prod(e["shape"]) >= 4096}
+          and files == sorted(["manifest.json", "state.fptc"]
+                              + [leaves[k]["file"] + ".npy"
+                                 for k in raw_leaves]),
+          f"checkpoint files {files}, compressed leaves {sorted(compressed)}")
+    lengths = [n for leaf in state["leaves"] for n in leaf["lengths"]]
+    calls = wl.engine_calls(lengths)
+    enc_buckets = sum(
+        len({p2(-(-n // ckpt.CKPT_CODEC_CONFIG.n)) for n in lengths[c]})
+        for c in calls)
+    want = {k: 0 for k in save_launches}
+    want.update(encode_levels=enc_buckets, symlen_pack=enc_buckets)
+    check(save_launches == want, f"checkpoint save launch counts "
+          f"{save_launches} != {want}")
+    want = {k: 0 for k in restore_launches}
+    want.update(symlen_decode=len(calls), lut_idct=len(calls))
+    check(restore_launches == want, f"checkpoint restore launch counts "
+          f"{restore_launches} != {want}")
+    rel, raw_equal, sums = {}, True, {"m": [0.0, 0.0], "v": [0.0, 0.0]}
+    float_bytes = 0
+    for (key, a), (_, r) in zip(_flat(saved), _flat(got)):
+        check(r.is_cuda and r.dtype == a.dtype and r.shape == a.shape,
+              f"restored {key}: {r.device} {r.dtype} {tuple(r.shape)}")
+        if "['" + "']['".join(key.split(".")) + "']" not in compressed:
+            raw_equal &= bool(torch.equal(r, a))
+            continue
+        err = float(torch.linalg.vector_norm(r - a)) ** 2
+        ref = float(torch.linalg.vector_norm(a)) ** 2
+        rel[key] = (err / ref) ** 0.5
+        sums[key.split(".")[0]][0] += err
+        sums[key.split(".")[0]][1] += ref
+        float_bytes += a.numel() * a.element_size()
+    check(len(rel) == len(compressed), f"{len(rel)} compressed leaves "
+          f"restored of {len(compressed)}")
+    worst = max(rel.values())
+    part_rel = {part: (e / r) ** 0.5 for part, (e, r) in sums.items()}
+    state_rel = (sum(e for e, _ in sums.values())
+                 / sum(r for _, r in sums.values())) ** 0.5
+    check(raw_equal, "a raw leaf did not come back bit for bit")
+    check(worst < TRAIN_CKPT_GUARD, f"checkpoint leaves off: relative rms "
+          f"{state_rel} (m, v: {part_rel}; by leaf {rel})")
+    check(disk["state.fptc"] < 0.8 * float_bytes,
+          f"state.fptc {disk['state.fptc']} B of {float_bytes} float bytes")
+    negative_v = sum(int((t < 0).sum()) for _, t in _flat(got["v"]))
+    st = load_train_state(got, model, st, got_step, opt)
+    del got, saved
+    launches = {**save_launches, **{k: v for k, v in
+                                    restore_launches.items() if v}}
+    kernels = {}
+    for name in CKPT_KERNELS:
+        t = (held_save if name.startswith(("encode", "symlen_pack"))
+             else held_restore)[name]
+        check(t["ok"] and t["calls"] == launches[name] > 0,
+              f"{name} at the train state's shapes against its plain "
+              f"version: {t['calls']} calls, {launches[name]} launches, "
+              f"{t['results']}")
+        total = bound_ms(t["bytes"], t["operations"])
+        extra = {}
+        if name == "encode_levels":
+            extra = {k: sum(r[k] for r in t["results"])
+                     for k in ("flips", "deadzone_moves", "cells")}
+        kernels[name] = {"launches": launches[name], "calls": t["calls"],
+                         "ok": t["ok"], "max_abs_err": t["max_abs_err"],
+                         **extra, "ms": t["ms"], "first_ms": t["first_ms"],
+                         "bound_ms": total[0], "bound_by": total[1],
+                         "by_call": t["by_call"]}
+    save_check = held_save["check_s"]
+    restore_check = held_restore["check_s"]
+    report = {
+        "manifest_version": manifest["version"], "files": len(files),
+        "leaves": len(leaves), "compressed": len(compressed),
+        "engine_calls": len(calls), "shards": len(lengths),
+        "encode_buckets": enc_buckets, "save_launches": save_launches,
+        "restore_launches": restore_launches,
+        "save_s": save_s, "restore_s": restore_s,
+        "save_check_s": save_check, "restore_check_s": restore_check,
+        "save_s_less_checks": save_s - save_check,
+        "restore_s_less_checks": restore_s - restore_check,
+        "save_split_s": {
+            "calibrate": ssec["calibrate"], "shard": ssec["shard"],
+            "encode_with_checks": ssec["shard_encode"] - ssec["shard"],
+            "write": save_s - ssec["calibrate"] - ssec["shard_encode"]},
+        "restore_split_s": {
+            "read_crc": rsec["read_crc"],
+            "decode_with_checks": rsec["decode_unshard"] - rsec["unshard"],
+            "unshard": rsec["unshard"], "to_device": rsec["to_device"],
+            "other": restore_s - rsec["read_crc"]
+            - rsec["decode_unshard"] - rsec["to_device"]},
+        "disk_bytes": {"state.fptc": disk["state.fptc"],
+                       "raw_npy": sum(v for k, v in disk.items()
+                                      if k.endswith(".npy"))},
+        "float_bytes": float_bytes,
+        "ratio": disk["state.fptc"] / float_bytes,
+        "state_rel_rms_err": state_rel, "part_rel_rms_err": part_rel,
+        "max_rel_rms_err": worst, "rel_rms_err": rel,
+        "rel_rms_reported_against": TRAIN_CKPT_REL_RMS,
+        "leaves_over_it": sorted(k for k, v in rel.items()
+                                 if v >= TRAIN_CKPT_REL_RMS),
+        "rel_rms_guard": TRAIN_CKPT_GUARD,
+        "restored_v_negative": negative_v,
+        "peak_save": peak_save, "peak_restore": peak_restore,
+        "kernels": kernels}
+    return st, report
+
+
 def train_phase(smi: str, seed: int) -> dict:
     """Phase 14: LM training (M10b) on the card (see the module docstring).
     Returns its JSON line; frees the model before it returns."""
@@ -2072,20 +2364,10 @@ def train_phase(smi: str, seed: int) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_arch, get_smoke
-    from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.configs import get_arch
     from repro_torch.distributed.optimizer import AdamW, AdamWConfig
     from repro_torch.distributed.train import make_train_step
-    from repro_torch.kernels import ops
-    from repro_torch.launch.train import make_batch
     from repro_torch.models import build_model
-    from repro_torch.models.convert import (
-        load_train_state,
-        train_state_tree,
-    )
-    from repro_torch.serving import workloads as wl
-    from repro_torch.serving.engine import p2
 
     t_phase = time.perf_counter()
     gc.collect()
@@ -2115,8 +2397,7 @@ def train_phase(smi: str, seed: int) -> dict:
         n_params = sum(p.numel() for p in model.parameters())
         opt = AdamW(AdamWConfig(**TRAIN_OPT))
         ts = make_train_step(model, opt)
-        pipe = TokenPipeline(cfg.vocab_size, b, s, seed=seed)
-        batches = [make_batch(cfg, pipe, i) for i in range(TRAIN_STEPS + 1)]
+        batches = train_batches(cfg, b, s, seed, TRAIN_STEPS + 1, "cuda")
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
 
@@ -2151,106 +2432,7 @@ def train_phase(smi: str, seed: int) -> dict:
         for i in range(2):
             st, met = ts.step_fn(st, batches[i])
             run_b.append(float(met["loss"]))
-        tree = train_state_tree(model, st)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        save_specs = [(ckpt, "calibrate_train_state", "calibrate"),
-                      (wl, "shard_state", "shard"),
-                      (ckpt, "state_to_containers", "shard_encode")]
-        restore_specs = [(ckpt, "_read_containers", "read_crc"),
-                         (ckpt, "state_from_containers", "decode_unshard"),
-                         (wl, "unshard_state", "unshard"),
-                         (ckpt, "_place", "to_device")]
-        ops.reset_launches()
-        with ckpt_kernels_held(CKPT_KERNELS) as held_save, \
-                timers(save_specs) as ssec:
-            t0 = time.perf_counter()
-            path = ckpt.save_checkpoint(tmp, 2, tree, compress=True)
-            save_s = time.perf_counter() - t0
-        save_launches = dict(ops.LAUNCHES)
-        peak_save = torch.cuda.max_memory_allocated()
-        with open(os.path.join(path, "manifest.json")) as f:
-            manifest = json.load(f)
-        files = sorted(os.listdir(path))
-        disk = {name: os.path.getsize(os.path.join(path, name))
-                for name in files}
-        # what was saved, kept to compare; then the live state overwritten
-        saved = _tree_map(lambda t: t.clone(), tree)
-        del tree
-        with torch.no_grad():
-            for p in model.parameters():
-                p.fill_(float("nan"))
-            for t in (*st.m.values(), *st.v.values()):
-                t.fill_(float("nan"))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()
-        with ckpt_kernels_held(CKPT_KERNELS) as held_restore, \
-                timers(restore_specs) as rsec:
-            t0 = time.perf_counter()
-            step, got = ckpt.restore_latest(tmp, saved)
-            torch.cuda.synchronize()
-            restore_s = time.perf_counter() - t0
-        restore_launches = dict(ops.LAUNCHES)
-        peak_restore = torch.cuda.max_memory_allocated()
-        state = manifest["state"]
-        check(manifest["version"] == 2 and state["file"] == "state.fptc"
-              and step == 2, f"train checkpoint: version "
-              f"{manifest['version']}, state {state.get('file')}, step "
-              f"{step}")
-        raw_leaves = {k for k, e in manifest["leaves"].items()
-                      if "codec" not in e}
-        check(files == sorted(["manifest.json", "state.fptc"]
-                              + [manifest["leaves"][k]["file"] + ".npy"
-                                 for k in raw_leaves])
-              and all(k.startswith("['params']")
-                      and manifest["leaves"][k]["dtype"] == "bfloat16"
-                      for k in raw_leaves)
-              and all(e.get("codec") == "fptc_state"
-                      for k, e in manifest["leaves"].items()
-                      if k not in raw_leaves)
-              and len(manifest["leaves"]) == 3 * len(raw_leaves),
-              f"train checkpoint files {files}")
-        lengths = [n for leaf in state["leaves"] for n in leaf["lengths"]]
-        calls = wl.engine_calls(lengths)
-        enc_buckets = sum(
-            len({p2(-(-n // ckpt.CKPT_CODEC_CONFIG.n))
-                 for n in lengths[c]}) for c in calls)
-        want = {k: 0 for k in save_launches}
-        want.update(encode_levels=enc_buckets, symlen_pack=enc_buckets)
-        check(save_launches == want, f"train save launch counts "
-              f"{save_launches} != {want}")
-        want = {k: 0 for k in restore_launches}
-        want.update(symlen_decode=len(calls), lut_idct=len(calls))
-        check(restore_launches == want, f"train restore launch counts "
-              f"{restore_launches} != {want}")
-        rel, raw_equal, sums = {}, True, {"m": [0.0, 0.0], "v": [0.0, 0.0]}
-        for (key, a), (_, r) in zip(_flat(saved), _flat(got)):
-            check(r.is_cuda and r.dtype == a.dtype and r.shape == a.shape,
-                  f"restored {key}: {r.device} {r.dtype} {tuple(r.shape)}")
-            if a.dtype == torch.bfloat16:
-                raw_equal &= bool(torch.equal(r, a))
-            else:
-                err = float(torch.linalg.vector_norm(r - a)) ** 2
-                ref = float(torch.linalg.vector_norm(a)) ** 2
-                rel[key] = (err / ref) ** 0.5
-                sums[key.split(".")[0]][0] += err
-                sums[key.split(".")[0]][1] += ref
-        worst = max(rel.values())
-        part_rel = {part: (e / r) ** 0.5 for part, (e, r) in sums.items()}
-        state_rel = (sum(e for e, _ in sums.values())
-                     / sum(r for _, r in sums.values())) ** 0.5
-        check(raw_equal, "a raw bf16 weight did not come back bit for bit")
-        check(worst < TRAIN_CKPT_GUARD, f"train checkpoint leaves off: "
-              f"relative rms {state_rel} (m, v: {part_rel}; by leaf {rel})")
-        float_bytes = sum(4 * a.numel() for _, a in _flat(saved)
-                          if a.dtype == torch.float32)
-        check(disk["state.fptc"] < 0.8 * float_bytes,
-              f"state.fptc {disk['state.fptc']} B of {float_bytes} float "
-              f"bytes")
-        negative_v = sum(int((t < 0).sum()) for _, t in _flat(got["v"]))
-        st = load_train_state(got, model, st, step, opt)
-        del got, saved
+        st, resume = compressed_resume(model, st, opt, tmp, 2)
         for i in range(2, TRAIN_STEPS):
             st, met = ts.step_fn(st, batches[i])
             run_b.append(float(met["loss"]))
@@ -2259,27 +2441,6 @@ def train_phase(smi: str, seed: int) -> dict:
               f"resumed run B's step-3 loss {run_b} against run A's "
               f"{[r[0] for r in run_a]}: relative {resume_rel} > "
               f"{TRAIN_RESUME_TOL}")
-        launches = {**save_launches, **{k: v for k, v in
-                                        restore_launches.items() if v}}
-        kernels = {}
-        for name in CKPT_KERNELS:
-            t = (held_save if name.startswith(("encode", "symlen_pack"))
-                 else held_restore)[name]
-            check(t["ok"] and t["calls"] == launches[name] > 0,
-                  f"{name} at the train state's shapes against its plain "
-                  f"version: {t['calls']} calls, {launches[name]} "
-                  f"launches, {t['results']}")
-            total = bound_ms(t["bytes"], t["operations"])
-            extra = {}
-            if name == "encode_levels":
-                extra = {k: sum(r[k] for r in t["results"])
-                         for k in ("flips", "deadzone_moves", "cells")}
-            kernels[name] = {"launches": launches[name],
-                             "calls": t["calls"], "ok": t["ok"],
-                             "max_abs_err": t["max_abs_err"], **extra,
-                             "ms": t["ms"], "first_ms": t["first_ms"],
-                             "bound_ms": total[0],
-                             "bound_by": total[1], "by_call": t["by_call"]}
 
         # -- (b) one repeated batch, 8 steps: the loss falls ---------------
         st = restart()
@@ -2294,41 +2455,13 @@ def train_phase(smi: str, seed: int) -> dict:
         torch.cuda.empty_cache()
 
         # -- (d) the smoke granite: 3 steps on the CPU and on the card -----
-        smoke = get_smoke(TRAIN_ARCH)
-        spipe = TokenPipeline(smoke.vocab_size, 2, 64, seed=seed)
-        arms = {}
-        for dev in ("cpu", "cuda"):
-            small = build_model(smoke, device="cpu",
-                                generator=torch.Generator().manual_seed(seed))
-            start_w = {n: p.detach().float().clone()
-                       for n, p in small.named_parameters()}
-            sts = make_train_step(small, AdamW(AdamWConfig(**TRAIN_OPT)),
-                                  dev)
-            sst, losses = sts.init(), []
-            for i in range(3):
-                sst, met = sts.step_fn(sst, make_batch(smoke, spipe, i))
-                losses.append(float(met["loss"]))
-            arms[dev] = (losses, {n: p.detach().float().cpu() - start_w[n]
-                                  for n, p in small.named_parameters()})
-        (lc, dc), (lg, dg) = arms["cpu"], arms["cuda"]
-        loss_rel = max(abs(g - c) / abs(c) for g, c in zip(lg, lc))
-        num = sum(float(torch.sum((dg[n] - dc[n]) ** 2)) for n in dc)
-        den = sum(float(torch.sum(dc[n] ** 2)) for n in dc)
-        change_rel = (num / den) ** 0.5
-        check(loss_rel <= TRAIN_CARD_CPU_LOSS_TOL
-              and change_rel <= TRAIN_CARD_CPU_CHANGE_TOL,
-              f"smoke granite's 3 steps, card against CPU: losses {lg} vs "
-              f"{lc} ({loss_rel}), weights' change {change_rel}")
+        card_vs_cpu = smoke_card_vs_cpu(TRAIN_ARCH, seed)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             reduced
     gc.collect()
     torch.cuda.empty_cache()
-    save_check = held_save["check_s"]
-    restore_check = held_restore["check_s"]
-    encode_s = ssec["shard_encode"] - ssec["shard"]
-    decode_s = rsec["decode_unshard"] - rsec["unshard"]
     return {
         "phase": "train", "nvidia_smi": smi, "arch": TRAIN_ARCH,
         "config": {"layers": cfg.num_layers, "full_layers": full.num_layers,
@@ -2346,49 +2479,13 @@ def train_phase(smi: str, seed: int) -> dict:
         "bound_bytes": bound["bytes"], "profile": profile,
         "profile_what": "torch.profiler over one more step: device ms, "
         "kernels, idle share of the mean step ms, top kernels",
-        "max_memory_allocated": {"steps": peak_steps, "save": peak_save,
-                                 "restore": peak_restore},
+        "max_memory_allocated": {"steps": peak_steps,
+                                 "save": resume.pop("peak_save"),
+                                 "restore": resume.pop("peak_restore")},
         "memorize": {"losses": memo, "ratio": memo[-1] / memo[0]},
-        "resume": {
-            "run_b": run_b, "run_a_step3": run_a[3][0],
-            "rel": resume_rel, "tol": TRAIN_RESUME_TOL,
-            "manifest_version": manifest["version"], "files": len(files),
-            "engine_calls": len(calls), "shards": len(lengths),
-            "encode_buckets": enc_buckets, "save_launches": save_launches,
-            "restore_launches": restore_launches,
-            "save_s": save_s, "restore_s": restore_s,
-            "save_check_s": save_check, "restore_check_s": restore_check,
-            "save_s_less_checks": save_s - save_check,
-            "restore_s_less_checks": restore_s - restore_check,
-            "save_split_s": {
-                "calibrate": ssec["calibrate"], "shard": ssec["shard"],
-                "encode_with_checks": encode_s,
-                "write": save_s - ssec["calibrate"] - ssec["shard_encode"]},
-            "restore_split_s": {
-                "read_crc": rsec["read_crc"],
-                "decode_with_checks": decode_s,
-                "unshard": rsec["unshard"], "to_device": rsec["to_device"],
-                "other": restore_s - rsec["read_crc"]
-                - rsec["decode_unshard"] - rsec["to_device"]},
-            "disk_bytes": {"state.fptc": disk["state.fptc"],
-                           "raw_npy": sum(v for k, v in disk.items()
-                                          if k.endswith(".npy"))},
-            "float_bytes": float_bytes,
-            "ratio": disk["state.fptc"] / float_bytes,
-            "state_rel_rms_err": state_rel, "part_rel_rms_err": part_rel,
-            "max_rel_rms_err": worst, "rel_rms_err": rel,
-            "rel_rms_reported_against": TRAIN_CKPT_REL_RMS,
-            "leaves_over_it": sorted(k for k, v in rel.items()
-                                     if v >= TRAIN_CKPT_REL_RMS),
-            "rel_rms_guard": TRAIN_CKPT_GUARD,
-            "restored_v_negative": negative_v,
-            "kernels": kernels},
-        "card_vs_cpu_smoke": {"arch": smoke.name, "steps": 3,
-                              "losses_cpu": lc, "losses_card": lg,
-                              "loss_rel": loss_rel,
-                              "change_rel_l2": change_rel,
-                              "tol": [TRAIN_CARD_CPU_LOSS_TOL,
-                                      TRAIN_CARD_CPU_CHANGE_TOL]},
+        "resume": {"run_b": run_b, "run_a_step3": run_a[3][0],
+                   "rel": resume_rel, "tol": TRAIN_RESUME_TOL, **resume},
+        "card_vs_cpu_smoke": card_vs_cpu,
         "seconds": time.perf_counter() - t_phase}
 
 
@@ -2413,6 +2510,70 @@ def family_config(arch: str, layers):
     return cfg if layers is None else cfg.replace(num_layers=layers)
 
 
+def full_width(arch: str, cfg) -> None:
+    """Fail unless ``cfg`` is ``arch`` at its full width (its depth may be
+    cut)."""
+    from repro_torch.configs import get_arch
+
+    full = get_arch(arch)
+    for key in ("d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff",
+                "vocab_size", "moe_num_experts", "moe_top_k", "moe_d_ff",
+                "mla_kv_lora_rank", "ssm_state", "window", "rwkv_head_size",
+                "encoder_seq"):
+        check(getattr(cfg, key) == getattr(full, key),
+              f"{arch}: {key} {getattr(cfg, key)} is not the full width's "
+              f"{getattr(full, key)}")
+
+
+def forward_ops(model, b: int, tokens: int, keys: int, q: int):
+    """``(dense, slots, routed, attn, expert_bytes)`` of one forward pass
+    of every layer of ``model`` over ``tokens`` tokens, ``q`` queries a
+    row against ``keys`` keys (``family_bounds``' and ``train_bound``'s
+    count): the dense matmuls at every token (whisper's encoder and cross
+    k/v projections at its b x F frames, when ``q > 1``), a MoE layer's
+    experts at its ``E * C`` slots as computed and the routed ``T * k``
+    pairs beside them, the attention's score and value products over the
+    rectangle computed (MLA: qk ``nope + rope``, v ``v_dim``, or its
+    absorbed decode over the latent when ``q == 1``; whisper's cross
+    rectangle over the frames and, when ``q > 1``, its encoder's F x F),
+    and the bytes of the expert stacks."""
+    from repro_torch.models import transformer as tfm
+
+    cfg = model.cfg
+    h = cfg.num_heads
+    audio = cfg.family == "audio"
+    frames = cfg.encoder_seq if audio else 0
+    enc_layers = cfg.encoder_layers if audio else 0
+    dense = slots = routed = expert_bytes = 0
+    for stack, _, layer in model.layers():
+        for name, p in layer.named_parameters():
+            if p.dim() < 2 or name.endswith(("conv_w", "A_log", "tm.u")):
+                continue
+            if layer.kind == "moe" and name in ("ffn.wi", "ffn.wg",
+                                                "ffn.wo"):
+                per = p[0].numel()
+                slots += 2.0 * cfg.moe_num_experts * tfm.moe_capacity(
+                    cfg, tokens) * per
+                routed += 2.0 * tokens * cfg.moe_top_k * per
+                expert_bytes += p.numel() * p.element_size()
+            elif stack == "encoder" or name in ("cross.wk", "cross.wv"):
+                dense += 2.0 * b * frames * p.numel() * (q > 1)
+            else:
+                dense += 2.0 * tokens * p.numel()
+    if cfg.family == "ssm":
+        return dense, slots, routed, 0.0, expert_bytes
+    if cfg.mla:
+        nope, rpe = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim
+        per = (2.0 * (nope + rpe + cfg.mla_v_dim) if q > 1 else
+               2.0 * (2 * cfg.mla_kv_lora_rank + rpe))
+    else:
+        per = 4.0 * cfg.head_dim
+    attn = cfg.num_layers * b * h * q * (keys + frames) * per
+    if q > 1:  # the encoder's bidirectional F x F
+        attn += enc_layers * b * h * frames * frames * per
+    return dense, slots, routed, attn, expert_bytes
+
+
 def family_bounds(model, b: int, s: int, t: int, hit=None) -> dict:
     """The card's least time for a prefill of ``s`` tokens and one decode
     step over ``t`` positions, the larger of two times: every weight
@@ -2432,52 +2593,15 @@ def family_bounds(model, b: int, s: int, t: int, hit=None) -> dict:
     decode step routes to, for its bound on what the data needs (None:
     every expert)."""
     from repro_torch.models import ssm as ssm_mod
-    from repro_torch.models import transformer as tfm
 
     cfg = model.cfg
-    h = cfg.num_heads
     tables = ("embed", "pos_embed", "enc_pos_embed")
     table_bytes = sum(model[k].numel() * model[k].element_size()
                       for k in tables if k in model)
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     ring = min(t, cfg.window) if cfg.family == "hybrid" else t
-    audio = cfg.family == "audio"
-    frames = cfg.encoder_seq if audio else 0
-    enc_layers = cfg.encoder_layers if audio else 0
-    per_key = 4.0 * cfg.head_dim
-
-    def layer_ops(tokens, keys, q):
-        """(dense, slots, routed, attn, expert_bytes) of every layer on
-        ``tokens`` tokens (whisper's encoder and cross k/v on b x F)."""
-        dense = slots = routed = expert_bytes = 0
-        for stack, _, layer in model.layers():
-            for name, p in layer.named_parameters():
-                if p.dim() < 2 or name.endswith(("conv_w", "A_log", "tm.u")):
-                    continue
-                if layer.kind == "moe" and name in ("ffn.wi", "ffn.wg",
-                                                    "ffn.wo"):
-                    per = p[0].numel()
-                    slots += 2.0 * cfg.moe_num_experts * tfm.moe_capacity(
-                        cfg, tokens) * per
-                    routed += 2.0 * tokens * cfg.moe_top_k * per
-                    expert_bytes += p.numel() * p.element_size()
-                elif stack == "encoder" or name in ("cross.wk", "cross.wv"):
-                    dense += 2.0 * b * frames * p.numel() * (q > 1)
-                else:
-                    dense += 2.0 * tokens * p.numel()
-        if cfg.family == "ssm":
-            return dense, slots, routed, 0.0, expert_bytes
-        if cfg.mla:
-            nope, rpe = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim
-            per = (2.0 * (nope + rpe + cfg.mla_v_dim) if q > 1 else
-                   2.0 * (2 * cfg.mla_kv_lora_rank + rpe))
-        else:
-            per = per_key
-        attn = cfg.num_layers * b * h * q * (keys + frames) * per
-        if q > 1:  # the encoder's bidirectional F x F
-            attn += enc_layers * b * h * frames * frames * per
-        return dense, slots, routed, attn, expert_bytes
+    frames = cfg.encoder_seq if cfg.family == "audio" else 0
 
     unembed = 2.0 * b * cfg.d_model * cfg.vocab_size
     if cfg.mla:
@@ -2513,7 +2637,8 @@ def family_bounds(model, b: int, s: int, t: int, hit=None) -> dict:
 
     # prefill: every query over the keys the mask keeps in the rectangle
     # computed (the whole S x S; the ring's window still computes S x S)
-    dense, slots, routed, attn, expert_bytes = layer_ops(b * s, s, s)
+    dense, slots, routed, attn, expert_bytes = forward_ops(
+        model, b, b * s, s, s)
     pre_bytes = (weight_bytes - table_bytes + 8 * b * s
                  + 2 * b * frames * cfg.d_model + cross
                  + cache_token * min(s, ring) + state
@@ -2523,7 +2648,7 @@ def family_bounds(model, b: int, s: int, t: int, hit=None) -> dict:
     prefill["routed_operations"] = dense + routed + attn + unembed
     prefill["moe_slot_operations"] = slots
     prefill["moe_routed_operations"] = routed
-    dense, slots, routed, attn, _ = layer_ops(b, ring, 1)
+    dense, slots, routed, attn, _ = forward_ops(model, b, b, ring, 1)
     dec_bytes = (weight_bytes - table_bytes + cache_token * (ring + 1)
                  + cross + 2 * state + 2 * b * cfg.vocab_size)
     decode = bound(dec_bytes, dense + slots + attn + unembed, recurrence(b))
@@ -2679,19 +2804,12 @@ def family_run(arch: str, cfg, b: int, s: int, gen: int, seed: int,
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.configs import get_smoke
     from repro_torch.distributed.train import make_serve_fns
     from repro_torch.models import build_model
 
     t_run = time.perf_counter()
-    full = get_arch(arch)
-    for key in ("d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff",
-                "vocab_size", "moe_num_experts", "moe_top_k", "moe_d_ff",
-                "mla_kv_lora_rank", "ssm_state", "window", "rwkv_head_size",
-                "encoder_seq"):
-        check(getattr(cfg, key) == getattr(full, key),
-              f"{arch}: {key} {getattr(cfg, key)} is not the full width's "
-              f"{getattr(full, key)}")
+    full_width(arch, cfg)
     max_len = s + gen
     gc.collect()
     torch.cuda.empty_cache()
@@ -2870,6 +2988,301 @@ def families_phase(smi: str, seed: int, device: str = "cuda") -> dict:
                                    for kv in held)}
     return {"phase": "families", "nvidia_smi": smi, "precision": precision,
             **RUN_WHAT, "runs": runs, "launches": launches, "max_abs_err": max_abs,
+            "seconds": time.perf_counter() - t_phase}
+
+
+# -- 16. families_train: the MoE, MLA and encoder-decoder families trained --
+# (arch, layers kept (None: all), batch, sequence).  whisper-tiny whole at
+# Whisper's decoder length over its 1500 frames; deepseek-v3's first two
+# layers (both dense MLA layers: moe_first_dense is 3) at 2 x 2048, half
+# phase 14's batch, as 128 heads' fp32 scores are 4x granite's 32; one
+# MoE layer of llama4-scout (16 experts, top 1, the shared expert)
+FT_RUNS = (("whisper-tiny", None, 16, 448),
+           ("deepseek-v3-671b", 2, 2, 2048),
+           ("llama4-scout-17b-a16e", 1, 2, 2048))
+FT_RESUME = "whisper-tiny"  # trained through a compressed resume (run B)
+FT_REMAT = "llama4-scout-17b-a16e"  # remat on/off and a repeated backward
+FT_SMOKE = ("deepseek_v3_671b", "whisper_tiny")  # card against the CPU
+FT_SMOKE_RESUME = "deepseek_v3_671b"  # a compressed resume of its experts
+# one batch's gradients on the card taken twice on the same weights, and
+# with remat on against off: each leaf's relative L2 (0: bit for bit)
+FT_REPEAT_TOL = 0.0
+
+
+class MoeStatsLog(dict):
+    """A MoE layer's ``moe_stats`` that also logs every write: under remat
+    a training step writes each key twice, in the forward and in the
+    backward's recomputed forward."""
+
+    def __init__(self):
+        super().__init__()
+        self.log = []
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, value)
+        self.log.append((key, value))
+
+
+def grads_twice(model, batch, moe_layers) -> dict:
+    """One batch's loss and gradients on the seed's weights, three times:
+    remat on, remat on again, remat off.  Held: the losses bit for bit,
+    each gradient leaf within ``FT_REPEAT_TOL`` of the first (relative L2;
+    0: bit for bit), and each MoE layer's routing (``dropped``,
+    ``experts_hit``) the same in every forward, the backward's recomputed
+    forward included."""
+    import torch
+
+    params = [p for _, p in model.named_parameters()]
+    names = [n for n, _ in model.named_parameters()]
+    first = None
+    out = {}
+    for arm, remat in (("remat", True), ("again", True), ("no_remat", False)):
+        for layer in moe_layers:
+            layer.moe_stats.log.clear()
+        loss = model.loss(batch, remat=remat)
+        grads = torch.autograd.grad(loss, params)
+        loss = loss.detach()
+        routing = []  # each layer's writes of each key, in order
+        for layer in moe_layers:
+            writes = {}
+            for k, v in layer.moe_stats.log:
+                writes.setdefault(k, []).append(int(v))
+            routing.append(writes)
+        if first is None:
+            first = (loss, grads)
+            out[arm] = {"loss": float(loss), "routing": routing}
+            continue
+        rels = [0.0 if torch.equal(g, f) else rel_l2(g, f)
+                for g, f in zip(grads, first[1])]
+        worst = max(range(len(rels)), key=rels.__getitem__)
+        out[arm] = {"loss": float(loss),
+                    "loss_equal": bool(torch.equal(loss, first[0])),
+                    "leaves_equal": sum(r == 0.0 for r in rels),
+                    "leaves": len(rels), "max_rel_l2": rels[worst],
+                    "worst_leaf": names[worst], "routing": routing}
+        del grads
+    seen = [{k: {v for arm in out.values() for v in arm["routing"][li]
+                 .get(k, [])} for k in ("dropped", "experts_hit")}
+            for li in range(len(moe_layers))]
+    out["routing_same"] = all(len(vals) == 1 for layer in seen
+                              for vals in layer.values())
+    # each key written in the forward and again in the recomputed forward
+    out["recomputed_routing_seen"] = all(
+        len(writes) == 2 for arm in ("remat", "again")
+        for layer in out[arm]["routing"] for writes in layer.values())
+    for arm in ("again", "no_remat"):
+        a = out[arm]
+        check(a["loss_equal"] and a["max_rel_l2"] <= FT_REPEAT_TOL,
+              f"gradients {arm} against the first remat pass: {a}")
+    check(out["routing_same"] and out["recomputed_routing_seen"],
+          f"MoE routing differs between passes, or a recomputed forward "
+          f"wrote none: {out}")
+    del first
+    return out
+
+
+def family_train_run(arch: str, layers, b: int, s: int, seed: int,
+                     tmp: str) -> dict:
+    """One family trained at full width on the card (phase 16; see the
+    module docstring).  Frees the model before it returns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
+    from repro_torch.distributed.train import make_train_step
+    from repro_torch.models import build_model
+
+    t_run = time.perf_counter()
+    cfg = family_config(arch, layers)
+    full_width(arch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", generator=gen.manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    moe_layers = [layer for _, _, layer in model.layers()
+                  if layer.kind == "moe"]
+    for layer in moe_layers:
+        layer.moe_stats = MoeStatsLog()
+    opt = AdamW(AdamWConfig(**TRAIN_OPT))
+    ts = make_train_step(model, opt)
+    batches = train_batches(cfg, b, s, seed, TRAIN_STEPS + 1, "cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    out = {"arch": arch, "layers": [lay.kind for _, _, lay in
+                                    model.layers()],
+           "config": {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                      "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+                      "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                      "experts": cfg.moe_num_experts, "top_k": cfg.moe_top_k,
+                      "mla": cfg.mla, "encoder_layers": cfg.encoder_layers},
+           "parameters": n_params, "batch": b, "seq": s, "init_s": init_s}
+
+    def dropped():
+        return {f"{g}.{li}": {k: int(v) for k, v in layer.moe_stats.items()}
+                for g, li, layer in model.layers() if layer.kind == "moe"}
+
+    if arch == FT_REMAT:  # before m and v exist: two gradient sets fit
+        out["grads_twice"] = grads_twice(model, batches[0], moe_layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- run A: four steps from the seed's weights, timed ------------------
+    st, run_a, step_ms, drops = ts.init(), [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        start.record()
+        st, met = ts.step_fn(st, batches[i])
+        stop.record()
+        stop.synchronize()
+        if i:  # step 0 warms
+            step_ms.append(start.elapsed_time(stop))
+        run_a.append((float(met["loss"]), float(met["grad_norm"])))
+        drops.append(dropped())
+    check(all(np.isfinite(x) for r in run_a for x in r),
+          f"{arch} run A: a loss or grad norm is not finite: {run_a}")
+    profile = device_profile(lambda: ts.step_fn(st, batches[TRAIN_STEPS]),
+                             sum(step_ms) / len(step_ms), top=16)
+    bound = train_bound(model, b * s, b, s)
+    out.update(run_a=[{"loss": l, "grad_norm": g} for l, g in run_a],
+               moe_dropped=drops, step_ms=step_ms, bound_ms=bound["ms"],
+               bound_by=bound["by"], bound=bound, profile=profile,
+               peak_steps=torch.cuda.max_memory_allocated())
+
+    def restart():
+        nonlocal st
+        st = None  # the old m and v go first: two of scout's do not fit
+        gc.collect()
+        with torch.no_grad():
+            model.init_weights(gen.manual_seed(seed))
+        return ts.init()
+
+    # -- run B: steps 0-1, the compressed checkpoint, steps 2-3 ------------
+    if arch == FT_RESUME:
+        st = restart()
+        run_b = []
+        for i in range(2):
+            st, met = ts.step_fn(st, batches[i])
+            run_b.append(float(met["loss"]))
+        st, resume = compressed_resume(model, st, opt, tmp, 2)
+        for i in range(2, TRAIN_STEPS):
+            st, met = ts.step_fn(st, batches[i])
+            run_b.append(float(met["loss"]))
+        a3, a2 = run_a[3][0], run_a[2][0]
+        resume_rel = abs(run_b[3] - a3) / abs(a3)
+        check(all(np.isfinite(run_b)) and resume_rel <= TRAIN_RESUME_TOL,
+              f"{arch}: resumed run B's step-3 loss {run_b} against run "
+              f"A's {[r[0] for r in run_a]}: relative {resume_rel} > "
+              f"{TRAIN_RESUME_TOL}")
+        out["resume"] = {"run_b": run_b, "run_a_step3": a3,
+                         "rel": resume_rel, "tol": TRAIN_RESUME_TOL,
+                         "step3_change_rel": abs(a3 - a2) / abs(a2),
+                         **resume}
+
+    # -- one repeated batch, 8 steps: the loss falls ------------------------
+    st = restart()
+    memo = []
+    for _ in range(TRAIN_MEMO_STEPS):
+        st, met = ts.step_fn(st, batches[0])
+        memo.append(float(met["loss"]))
+    check(np.isfinite(memo).all() and memo[-1] < memo[0],
+          f"{arch}: one repeated batch: the loss did not fall: {memo}")
+    out["memorize"] = {"losses": memo, "ratio": memo[-1] / memo[0]}
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del st, met, model, ts, batches, moe_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_run
+    return out
+
+
+def smoke_resume(arch: str, seed: int, tmp: str) -> dict:
+    """The smoke ``arch`` on the card: 2 train steps, ``compressed_resume``
+    (a MoE model's expert stacks ``[L, E, d, f]`` and their m and v
+    through K4 and K1 / ``lut_idct``), 2 more steps: finite."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
+    from repro_torch.distributed.train import make_train_step
+    from repro_torch.models import build_model
+
+    cfg = get_smoke(arch)
+    model = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    opt = AdamW(AdamWConfig(**TRAIN_OPT))
+    ts = make_train_step(model, opt)
+    batches = train_batches(cfg, 2, 64, seed, 4, "cuda")
+    st, losses = ts.init(), []
+    for batch in batches[:2]:
+        st, met = ts.step_fn(st, batch)
+        losses.append(float(met["loss"]))
+    st, report = compressed_resume(model, st, opt, tmp, 2)
+    groups = sorted({g for g, _, layer in model.layers()
+                     if layer.kind == "moe"})
+    experts = [f"{part}.{g}.ffn.{w}" for part in ("m", "v") for g in groups
+               for w in ("wi", "wg", "wo")]
+    check(all(k in report["rel_rms_err"] for k in experts),
+          f"{arch}: the expert stacks' m and v were not all compressed: "
+          f"{experts} of {sorted(report['rel_rms_err'])}")
+    for batch in batches[2:]:
+        st, met = ts.step_fn(st, batch)
+        losses.append(float(met["loss"]))
+    check(np.isfinite(losses).all(), f"{arch} resumed: {losses}")
+    del model, ts, st
+    return {"arch": cfg.name, "losses": losses, "expert_leaves": experts,
+            **report}
+
+
+def families_trained() -> bool:
+    """Whether the driven port's ``launch.train`` trains whisper-tiny (the
+    MoE, MLA and encoder-decoder backward)."""
+    try:
+        from repro_torch.configs import get_arch
+        from repro_torch.launch.train import untrained
+    except ImportError:
+        return False
+    return not untrained(get_arch("whisper-tiny"))
+
+
+def families_train_phase(smi: str, seed: int) -> dict:
+    """Phase 16: the MoE, MLA and encoder-decoder families trained on the
+    card (see the module docstring).  Returns its JSON line."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="fptc_ftrain_")
+    try:
+        with exact_bf16_sums() as precision:
+            runs = [family_train_run(arch, layers, b, s, seed,
+                                     os.path.join(tmp, arch))
+                    for arch, layers, b, s in FT_RUNS]
+            smoke = {arch: smoke_card_vs_cpu(arch, seed) for arch in FT_SMOKE}
+            resume = smoke_resume(FT_SMOKE_RESUME, seed,
+                                  os.path.join(tmp, "smoke"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = [r["resume"]["kernels"] for r in runs if "resume" in r]
+    held.append(resume["kernels"])
+    launches = {k: sum(h[k]["launches"] for h in held) for k in CKPT_KERNELS}
+    max_abs = {k: max(h[k]["max_abs_err"] for h in held)
+               for k in CKPT_KERNELS}
+    return {"phase": "families_train", "nvidia_smi": smi,
+            "precision": precision, "optimizer": TRAIN_OPT, "runs": runs,
+            "step_ms_what": "CUDA events around step_fn, steps 1-3 of run "
+            "A (step 0 warms); profile: one more step under torch.profiler",
+            "card_vs_cpu_smoke": smoke, "smoke_resume": resume,
+            "launches": launches, "max_abs_err": max_abs,
             "seconds": time.perf_counter() - t_phase}
 
 
@@ -4062,7 +4475,16 @@ def main() -> None:
         emit({"phase": "families",
               "skipped": "the port has no repro_torch.models.ssm"})
 
-    # -- 16. the kernels line, and the last line ---------------------------------
+    # -- 16. families_train -----------------------------------------------------
+    ftrain = None
+    if families_trained():
+        ftrain = families_train_phase(smi, args.seed)
+        emit(ftrain)
+    else:  # another checkout's port may not train these families yet
+        emit({"phase": "families_train", "skipped": "the port's launch."
+              "train does not train whisper-tiny"})
+
+    # -- the kernels line, and the last line -------------------------------------
     counts_of = {"main": launches, "encode": elaunches,
                  "transcode": tlaunches, "staged": slaunches}
     lm_held = {"dct_quant": "k5_vs_plain", "idct_dequant": "k3_vs_plain"}
@@ -4087,6 +4509,9 @@ def main() -> None:
             held = train["resume"]["kernels"][name]
             entry["train_launches"] = held["launches"]
             entry["train_max_abs_err"] = held["max_abs_err"]
+        if ftrain is not None and name in CKPT_KERNELS:  # phase 16's
+            entry["families_train_launches"] = ftrain["launches"][name]
+            entry["families_train_max_abs_err"] = ftrain["max_abs_err"][name]
         kernels.append(entry)
     tc.close()
     emit({"kernels": kernels})

@@ -28,6 +28,12 @@ __all__ = ["AdamWConfig", "AdamW", "OptState", "cosine_schedule"]
 
 PyTree = Any
 
+# elements of a leaf updated at a time: the update's fp32 temporaries of a
+# 1 G-element leaf (llama4-scout's embedding) came to 23 GB beside its
+# state; slices of 2**26 keep each at 256 MB, and elementwise math gives
+# the same bits in slices as whole
+UPDATE_SLICE = 1 << 26
+
 
 def _map(fn, tree: PyTree, *rest: PyTree) -> PyTree:
     """``fn`` over the leaves of ``tree`` (and the matching leaves of
@@ -154,14 +160,18 @@ class AdamW:
         b2c = 1.0 - c.b2 ** step.float()
         for p, g, m, v in zip(tree_leaves(params), g_leaves,
                               tree_leaves(state.m), tree_leaves(state.v)):
-            g = g.float() * scale
-            m32 = c.b1 * m.float() + (1 - c.b1) * g
-            v32 = c.b2 * v.float() + (1 - c.b2) * torch.square(g)
-            delta = (m32 / b1c) / (torch.sqrt(v32 / b2c) + c.eps)
-            delta = delta + c.weight_decay * p.float()
-            p.copy_(p.float() - lr * delta)
-            m.copy_(m32)
-            v.copy_(v32)
+            # views: the slices' writes land in the leaves
+            p, g, m, v = p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)
+            for a in range(0, p.numel(), UPDATE_SLICE):
+                p_, g_, m_, v_ = (t[a:a + UPDATE_SLICE] for t in (p, g, m, v))
+                g_ = g_.float() * scale
+                m32 = c.b1 * m_.float() + (1 - c.b1) * g_
+                v32 = c.b2 * v_.float() + (1 - c.b2) * torch.square(g_)
+                delta = (m32 / b1c) / (torch.sqrt(v32 / b2c) + c.eps)
+                delta = delta + c.weight_decay * p_.float()
+                p_.copy_(p_.float() - lr * delta)
+                m_.copy_(m32)
+                v_.copy_(v32)
         return params, OptState(
             step=step, m=state.m, v=state.v,
             residual=residual if residual is not None else state.residual,

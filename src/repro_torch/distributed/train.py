@@ -55,7 +55,8 @@ def make_train_step(model, optimizer: AdamW, device=None, *,
     """A train step for ``model`` on ``device`` (None: where the model
     lives; another device moves the model there).  The model's weights are
     made to take gradients.  Batches are dicts of tensors (moved to the
-    device): tokens and labels ``int[B, S]``, a VLM's ``patch_embeds``."""
+    device): tokens and labels ``int[B, S]``, a VLM's ``patch_embeds``,
+    the audio family's ``frames``."""
     del compression  # one device: no pod axis, no compressor
     dev = model.device if device is None else resolve_device(device)
     model.to(dev)

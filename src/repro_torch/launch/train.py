@@ -14,11 +14,12 @@ newest checkpoint in ``--ckpt-dir``: kill it mid-run and relaunch.
 
 The reference's flags, plus ``--device`` (default: the card; ``cpu`` runs
 the same arithmetic on the host) and ``--seed`` (weights and data).
-``--data`` or ``--model-par`` above 1 and the MoE, MLA, hybrid, RWKV and
-encoder-decoder families (served, not trained yet: ``UNTRAINED``) raise
-``NotImplementedError``; ``--compression`` is accepted and, on one
-device, leaves the step uncompressed, as the reference does without a pod
-axis.
+``--data`` or ``--model-par`` above 1 and the hybrid and RWKV families
+(served, not trained yet: ``UNTRAINED``) raise ``NotImplementedError``;
+the dense, VLM, MoE, MLA and encoder-decoder families train (whisper's
+frames are zeros, as the reference feeds them).  ``--compression`` is
+accepted and, on one device, leaves the step uncompressed, as the
+reference does without a pod axis.
 """
 from __future__ import annotations
 
@@ -41,28 +42,31 @@ __all__ = ["main", "make_batch"]
 
 MULTI_DEVICE = ("ROADMAP queue 1, item 6 (M10d: the multi-device layer — "
                 "data and model parallelism)")
-UNTRAINED = ("ROADMAP queue 1, item 6 (M10c training: the MoE, MLA, "
-             "hybrid, RWKV and encoder-decoder backward)")
+UNTRAINED = ("ROADMAP queue 1, item 6 (M10c training), 6b-ii: the hybrid "
+             "SSM and RWKV backward")
 
 
 def untrained(cfg) -> str:
     """What of ``cfg`` the port serves but does not train yet, or ''."""
     return ", ".join(what for what, present in (
-        ("MoE layers", cfg.moe_num_experts), ("MLA attention", cfg.mla),
         ("the hybrid SSM branch", cfg.hybrid_parallel),
-        ("the RWKV time mix", cfg.family == "ssm"),
-        ("the encoder-decoder", cfg.family == "audio")) if present)
+        ("the RWKV time mix", cfg.family == "ssm")) if present)
 
 
 def make_batch(cfg, pipe: TokenPipeline, step: int) -> dict:
-    """Batch ``step`` of ``pipe`` as tensors; a VLM's patch prefix is
-    zeros, as the reference feeds it."""
+    """Batch ``step`` of ``pipe`` as tensors; a VLM's patch prefix and the
+    audio family's frames ``[B, encoder_seq, d]`` are zeros, as the
+    reference feeds them."""
     tokens, labels = pipe.batch(step)
     batch = {"tokens": torch.from_numpy(tokens),
              "labels": torch.from_numpy(labels)}
     if cfg.family == "vlm" and cfg.vision_prefix:
         batch["patch_embeds"] = torch.zeros(
             (pipe.batch_size, cfg.vision_prefix, cfg.d_model),
+            dtype=torch.bfloat16)
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros(
+            (pipe.batch_size, cfg.encoder_seq, cfg.d_model),
             dtype=torch.bfloat16)
     return batch
 

@@ -93,6 +93,10 @@ def _layer_out(layer, x, sin, cos) -> torch.Tensor:
     return layer(x, sin, cos)[0]
 
 
+def _decoder_out(layer, x, enc_out, sin, cos) -> torch.Tensor:
+    return layer(x, enc_out, sin, cos)[0]
+
+
 def _resolve(device):
     if device is not None and torch.device(device).type == "meta":
         return torch.device("meta")
@@ -283,22 +287,23 @@ class Model(Params):
 
     # ----------------------------------------------------------------- loss
     def loss(self, batch, *, remat: bool = True) -> torch.Tensor:
-        """Mean next-token CE.  Under autograd each decoder layer runs
-        under activation checkpointing when ``remat`` (the reference's
-        ``jax.checkpoint`` around each layer body): its activations are
-        recomputed in the backward, only its input is kept.  RWKV's and
-        whisper's loss is the forward value (their backward is not held
-        against the reference yet: ``launch/train.py``'s ``UNTRAINED``)."""
+        """Mean next-token CE.  Under autograd each layer runs under
+        activation checkpointing when ``remat`` (the reference's
+        ``jax.checkpoint`` around each layer body; whisper's encoder and
+        decoder layers alike): its activations are recomputed in the
+        backward, only its inputs are kept.  RWKV's loss is the forward
+        value (its backward is not held against the reference yet:
+        ``launch/train.py``'s ``UNTRAINED``)."""
         labels = batch["labels"].to(self.device)
+        remat = remat and torch.is_grad_enabled()
         if self.cfg.family == "ssm":
             x = self._rwkv_run(self._embed(batch["tokens"]))
             return _cross_entropy(self._logits(x), labels)
         if self.cfg.family == "audio":
-            x, _ = self._whisper_decoder(batch)
+            x, _ = self._whisper_decoder(batch, remat=remat)
             return _cross_entropy(self._logits(x), labels)
         x = self._inputs(batch)
         sin, cos = self._rope(torch.arange(x.shape[1], device=self.device))
-        remat = remat and torch.is_grad_enabled()
         for _, _, layer in self.layers():
             if remat:
                 x = checkpoint(_layer_out, layer, x, sin, cos,
@@ -438,22 +443,30 @@ class Model(Params):
         return self._logits(x[:, -1:, :])[:, 0], cache
 
     # ------------------------------------------------------------- whisper
-    def _whisper_encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def _whisper_encode(self, frames: torch.Tensor,
+                        remat: bool = False) -> torch.Tensor:
         x = frames.to(self.device, torch.bfloat16) + self.enc_pos_embed
         for layer in self["encoder"]:
-            x = layer(x)
+            x = (checkpoint(layer, x, use_reentrant=False) if remat
+                 else layer(x))
         return rms_norm(x, self.enc_final_norm)
 
-    def _whisper_decoder(self, batch):
+    def _whisper_decoder(self, batch, remat: bool = False):
         """The decoder over the prompt: (x, [(self kv, cross kv)] of each
-        layer).  No ``embed_scale``: tokens plus learned positions."""
-        enc_out = self._whisper_encode(batch["frames"])
+        layer).  No ``embed_scale``: tokens plus learned positions.  With
+        ``remat`` (the loss under autograd) every encoder and decoder layer
+        is checkpointed and no layer's k/v are kept: ``[]``."""
+        enc_out = self._whisper_encode(batch["frames"], remat)
         tokens = batch["tokens"].to(self.device).long()
         s = tokens.shape[1]
         x = self.embed[tokens] + self.pos_embed[:s]
         sin, cos = self._rope(torch.arange(s, device=self.device))
         kvs = []
         for layer in self["decoder"]:
+            if remat:
+                x = checkpoint(_decoder_out, layer, x, enc_out, sin, cos,
+                               use_reentrant=False)
+                continue
             x, kv, ckv = layer(x, enc_out, sin, cos)
             kvs.append((kv, ckv))
         return x, kvs

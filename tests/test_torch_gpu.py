@@ -25,9 +25,10 @@ kernel call to its plain version and restores within relative rms 0.02.
 The LM path: the ten smoke models it serves (the MoE, MLA, hybrid, RWKV
 and encoder-decoder families among them) on the card against the CPU, and
 decode steps that wait for the card nowhere.
-LM training: the smoke granite's train steps on the card track the CPU's
-within the CPU trajectory bounds, a raw checkpoint resumes bit for bit and
-a compressed one through counted K4, K1 and ``lut_idct`` launches."""
+LM training: the smoke granite's and the smoke deepseek-v3's (MoE + MLA)
+train steps on the card track the CPU's within the CPU trajectory bounds,
+a raw checkpoint resumes bit for bit and a compressed one through counted
+K4, K1 and ``lut_idct`` launches."""
 import json
 
 import numpy as np
@@ -1690,8 +1691,8 @@ TRAIN_LOSS_BOUND = 2.0 ** -8
 TRAIN_CHANGE_BOUND = 2.0 ** -2
 
 
-def _train_arm(dev, steps=3, seed=0):
-    """The smoke granite drawn on the CPU from ``seed``, trained ``steps``
+def _train_arm(dev, steps=3, seed=0, arch="granite_8b"):
+    """The smoke ``arch`` drawn on the CPU from ``seed``, trained ``steps``
     steps on ``dev`` on seeded token batches: the losses, the grad norms
     and each weight's change (on the CPU, fp32)."""
     from repro_torch.configs import get_smoke
@@ -1701,7 +1702,7 @@ def _train_arm(dev, steps=3, seed=0):
     from repro_torch.launch.train import make_batch
     from repro_torch.models import build_model
 
-    cfg = get_smoke("granite_8b")
+    cfg = get_smoke(arch)
     model = build_model(cfg, device="cpu",
                         generator=torch.Generator().manual_seed(seed))
     start = {n: p.detach().float().clone()
@@ -1719,17 +1720,30 @@ def _train_arm(dev, steps=3, seed=0):
                            for n, p in model.named_parameters()}
 
 
-def test_train_steps_on_card_match_cpu(cuda):
-    """Three train steps of the smoke granite from one draw of weights, on
+def _hold_card_to_cpu(arch, cuda):
+    """Three train steps of the smoke ``arch`` from one draw of weights, on
     the card and on the CPU: each loss within ``TRAIN_LOSS_BOUND``, the
     weights' change within ``TRAIN_CHANGE_BOUND``."""
-    lc, nc, dc = _train_arm("cpu")
-    lg, ng, dg = _train_arm(cuda)
+    lc, _, dc = _train_arm("cpu", arch=arch)
+    lg, _, dg = _train_arm(cuda, arch=arch)
     for g, c in zip(lg, lc):
         assert abs(g - c) <= TRAIN_LOSS_BOUND * abs(c), (lg, lc)
     num = sum(float(torch.sum((dg[n] - dc[n]) ** 2)) for n in dc)
     den = sum(float(torch.sum(dc[n] ** 2)) for n in dc)
     assert (num / den) ** 0.5 <= TRAIN_CHANGE_BOUND
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    """The smoke granite (``_hold_card_to_cpu``)."""
+    _hold_card_to_cpu("granite_8b", cuda)
+
+
+def test_moe_mla_train_steps_on_card_match_cpu(cuda):
+    """The smoke deepseek-v3 (MLA attention, one dense layer and two MoE
+    layers of 8 experts, top 2, and the shared expert): the backward of
+    the experts' gathers and of the MLA projections on the card tracks the
+    CPU's (``_hold_card_to_cpu``)."""
+    _hold_card_to_cpu("deepseek_v3_671b", cuda)
 
 
 def test_train_resume_through_a_compressed_checkpoint_on_card(

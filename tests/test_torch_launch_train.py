@@ -4,17 +4,21 @@ the CPU: its log lines, its checkpoints and resumes, and its refusals.
 A run of 4 steps that checkpoints every 2, relaunched to 6, resumes from
 step 4 and ends bit for bit where one uninterrupted 6-step run ends
 (weights, m and v); relaunched from a compressed checkpoint it resumes and
-stays finite.  Multi-device flags, the families the port serves but does
-not train yet (MoE, MLA, the hybrid) and those outside the port (RWKV)
-raise ``NotImplementedError`` naming the ROADMAP item; with no device and no card
-it raises.  The reference's driver fails on the installed JAX (R4), so
-nothing here runs it.
+stays finite.  The MoE + MLA (deepseek-v3) and encoder-decoder (whisper)
+smoke models train, checkpoint compressed and resume the same way.
+Multi-device flags and the families the port serves but does not train
+yet (the hybrid, RWKV) raise ``NotImplementedError`` naming the ROADMAP
+item; with no device and no card it raises.  The reference's
+``launch.train`` fails on the installed JAX (R4), so nothing here runs
+it.
 """
+import json
 import os
 
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.launch import train
 
 BASE = ["--arch", "granite-8b", "--smoke", "--device", "cpu", "--batch",
@@ -77,16 +81,54 @@ def test_relaunch_from_a_compressed_checkpoint(tmp_path, capsys):
     assert int(st.step) == 6
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-tiny"])
+def test_family_relaunch_from_a_compressed_checkpoint(arch, tmp_path,
+                                                      capsys):
+    """The MoE + MLA and encoder-decoder smoke models (whisper fed zero
+    frames): 4 steps with a compressed checkpoint every 2, then a relaunch
+    to 6 that resumes from step 4 with finite losses.  deepseek-v3's
+    expert stacks ``[L, E, d, f]`` and their m and v are in the
+    checkpoint, m and v compressed."""
+    argv = ["--arch", arch, "--ckpt-dir", str(tmp_path), "--ckpt-every",
+            "2", "--ckpt-compress"]
+    _, _, first, _ = run(capsys, "--steps", "4", *argv)
+    with open(tmp_path / "step_000000000004" / "manifest.json") as f:
+        leaves = json.load(f)["leaves"]
+    if arch == "deepseek-v3-671b":
+        for part in ("params", "m", "v"):
+            entry = leaves[f"['{part}']['group1']['ffn']['wi']"]
+            assert len(entry["shape"]) == 4 and entry["shape"][1] == 8
+            assert ("codec" in entry) == (part != "params"), entry
+    _, st, losses, out = run(capsys, "--steps", "6", *argv)
+    assert out.splitlines()[0] == "resumed from step 4"
+    assert out.splitlines()[1].startswith("step     4 loss ")
+    assert len(first) == 4 and len(losses) == 2
+    assert all(l == l and l < 20 for l in first + losses)
+    assert int(st.step) == 6
+
+
 @pytest.mark.parametrize("argv,match", [
     (["--data", "2"], "ROADMAP queue 1, item 6"),
     (["--model-par", "2"], "ROADMAP queue 1, item 6"),
-    (["--arch", "deepseek-v3-671b"], r"item 6 \(M10c training"),
+    (["--arch", "hymba-15b"], r"item 6 \(M10c training"),
     (["--arch", "rwkv6-3b"], r"item 6 \(M10c training"),
-    (["--arch", "whisper-tiny"], r"item 6 \(M10c training"),
+    (["--arch", "rwkv6_3b"], r"item 6 \(M10c training"),  # module name
 ])
 def test_refusals(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         train.main(BASE + ["--steps", "1"] + argv)
+
+
+@pytest.mark.parametrize("arch", ["hymba-15b", "rwkv6-3b"])
+def test_untrained_families_name_their_item(arch):
+    """The hybrid's and RWKV's refusals name the queue item that trains
+    them (6b-ii), and the other families are not refused."""
+    with pytest.raises(NotImplementedError, match=r"6b-ii: the hybrid SSM "
+                       r"and RWKV backward"):
+        train.main(BASE + ["--steps", "1", "--arch", arch])
+    for other in ("deepseek-v3-671b", "llama4-scout-17b-a16e",
+                  "whisper-tiny", "granite-8b"):
+        assert train.untrained(get_arch(other)) == ""
 
 
 def test_no_card_means_an_error(monkeypatch):

@@ -29,6 +29,7 @@ from repro.distributed.optimizer import AdamWConfig as RefAdamWConfig
 from repro.distributed.optimizer import cosine_schedule as ref_cosine
 from repro.models.common import ParamSpec as RefParamSpec
 from repro_torch.core.tree import tree_flatten_with_path
+from repro_torch.distributed import optimizer
 from repro_torch.distributed.optimizer import (
     AdamW,
     AdamWConfig,
@@ -221,3 +222,30 @@ def test_project_keeps_a_stepped_state_and_lifts_a_lossy_one(acc):
         assert bool(torch.isfinite(p.float()).all())
         assert bool((step <= bound * 1.05 + ulp).all()), float(
             (step - ulp).max())
+
+
+@pytest.mark.parametrize("acc", list(ACC))
+def test_update_in_slices_is_the_whole_update(acc, monkeypatch):
+    """``AdamW.update`` walks each leaf in slices of ``UPDATE_SLICE``
+    elements (its fp32 temporaries stay small beside a large state): with
+    slices of 7 elements, which cut every leaf of ``SHAPES`` with a short
+    last slice, the parameters, m and v after 3 steps are bit for bit the
+    whole-leaf update's."""
+    tdt = ACC[acc][1]
+    opt = AdamW(AdamWConfig(base_lr=1e-2, warmup=1, total_steps=10,
+                            acc_dtype=tdt))
+    rng = np.random.default_rng(4)
+    _, start = draw(rng, 0.1)
+    grads = [draw(rng, 2.0 if i % 2 else 1e-3)[1] for i in range(3)]
+    arms = []
+    for slice_len in (optimizer.UPDATE_SLICE, 7):
+        monkeypatch.setattr(optimizer, "UPDATE_SLICE", slice_len)
+        tp = jax.tree_util.tree_map(torch.clone, start)
+        st = opt.init(tp)
+        for g in grads:
+            _, st, _ = opt.update(tp, st, g)
+        arms.append([*jax.tree_util.tree_leaves(tp),
+                     *jax.tree_util.tree_leaves(st.m),
+                     *jax.tree_util.tree_leaves(st.v)])
+    for whole, sliced in zip(*arms):
+        assert torch.equal(whole, sliced)
