@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched decode, encode and transcode paths,
 its workloads, its serving frontend and its LM serving and training paths
-(every family it trains) on one NVIDIA GPU.
+(every family) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--src DIR]
 
@@ -294,8 +294,9 @@ digests below must then match).  Phases, one JSON line each:
      codec's ms on one block; the model's smoke config built on the CPU,
      prefill + 4 decode steps there and, moved to the card, on the card,
      within ``LM_CARD_CPU_TOL``.
- 16. families_train — (``families_train_phase()``; skipped when the driven
-     port's ``launch.train.untrained(get_arch("whisper-tiny"))`` is not
+ 16. families_train — (``families_train_phase()``; skipped unless the
+     driven port trains whisper-tiny, ``port_trains``: its ``launch.train``
+     has no ``untrained`` or ``untrained(get_arch("whisper-tiny"))`` is
      empty) the MoE, MLA and encoder-decoder families trained at full
      width, one model at a time, each freed before the next, TF32 and bf16
      reduced-precision reductions off, weights drawn on the card from
@@ -324,13 +325,40 @@ digests below must then match).  Phases, one JSON line each:
      the card (``smoke_card_vs_cpu``, as phase 14's granite), and the
      smoke deepseek-v3's compressed resume on the card (``smoke_resume``:
      its expert stacks' m and v through K4 and K1 / ``lut_idct``).
+ 17. scan_train — (``scan_train_phase()``; skipped unless the driven port
+     trains rwkv6-3b and hymba-1.5b, ``port_trains``) the hybrid SSM and
+     RWKV families trained at full width, as phase 16 trains its models
+     (``family_train_run``; ``ST_RUNS``): hymba-1.5b (d 1600, 25 / 5 heads
+     of 64, d_ff 5504, window 1024, Mamba d_in 3200, N 16, vocab 32001)
+     and rwkv6-3b (d 2560, 40 heads of 64, d_ff 8960, vocab 65536), each
+     cut to 4 of its 32 layers, batch 2 x 2048 tokens: 16 chunks of each
+     scan, each chunk checkpointed (``ssm.chunk_remat``) inside its
+     checkpointed layer.  For each: one batch's gradients with the layer
+     and chunk remat on, on again, and both off (``grads_twice``): losses
+     and every leaf bit for bit, each pass's peak memory above its start;
+     run A's four steps (finite), step ms by CUDA events beside
+     ``train_bound`` (the recurrences' fp32 operations at 67 TFLOP/s in
+     five passes, ``recurrence_ops``) and each step's time in Python's
+     collector (``gc_cost``), one step under ``torch.profiler`` at 2 x
+     ``ST_PROFILE_SEQ`` on the same weights (its own CUDA-event ms beside
+     it), peak memory, ``ST_MEMO_STEPS`` steps on one repeated batch (the
+     last loss below the first).  hymba-1.5b also run B, the compressed
+     resume after step 1 (``compressed_resume``): its fp32 SSM weights
+     (``A_log``, ``D``, ``dt_bias``) raw and bit-equal as every weight is
+     (``convert.save_train_state``), their m and v among the compressed
+     leaves, each named with its relative rms; B's step-3 loss within
+     ``TRAIN_RESUME_TOL`` of A's.
+     Then the smoke hymba and rwkv6-3b at 2 x 256, 3 steps on the CPU and
+     on the card (``smoke_card_vs_cpu``), so both sides take the chunked
+     path.
 
 Then the ``{"kernels": [...]}`` line (K5's and K3's entries also carry
 the LM path's launches, ``lm_launches``, and the families phase's,
 ``families_launches``; the four checkpoint kernels' the
-train phase's, ``train_launches`` and ``train_max_abs_err``, and the
+train phase's, ``train_launches`` and ``train_max_abs_err``, the
 families train phase's, ``families_train_launches`` and
-``families_train_max_abs_err``), and last
+``families_train_max_abs_err``, and the scan train phase's,
+``scan_train_launches`` and ``scan_train_max_abs_err``), and last
 ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
 the last line.
 """
@@ -2009,6 +2037,26 @@ TRAIN_CARD_CPU_LOSS_TOL = 2.0 ** -8
 TRAIN_CARD_CPU_CHANGE_TOL = 2.0 ** -2
 
 
+def recurrence_ops(cfg, tokens: int) -> float:
+    """The fp32 operations of one forward of every layer's recurrence over
+    ``tokens`` tokens: RWKV's wkv ``5 hd^2 + 4 hd`` a head and token (as
+    ``family_bounds`` counts it), the hybrid's SSM scan ``d_in (7 N + 1)``
+    a token (over ``d_in x N``: ``dt A``, its exp, the input term ``dt x
+    B``, the decay's multiply-add, the ``C . h`` contraction; ``dt x`` over
+    ``d_in``); 0 for a family with neither."""
+    from repro_torch.models import ssm as ssm_mod
+
+    if cfg.family == "ssm":
+        hd = cfg.rwkv_head_size
+        per = cfg.d_model // hd * (5 * hd * hd + 4 * hd)
+    elif cfg.hybrid_parallel:
+        d_in, _, n, _ = ssm_mod._dims(cfg)
+        per = d_in * (7 * n + 1)
+    else:
+        return 0.0
+    return float(cfg.num_layers * tokens * per)
+
+
 def train_bound(model, tokens: int, b: int, s: int) -> dict:
     """The card's least time for one train step: the matmul operations at
     the bf16 peak, the layers' as ``forward_ops`` counts a forward over
@@ -2018,20 +2066,26 @@ def train_bound(model, tokens: int, b: int, s: int) -> dict:
     whisper's encoder and cross k/v at its frames, its F x F encoder and
     S x F cross rectangles) in four passes: the forward, the
     rematerialized forward and twice in the backward; the unembedding at
-    every token forward and twice backward; against the bytes (the
-    weights, m and v read once and written once, the tokens and labels,
-    whisper's frames), the larger."""
+    every token forward and twice backward; beside them the recurrences'
+    fp32 operations (``recurrence_ops``) at the fp32 peak in the same four
+    passes and, when the scan checkpoints its chunks
+    (``s % 128 == 0 and s > 128``), a fifth, the chunks' recompute;
+    against the bytes (the weights, m and v read once and written once,
+    the tokens and labels, whisper's frames), the larger."""
     cfg = model.cfg
     dense, slots, routed, attn, _ = forward_ops(model, b, tokens, s, s)
     unembed = 2.0 * cfg.d_model * cfg.vocab_size * tokens
     ops_ = 4.0 * (dense + slots + attn) + 3.0 * unembed
+    fp32_ops = (4.0 + (s % 128 == 0 and s > 128)) * recurrence_ops(
+        cfg, tokens)
     nbytes = 2 * sum(p.numel() * (p.element_size() + 8)
                      for p in model.parameters()) + 8 * tokens
     if cfg.family == "audio":
         nbytes += 2 * b * cfg.encoder_seq * cfg.d_model
-    tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops_ / PEAK_BF16_PER_S * 1e3
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    to = (ops_ / PEAK_BF16_PER_S + fp32_ops / PEAK_FP32_PER_S) * 1e3
     return {"ms": max(tb, to), "by": "bytes" if tb >= to else "operations",
-            "bytes": nbytes, "operations": ops_,
+            "bytes": nbytes, "operations": ops_, "fp32_operations": fp32_ops,
             "routed_operations": 4.0 * (dense + routed + attn)
             + 3.0 * unembed, "moe_slot_operations": 4.0 * slots}
 
@@ -2169,12 +2223,12 @@ def smoke_card_vs_cpu(arch: str, seed: int, b: int = 2, s: int = 64
 
 def compressed_resume(model, st, opt, tmp: str, step: int) -> tuple:
     """A train state's resume through a compressed checkpoint on the card
-    (phases 14 and 16): with every launch counter at 0,
-    ``save_checkpoint(compress=True)`` of ``train_state_tree`` at ``step``,
-    every K4 call held at once against its plain version
-    (``ckpt_kernels_held``); the live weights, m and v overwritten with
-    NaN; ``restore_latest`` with every K1 / ``lut_idct`` call held the same
-    way, and ``load_train_state``.  Held: the manifest (v2, one
+    (phases 14, 16 and 17): with every launch counter at 0,
+    ``save_train_state(compress=True)`` at ``step`` (the weights raw), every
+    K4 call held at once against its plain version (``ckpt_kernels_held``);
+    the live weights, m and v overwritten with NaN; ``restore_latest`` with
+    every K1 / ``lut_idct`` call held the same way, and
+    ``load_train_state``.  Held: the manifest (v2, one
     ``state.fptc``, m and v's leaves of 4096 elements or more in it, every
     other leaf a raw ``.npy``), the launch counts (K4 once per encode
     bucket, K1 and ``lut_idct`` once per engine call:
@@ -2190,6 +2244,7 @@ def compressed_resume(model, st, opt, tmp: str, step: int) -> tuple:
 
     from repro_torch.distributed import checkpoint as ckpt
     from repro_torch.kernels import ops
+    from repro_torch.models import convert
     from repro_torch.models.convert import (
         load_train_state,
         train_state_tree,
@@ -2197,7 +2252,6 @@ def compressed_resume(model, st, opt, tmp: str, step: int) -> tuple:
     from repro_torch.serving import workloads as wl
     from repro_torch.serving.engine import p2
 
-    tree = train_state_tree(model, st)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     save_specs = [(ckpt, "calibrate_train_state", "calibrate"),
@@ -2207,11 +2261,15 @@ def compressed_resume(model, st, opt, tmp: str, step: int) -> tuple:
                      (ckpt, "state_from_containers", "decode_unshard"),
                      (wl, "unshard_state", "unshard"),
                      (ckpt, "_place", "to_device")]
+    # a port that predates save_train_state saves the whole tree; no fp32
+    # weight of the states its phases save reaches the codec's 4096 elements
+    save = getattr(convert, "save_train_state", lambda d, s, m, o, **kw:
+                   ckpt.save_checkpoint(d, s, train_state_tree(m, o), **kw))
     ops.reset_launches()
     with ckpt_kernels_held(CKPT_KERNELS) as held_save, \
             timers(save_specs) as ssec:
         t0 = time.perf_counter()
-        path = ckpt.save_checkpoint(tmp, step, tree, compress=True)
+        path = save(tmp, step, model, st, compress=True)
         save_s = time.perf_counter() - t0
     save_launches = dict(ops.LAUNCHES)
     peak_save = torch.cuda.max_memory_allocated()
@@ -2221,8 +2279,7 @@ def compressed_resume(model, st, opt, tmp: str, step: int) -> tuple:
     disk = {name: os.path.getsize(os.path.join(path, name))
             for name in files}
     # what was saved, kept to compare; then the live state overwritten
-    saved = _tree_map(lambda t: t.clone(), tree)
-    del tree
+    saved = _tree_map(lambda t: t.clone(), train_state_tree(model, st))
     with torch.no_grad():
         for p in model.parameters():
             p.fill_(float("nan"))
@@ -2622,11 +2679,8 @@ def family_bounds(model, b: int, s: int, t: int, hit=None) -> dict:
         state = cfg.num_layers * b * (4 * heads * hd * hd + 2 * 2
                                       * cfg.d_model)
 
-    def recurrence(tokens):
-        if cfg.family != "ssm":
-            return 0.0
-        return float(cfg.num_layers * tokens * heads * (5 * hd * hd
-                                                        + 4 * hd))
+    def recurrence(tokens):  # the hybrid's scan is not counted here
+        return recurrence_ops(cfg, tokens) if cfg.family == "ssm" else 0.0
 
     def bound(nbytes, ops, fp32_ops):
         tb = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -3023,11 +3077,55 @@ class MoeStatsLog(dict):
         self.log.append((key, value))
 
 
+@contextlib.contextmanager
+def chunk_remat_off():
+    """The scans' per-chunk checkpointing (``ssm.chunk_remat``) off while
+    the block runs (a port without it has none to turn off)."""
+    from repro_torch.models import ssm as ssm_mod
+
+    if not hasattr(ssm_mod, "chunk_remat"):
+        yield
+        return
+    saved = ssm_mod.chunk_remat
+    ssm_mod.chunk_remat = lambda s: False
+    try:
+        yield
+    finally:
+        ssm_mod.chunk_remat = saved
+
+
+@contextlib.contextmanager
+def gc_cost():
+    """What Python's cyclic collector takes while the block runs: its
+    seconds (``s``) and collections by generation, and the objects it
+    tracked at the start (``objects``: a full collection walks them all,
+    so a heap that earlier phases left behind makes each one longer)."""
+    rec = {"s": 0.0, "collections": [0, 0, 0],
+           "objects": len(gc.get_objects())}
+    began = [0.0]
+
+    def watch(phase, info):
+        if phase == "start":
+            began[0] = time.perf_counter()
+        else:
+            rec["s"] += time.perf_counter() - began[0]
+            rec["collections"][info["generation"]] += 1
+
+    gc.callbacks.append(watch)
+    try:
+        yield rec
+    finally:
+        gc.callbacks.remove(watch)
+
+
 def grads_twice(model, batch, moe_layers) -> dict:
     """One batch's loss and gradients on the seed's weights, three times:
-    remat on, remat on again, remat off.  Held: the losses bit for bit,
-    each gradient leaf within ``FT_REPEAT_TOL`` of the first (relative L2;
-    0: bit for bit), and each MoE layer's routing (``dropped``,
+    remat on, remat on again, remat off (the layers' and the scans'
+    per-chunk remat: ``chunk_remat_off``), each pass's peak memory above
+    what it started with (``peak_added``, so the first pass's gradients,
+    held to compare, count in none).  Held: the losses bit for bit, each
+    gradient leaf within ``FT_REPEAT_TOL`` of the first (relative L2; 0:
+    bit for bit), and each MoE layer's routing (``dropped``,
     ``experts_hit``) the same in every forward, the backward's recomputed
     forward included."""
     import torch
@@ -3039,9 +3137,14 @@ def grads_twice(model, batch, moe_layers) -> dict:
     for arm, remat in (("remat", True), ("again", True), ("no_remat", False)):
         for layer in moe_layers:
             layer.moe_stats.log.clear()
-        loss = model.loss(batch, remat=remat)
-        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with contextlib.nullcontext() if remat else chunk_remat_off():
+            loss = model.loss(batch, remat=remat)
+            grads = torch.autograd.grad(loss, params)
         loss = loss.detach()
+        peak = torch.cuda.max_memory_allocated() - held
         routing = []  # each layer's writes of each key, in order
         for layer in moe_layers:
             writes = {}
@@ -3050,7 +3153,8 @@ def grads_twice(model, batch, moe_layers) -> dict:
             routing.append(writes)
         if first is None:
             first = (loss, grads)
-            out[arm] = {"loss": float(loss), "routing": routing}
+            out[arm] = {"loss": float(loss), "routing": routing,
+                        "peak_added": peak}
             continue
         rels = [0.0 if torch.equal(g, f) else rel_l2(g, f)
                 for g, f in zip(grads, first[1])]
@@ -3059,7 +3163,8 @@ def grads_twice(model, batch, moe_layers) -> dict:
                     "loss_equal": bool(torch.equal(loss, first[0])),
                     "leaves_equal": sum(r == 0.0 for r in rels),
                     "leaves": len(rels), "max_rel_l2": rels[worst],
-                    "worst_leaf": names[worst], "routing": routing}
+                    "worst_leaf": names[worst], "routing": routing,
+                    "peak_added": peak}
         del grads
     seen = [{k: {v for arm in out.values() for v in arm["routing"][li]
                  .get(k, [])} for k in ("dropped", "experts_hit")}
@@ -3082,9 +3187,15 @@ def grads_twice(model, batch, moe_layers) -> dict:
 
 
 def family_train_run(arch: str, layers, b: int, s: int, seed: int,
-                     tmp: str) -> dict:
-    """One family trained at full width on the card (phase 16; see the
-    module docstring).  Frees the model before it returns."""
+                     tmp: str, *, resume: bool = False, twice: bool = False,
+                     profile_seq=None,
+                     memo_steps: int = TRAIN_MEMO_STEPS) -> dict:
+    """One family trained at full width on the card (phases 16 and 17; see
+    the module docstring): with ``resume`` run B through a compressed
+    checkpoint, with ``twice`` ``grads_twice``, with ``profile_seq`` the
+    profiled step over ``b x profile_seq`` tokens of the same weights
+    (timed by CUDA events on its own for the idle share), ``memo_steps``
+    steps on one repeated batch.  Frees the model before it returns."""
     import numpy as np
     import torch
 
@@ -3126,30 +3237,55 @@ def family_train_run(arch: str, layers, b: int, s: int, seed: int,
         return {f"{g}.{li}": {k: int(v) for k, v in layer.moe_stats.items()}
                 for g, li, layer in model.layers() if layer.kind == "moe"}
 
-    if arch == FT_REMAT:  # before m and v exist: two gradient sets fit
+    if twice:  # before m and v exist: two gradient sets fit
         out["grads_twice"] = grads_twice(model, batches[0], moe_layers)
         gc.collect()
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
 
     # -- run A: four steps from the seed's weights, timed ------------------
     st, run_a, step_ms, drops = ts.init(), [], [], []
-    for i in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        start.record()
-        st, met = ts.step_fn(st, batches[i])
-        stop.record()
-        stop.synchronize()
-        if i:  # step 0 warms
-            step_ms.append(start.elapsed_time(stop))
-        run_a.append((float(met["loss"]), float(met["grad_norm"])))
-        drops.append(dropped())
+    host = {"gc_ms": [], "gc_full": [], "cuda_mallocs": []}
+    with gc_cost() as gcs:
+        for i in range(TRAIN_STEPS):
+            gc_s, full = gcs["s"], gcs["collections"][2]
+            mallocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+            torch.cuda.synchronize()
+            start.record()
+            st, met = ts.step_fn(st, batches[i])
+            stop.record()
+            stop.synchronize()
+            if i:  # step 0 warms
+                step_ms.append(start.elapsed_time(stop))
+                host["gc_ms"].append((gcs["s"] - gc_s) * 1e3)
+                host["gc_full"].append(gcs["collections"][2] - full)
+                host["cuda_mallocs"].append(torch.cuda.memory_stats().get(
+                    "num_device_alloc", 0) - mallocs)
+            run_a.append((float(met["loss"]), float(met["grad_norm"])))
+            drops.append(dropped())
+    host["gc_objects"] = gcs["objects"]
     check(all(np.isfinite(x) for r in run_a for x in r),
           f"{arch} run A: a loss or grad norm is not finite: {run_a}")
-    profile = device_profile(lambda: ts.step_fn(st, batches[TRAIN_STEPS]),
-                             sum(step_ms) / len(step_ms), top=16)
+    profiled, profile_ms = batches[TRAIN_STEPS], sum(step_ms) / len(step_ms)
+    if profile_seq is not None:
+        profiled = train_batches(cfg, b, profile_seq, seed, 1, "cuda")[0]
+        for _ in range(2):  # the first warms the new shape
+            torch.cuda.synchronize()
+            start.record()
+            ts.step_fn(st, profiled)
+            stop.record()
+            stop.synchronize()
+        profile_ms = start.elapsed_time(stop)
+        out["profile_seq"] = profile_seq
+        out["profile_step_ms"] = profile_ms
+        out["profile_bound_ms"] = train_bound(model, b * profile_seq, b,
+                                              profile_seq)["ms"]
+    profile = device_profile(lambda: ts.step_fn(st, profiled), profile_ms,
+                             top=16)
     bound = train_bound(model, b * s, b, s)
     out.update(run_a=[{"loss": l, "grad_norm": g} for l, g in run_a],
-               moe_dropped=drops, step_ms=step_ms, bound_ms=bound["ms"],
+               moe_dropped=drops, step_ms=step_ms, step_host=host,
+               bound_ms=bound["ms"],
                bound_by=bound["by"], bound=bound, profile=profile,
                peak_steps=torch.cuda.max_memory_allocated())
 
@@ -3162,7 +3298,7 @@ def family_train_run(arch: str, layers, b: int, s: int, seed: int,
         return ts.init()
 
     # -- run B: steps 0-1, the compressed checkpoint, steps 2-3 ------------
-    if arch == FT_RESUME:
+    if resume:
         st = restart()
         run_b = []
         for i in range(2):
@@ -3186,7 +3322,7 @@ def family_train_run(arch: str, layers, b: int, s: int, seed: int,
     # -- one repeated batch, 8 steps: the loss falls ------------------------
     st = restart()
     memo = []
-    for _ in range(TRAIN_MEMO_STEPS):
+    for _ in range(memo_steps):
         st, met = ts.step_fn(st, batches[0])
         memo.append(float(met["loss"]))
     check(np.isfinite(memo).all() and memo[-1] < memo[0],
@@ -3239,15 +3375,17 @@ def smoke_resume(arch: str, seed: int, tmp: str) -> dict:
             **report}
 
 
-def families_trained() -> bool:
-    """Whether the driven port's ``launch.train`` trains whisper-tiny (the
-    MoE, MLA and encoder-decoder backward)."""
+def port_trains(arch: str) -> bool:
+    """Whether the driven port's ``launch.train`` trains ``arch``: it
+    imports, and it has no ``untrained`` (every family trains) or
+    ``untrained(get_arch(arch))`` is empty."""
     try:
         from repro_torch.configs import get_arch
-        from repro_torch.launch.train import untrained
+        from repro_torch.launch import train
     except ImportError:
         return False
-    return not untrained(get_arch("whisper-tiny"))
+    untrained = getattr(train, "untrained", None)
+    return untrained is None or not untrained(get_arch(arch))
 
 
 def families_train_phase(smi: str, seed: int) -> dict:
@@ -3263,7 +3401,9 @@ def families_train_phase(smi: str, seed: int) -> dict:
     try:
         with exact_bf16_sums() as precision:
             runs = [family_train_run(arch, layers, b, s, seed,
-                                     os.path.join(tmp, arch))
+                                     os.path.join(tmp, arch),
+                                     resume=arch == FT_RESUME,
+                                     twice=arch == FT_REMAT)
                     for arch, layers, b, s in FT_RUNS]
             smoke = {arch: smoke_card_vs_cpu(arch, seed) for arch in FT_SMOKE}
             resume = smoke_resume(FT_SMOKE_RESUME, seed,
@@ -3283,6 +3423,74 @@ def families_train_phase(smi: str, seed: int) -> dict:
             "A (step 0 warms); profile: one more step under torch.profiler",
             "card_vs_cpu_smoke": smoke, "smoke_resume": resume,
             "launches": launches, "max_abs_err": max_abs,
+            "seconds": time.perf_counter() - t_phase}
+
+
+# -- 17. scan_train: the hybrid SSM and RWKV families trained -----------------
+# (arch, layers kept, batch, sequence): both at full width cut to 4 of
+# their 32 layers, 2 x 2048 tokens: hymba's window twice over, 16 chunks of
+# each scan, so that the chunk remat applies
+ST_RUNS = (("hymba-15b", 4, 2, 2048),
+           ("rwkv6-3b", 4, 2, 2048))
+ST_RESUME = "hymba-15b"  # trained through a compressed resume (run B)
+# the profiled step's tokens a row, on the same weights: the profiler's
+# pass over a step's kernels costs far more than the step (at 2 x 512,
+# 14.8 s over hymba's 21819 kernels and 37.7 s over rwkv6-3b's 33538,
+# PERF.md), and a scan's kernels grow with S.  256 still checkpoints two
+# chunks
+ST_PROFILE_SEQ = 256
+# steps on one repeated batch, cut from phases 14 and 16's 8 to hold the
+# phase's time (an rwkv6-3b step took 3.3-6.5 s); the loss falls in 4
+ST_MEMO_STEPS = 4
+ST_SMOKE = ("hymba_15b", "rwkv6_3b")  # card against the CPU
+ST_SMOKE_SEQ = 256  # two checkpointed chunks on both sides
+SSM_FP32 = ("A_log", "D", "dt_bias")  # the hybrid's fp32 SSM leaves
+
+
+def scan_train_phase(smi: str, seed: int) -> dict:
+    """Phase 17: the hybrid SSM and RWKV families trained on the card (see
+    the module docstring).  Returns its JSON line."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="fptc_strain_")
+    try:
+        with exact_bf16_sums() as precision:
+            runs = [family_train_run(arch, layers, b, s, seed,
+                                     os.path.join(tmp, arch),
+                                     resume=arch == ST_RESUME, twice=True,
+                                     profile_seq=ST_PROFILE_SEQ,
+                                     memo_steps=ST_MEMO_STEPS)
+                    for arch, layers, b, s in ST_RUNS]
+            smoke = {arch: smoke_card_vs_cpu(arch, seed, s=ST_SMOKE_SEQ)
+                     for arch in ST_SMOKE}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume = next(r["resume"] for r in runs if "resume" in r)
+    fp32 = {k: v for k, v in resume["rel_rms_err"].items()
+            if k.split(".")[-2] == "ssm" and k.split(".")[-1] in SSM_FP32}
+    check(all(any(k.startswith(part + ".") and k.endswith("." + leaf)
+                  for k in fp32) for part in ("m", "v") for leaf in SSM_FP32),
+          f"{ST_RESUME}: the fp32 SSM leaves' m and v were not all "
+          f"compressed: {sorted(fp32)}")
+    resume["ssm_fp32_rel_rms_err"] = fp32
+    held = resume["kernels"]
+    return {"phase": "scan_train", "nvidia_smi": smi,
+            "precision": precision, "optimizer": TRAIN_OPT, "runs": runs,
+            "step_ms_what": "CUDA events around step_fn, steps 1-3 of run "
+            "A (step 0 warms); profile: one step under torch.profiler over "
+            f"{ST_PROFILE_SEQ} tokens a row, its idle share against that "
+            "step's own CUDA-event ms (profile_step_ms); step_host: each "
+            "timed step's ms in Python's collector, its full collections, "
+            "the caching allocator's device allocations",
+            "card_vs_cpu_smoke": smoke,
+            "launches": {k: held[k]["launches"] for k in CKPT_KERNELS},
+            "max_abs_err": {k: held[k]["max_abs_err"] for k in CKPT_KERNELS},
             "seconds": time.perf_counter() - t_phase}
 
 
@@ -4477,12 +4685,21 @@ def main() -> None:
 
     # -- 16. families_train -----------------------------------------------------
     ftrain = None
-    if families_trained():
+    if port_trains("whisper-tiny"):
         ftrain = families_train_phase(smi, args.seed)
         emit(ftrain)
     else:  # another checkout's port may not train these families yet
         emit({"phase": "families_train", "skipped": "the port's launch."
               "train does not train whisper-tiny"})
+
+    # -- 17. scan_train ---------------------------------------------------------
+    strain = None
+    if all(port_trains(arch) for arch, _, _, _ in ST_RUNS):
+        strain = scan_train_phase(smi, args.seed)
+        emit(strain)
+    else:  # another checkout's port may not train these families yet
+        emit({"phase": "scan_train", "skipped": "the port's launch.train "
+              "does not train " + " and ".join(a for a, _, _, _ in ST_RUNS)})
 
     # -- the kernels line, and the last line -------------------------------------
     counts_of = {"main": launches, "encode": elaunches,
@@ -4512,6 +4729,9 @@ def main() -> None:
         if ftrain is not None and name in CKPT_KERNELS:  # phase 16's
             entry["families_train_launches"] = ftrain["launches"][name]
             entry["families_train_max_abs_err"] = ftrain["max_abs_err"][name]
+        if strain is not None and name in CKPT_KERNELS:  # phase 17's
+            entry["scan_train_launches"] = strain["launches"][name]
+            entry["scan_train_max_abs_err"] = strain["max_abs_err"][name]
         kernels.append(entry)
     tc.close()
     emit({"kernels": kernels})

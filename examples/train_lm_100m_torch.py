@@ -20,14 +20,17 @@ import time
 
 import torch
 
-from repro_torch.core.tree import tree_leaves
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.distributed.elastic import StepTimer
 from repro_torch.distributed.optimizer import AdamW, AdamWConfig
 from repro_torch.distributed.train import make_train_step
 from repro_torch.models import ArchConfig, build_model
-from repro_torch.models.convert import load_train_state, train_state_tree
+from repro_torch.models.convert import (
+    load_train_state,
+    save_train_state,
+    train_state_tree,
+)
 from repro_torch.serving.engine import resolve_device
 
 
@@ -93,13 +96,11 @@ def main(argv=None):
                   f"{dt:6.2f}s" + ("  [straggler]" if straggler else ""),
                   flush=True)
         if (step + 1) % args.ckpt_every == 0:
-            tree = train_state_tree(model, state)
-            raw = sum(t.numel() * t.element_size()
-                      for t in tree_leaves(tree))
+            raw = sum(t.numel() * t.element_size() for t in (
+                *model.parameters(), *state.m.values(), *state.v.values()))
             t0 = time.time()
-            path = ckpt.save_checkpoint(args.dir, step + 1, tree,
-                                        compress=True, device=dev)
-            del tree
+            path = save_train_state(args.dir, step + 1, model, state,
+                                    compress=True, device=dev)
             disk = sum(os.path.getsize(os.path.join(path, f))
                        for f in os.listdir(path))
             print(f"  ckpt@{step+1}: {raw/1e6:.0f} MB state -> "

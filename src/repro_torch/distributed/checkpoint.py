@@ -101,11 +101,16 @@ def _size(leaf: Any) -> int:
 
 
 def save_checkpoint(directory: str, step: int, tree: Tree,
-                    *, compress: bool = False, device=None) -> str:
+                    *, compress: bool = False, device=None,
+                    raw: Tuple[str, ...] = ()) -> str:
     """Write ``tree`` as step ``step`` under ``directory``; returns the
     step's directory.  ``compress=True`` routes every float32/float16 leaf
     of at least 4096 elements into the shared ``state.fptc`` blob, encoded
-    on ``device`` (the card unless ``device="cpu"``)."""
+    on ``device`` (the card unless ``device="cpu"``), except the leaves
+    under the top-level keys ``raw`` names, which are written raw whatever
+    their dtype (a training state's weights: ``convert.save_train_state``;
+    the reference has no such keys and compresses fp32 weights too)."""
+    raw_keys = tuple(f"[{k!r}]" for k in raw)
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:012d}")
     tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
@@ -116,6 +121,7 @@ def save_checkpoint(directory: str, step: int, tree: Tree,
             name = _fname(key)
             if (
                 compress
+                and not key.startswith(raw_keys)
                 and dtype_name(_dtype(leaf)) in ("float32", "float16")
                 and _size(leaf) >= _COMPRESS_MIN_SIZE
             ):

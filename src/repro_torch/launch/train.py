@@ -6,18 +6,19 @@ the CPU), draws its weights layer by layer from ``--seed``, streams
 deterministic ``TokenPipeline`` batches, checkpoints ``{"params", "m",
 "v"}`` in the reference's layout every ``--ckpt-every`` steps (atomic,
 restartable; ``--ckpt-compress``: m and v FPTC-compressed, encoded on the
-card's K4 and decoded on K1 + K2 when it resumes), and resumes from the
-newest checkpoint in ``--ckpt-dir``: kill it mid-run and relaunch.
+card's K4 and decoded on K1 + K2 when it resumes, the weights raw), and
+resumes from the newest checkpoint in ``--ckpt-dir``: kill it mid-run and
+relaunch.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \
       --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir DIR [--device cpu]
 
 The reference's flags, plus ``--device`` (default: the card; ``cpu`` runs
 the same arithmetic on the host) and ``--seed`` (weights and data).
-``--data`` or ``--model-par`` above 1 and the hybrid and RWKV families
-(served, not trained yet: ``UNTRAINED``) raise ``NotImplementedError``;
-the dense, VLM, MoE, MLA and encoder-decoder families train (whisper's
-frames are zeros, as the reference feeds them).  ``--compression`` is
+``--data`` or ``--model-par`` above 1 raise ``NotImplementedError``;
+every family trains: the dense, VLM, MoE, MLA, hybrid SSM, RWKV and
+encoder-decoder families (whisper's frames are zeros, as the reference
+feeds them).  ``--compression`` is
 accepted and, on one device, leaves the step uncompressed, as the
 reference does without a pod axis.
 """
@@ -35,22 +36,17 @@ from repro_torch.distributed.elastic import StepTimer
 from repro_torch.distributed.optimizer import AdamW, AdamWConfig
 from repro_torch.distributed.train import make_train_step
 from repro_torch.models import build_model
-from repro_torch.models.convert import load_train_state, train_state_tree
+from repro_torch.models.convert import (
+    load_train_state,
+    save_train_state,
+    train_state_tree,
+)
 from repro_torch.serving.engine import resolve_device
 
 __all__ = ["main", "make_batch"]
 
 MULTI_DEVICE = ("ROADMAP queue 1, item 6 (M10d: the multi-device layer — "
                 "data and model parallelism)")
-UNTRAINED = ("ROADMAP queue 1, item 6 (M10c training), 6b-ii: the hybrid "
-             "SSM and RWKV backward")
-
-
-def untrained(cfg) -> str:
-    """What of ``cfg`` the port serves but does not train yet, or ''."""
-    return ", ".join(what for what, present in (
-        ("the hybrid SSM branch", cfg.hybrid_parallel),
-        ("the RWKV time mix", cfg.family == "ssm")) if present)
 
 
 def make_batch(cfg, pipe: TokenPipeline, step: int) -> dict:
@@ -101,11 +97,6 @@ def main(argv=None):
             f"trains on one device; see {MULTI_DEVICE}")
 
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
-    what = untrained(cfg)
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves {what} but its backward is not "
-            f"held against the reference yet; see {UNTRAINED}")
     dev = resolve_device(args.device)
     model = build_model(cfg, device=dev, generator=torch.Generator(
         device=dev).manual_seed(args.seed))
@@ -144,9 +135,9 @@ def main(argv=None):
                 f"{dt*1e3:7.1f} ms" + ("  [straggler]" if straggler else ""),
                 flush=True)
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            path = ckpt.save_checkpoint(
-                args.ckpt_dir, step + 1, train_state_tree(model, opt_state),
-                compress=args.ckpt_compress, device=dev)
+            path = save_train_state(args.ckpt_dir, step + 1, model,
+                                    opt_state, compress=args.ckpt_compress,
+                                    device=dev)
             print(f"checkpointed -> {path}", flush=True)
     print("training done.")
     return model, opt_state, losses

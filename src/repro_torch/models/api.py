@@ -97,6 +97,10 @@ def _decoder_out(layer, x, enc_out, sin, cos) -> torch.Tensor:
     return layer(x, enc_out, sin, cos)[0]
 
 
+def _rwkv_out(layer, x) -> torch.Tensor:
+    return layer(x)[0]
+
+
 def _resolve(device):
     if device is not None and torch.device(device).type == "meta":
         return torch.device("meta")
@@ -290,14 +294,14 @@ class Model(Params):
         """Mean next-token CE.  Under autograd each layer runs under
         activation checkpointing when ``remat`` (the reference's
         ``jax.checkpoint`` around each layer body; whisper's encoder and
-        decoder layers alike): its activations are recomputed in the
-        backward, only its inputs are kept.  RWKV's loss is the forward
-        value (its backward is not held against the reference yet:
-        ``launch/train.py``'s ``UNTRAINED``)."""
+        decoder layers and RWKV's layers alike): its activations are
+        recomputed in the backward, only its inputs are kept.  The hybrid's
+        SSM scan and RWKV's wkv also checkpoint each chunk of their
+        recurrence (``ssm.chunk_remat``), whatever ``remat`` says."""
         labels = batch["labels"].to(self.device)
         remat = remat and torch.is_grad_enabled()
         if self.cfg.family == "ssm":
-            x = self._rwkv_run(self._embed(batch["tokens"]))
+            x = self._rwkv_run(self._embed(batch["tokens"]), remat=remat)
             return _cross_entropy(self._logits(x), labels)
         if self.cfg.family == "audio":
             x, _ = self._whisper_decoder(batch, remat=remat)
@@ -422,10 +426,16 @@ class Model(Params):
         return logits, cache
 
     # ------------------------------------------------------------- RWKV-6
-    def _rwkv_run(self, x: torch.Tensor, cache=None) -> torch.Tensor:
+    def _rwkv_run(self, x: torch.Tensor, cache=None,
+                  remat: bool = False) -> torch.Tensor:
         """x through every layer.  With ``cache`` each layer starts from
-        its state there and writes its state after x back in place."""
+        its state there and writes its state after x back in place; with
+        ``remat`` (the loss under autograd) each layer is checkpointed and
+        only its output x is kept."""
         for li, layer in enumerate(self["layers"]):
+            if remat:
+                x = checkpoint(_rwkv_out, layer, x, use_reentrant=False)
+                continue
             if cache is None:
                 x, _ = layer(x)
                 continue

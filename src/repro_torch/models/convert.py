@@ -17,8 +17,9 @@ axis; the port keeps one module per layer, and m and v per parameter
 * ``train_state_tree(model, opt_state)`` is the port's training state as
   the reference's ``{"params", "m", "v"}`` tree, the tree a training
   checkpoint saves (so the two packages restore each other's);
-  ``load_train_state(tree, model, opt_state, step, optimizer)`` loads
-  such a tree (numpy arrays or tensors) back.
+  ``save_train_state(directory, step, model, opt_state, ...)`` saves it,
+  its weights raw; ``load_train_state(tree, model, opt_state, step,
+  optimizer)`` loads such a tree (numpy arrays or tensors) back.
 * ``cache_from_jax(tree, device)`` turns a reference decode cache into the
   port's.
 
@@ -35,7 +36,15 @@ import torch
 from repro_torch.models.api import spec_leaves
 
 __all__ = ["to_torch", "params_from_jax", "cache_from_jax",
-           "opt_state_from_jax", "train_state_tree", "load_train_state"]
+           "opt_state_from_jax", "train_state_tree", "save_train_state",
+           "load_train_state"]
+
+# the keys of a training state whose leaves a checkpoint writes raw
+# (``save_checkpoint(raw=...)``): the weights, fp32 ones included (the
+# hybrid's SSM leaves, RWKV's ``w_base`` and ``u``, the MoE routers), come
+# back bit for bit; only Adam's m and v go through the lossy codec.  The
+# reference compresses fp32 weights too
+_TRAIN_STATE_RAW = ("params",)
 
 
 def to_torch(arr: Any, device=None) -> torch.Tensor:
@@ -164,6 +173,21 @@ def train_state_tree(model, opt_state) -> dict:
     return {"params": _stacked(model, params),
             "m": _stacked(model, opt_state.m),
             "v": _stacked(model, opt_state.v)}
+
+
+def save_train_state(directory: str, step: int, model, opt_state, *,
+                     compress: bool = False, device=None) -> str:
+    """``save_checkpoint`` of ``train_state_tree(model, opt_state)`` as
+    step ``step`` under ``directory``; returns the step's directory.  With
+    ``compress``, m and v are FPTC-compressed (encoded on ``device``, the
+    card unless ``"cpu"``) and the weights written raw, so they come back
+    bit for bit."""
+    from repro_torch.distributed.checkpoint import save_checkpoint
+
+    return save_checkpoint(directory, step, train_state_tree(model,
+                                                             opt_state),
+                           compress=compress, device=device,
+                           raw=_TRAIN_STATE_RAW)
 
 
 def load_train_state(tree: Mapping, model, opt_state, step: int,

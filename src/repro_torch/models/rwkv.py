@@ -18,15 +18,23 @@ is the reference's ``lax.scan``, plain PyTorch in fp32: each chunk of
 ``SCAN_CHUNK`` steps forms its outer products ``k_t^T v_t`` and its bonus
 terms ``(r_t . (u o k_t)) v_t`` at once, then takes one batched
 ``r_t S_{t-1}`` product and one fused multiply-add a step.  That is the
-reference's sum in another fp32 order.  Decode is the same layer on one
-token from the carried ``(shift1, shift2, wkv)``.
+reference's sum in another fp32 order.  While autograd records and S is a
+multiple of ``SCAN_CHUNK`` above it (the reference's rule,
+``ssm.chunk_remat``), each chunk's outer products, bonus and steps run
+under activation checkpointing, as the reference's chunk-of-128
+``jax.checkpoint`` does: the backward keeps only the chunks' boundary
+states.  Decode is the same layer on one token from the carried
+``(shift1, shift2, wkv)``.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import ssm
 from repro_torch.models.common import ParamSpec, Params, rms_norm, silu
 from repro_torch.models.config import ArchConfig
 
@@ -34,7 +42,8 @@ __all__ = ["rwkv_heads", "rwkv_layer_specs", "rwkv_layer_train",
            "rwkv_layer_decode", "RWKVLayer"]
 
 _DECAY_LORA = 64
-SCAN_CHUNK = 128  # steps whose outer products and bonus are formed at once
+# steps whose outer products and bonus are formed at once
+SCAN_CHUNK = ssm.SCAN_CHUNK
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -113,26 +122,36 @@ def _time_mix_inputs(tm, x, prev_x):
             _decay(tm, xw))
 
 
+def _wkv_chunk(r, k, v, w, u, state):
+    """One chunk of the recurrence, step-major ``[c, B, h, hd]`` inputs:
+    returns (o ``[c, B, h, hd]``, the state after it)."""
+    kv = k[..., None] * v[..., None, :]  # [c, B, h, hd, hd]
+    bonus = (r * u * k).sum(-1, keepdim=True) * v
+    os = []
+    # steps as unbind's views, as in ``ssm._scan_chunk``
+    for row, kv_t, decay in zip(r[..., None, :].unbind(0), kv.unbind(0),
+                                w[..., None].unbind(0)):
+        os.append(row @ state)  # r_t S_{t-1}: [B, h, 1, hd]
+        state = torch.addcmul(kv_t, decay, state)
+    return torch.stack(os)[..., 0, :] + bonus, state
+
+
 def _wkv(r, k, v, w, u, state: torch.Tensor):
     """The recurrence over S: r bf16, k, v, w fp32, each ``[B, S, h, hd]``;
     u fp32 ``[h, hd]``; ``state`` fp32 ``[B, h, hd, hd]`` before step 0.
-    Returns (o fp32 ``[B, S, h, hd]``, the state after step S-1)."""
+    Returns (o fp32 ``[B, S, h, hd]``, the state after step S-1).  Each
+    chunk runs under ``checkpoint`` when ``ssm.chunk_remat(S)``."""
     s = k.shape[1]
     # step-major, so that each step's slice is contiguous
     r, k, v, w = (t.transpose(0, 1).contiguous() for t in (r.float(), k, v,
                                                            w))
+    run = (partial(checkpoint, _wkv_chunk, use_reentrant=False)
+           if ssm.chunk_remat(s) else _wkv_chunk)
     outs = []
     for lo in range(0, s, SCAN_CHUNK):
-        hi = min(lo + SCAN_CHUNK, s)
-        kv = k[lo:hi, ..., None] * v[lo:hi, ..., None, :]  # [c, B, h, hd, hd]
-        bonus = (r[lo:hi] * u * k[lo:hi]).sum(-1, keepdim=True) * v[lo:hi]
-        rows = r[lo:hi, ..., None, :]  # [c, B, h, 1, hd]
-        decay = w[lo:hi, ..., None]  # [c, B, h, hd, 1]
-        os = []
-        for i in range(hi - lo):
-            os.append(rows[i] @ state)  # r_t S_{t-1}: [B, h, 1, hd]
-            state = torch.addcmul(kv[i], decay[i], state)
-        outs.append(torch.stack(os)[..., 0, :] + bonus)
+        part = [t[lo:lo + SCAN_CHUNK] for t in (r, k, v, w)]
+        o, state = run(*part, u, state)
+        outs.append(o)
     o = torch.cat(outs) if len(outs) > 1 else outs[0]
     return o.transpose(0, 1), state
 

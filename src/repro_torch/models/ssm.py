@@ -10,15 +10,20 @@ Standard Mamba-1 formulation: input gating, short causal conv, selective
 The recurrence runs in fp32, one step at a time as the reference's
 ``lax.scan`` does; the state is ``[B, d_inner, N]`` (N = ``ssm_state``).
 Each chunk of ``SCAN_CHUNK`` steps forms its decays and inputs at once,
-then takes one fused multiply-add a step.  The reference's chunk-of-128
-``jax.checkpoint`` only shapes its backward and has no twin here.  Decode
-is a single step on the carried ``(conv_state, ssm_state)``.
+then takes one fused multiply-add a step.  While autograd records and S is
+a multiple of ``SCAN_CHUNK`` above it (the reference's rule), each chunk
+runs under activation checkpointing, as the reference's chunk-of-128
+``jax.checkpoint`` does: the backward keeps only the chunks' boundary
+states and recomputes a chunk's steps.  Decode is a single step on the
+carried ``(conv_state, ssm_state)``.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import ParamSpec, silu
 from repro_torch.models.config import ArchConfig
@@ -27,6 +32,13 @@ __all__ = ["mamba_specs", "mamba_apply_train", "mamba_prefill_state",
            "mamba_apply_decode"]
 
 SCAN_CHUNK = 128  # steps whose decays and inputs are formed at once
+
+
+def chunk_remat(s: int) -> bool:
+    """Whether a scan over ``s`` steps checkpoints each chunk: while
+    autograd records, under the reference's rule."""
+    return (torch.is_grad_enabled() and s % SCAN_CHUNK == 0
+            and s > SCAN_CHUNK)
 
 
 def _dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
@@ -83,25 +95,35 @@ def _causal_conv(p, x, k: int):
     return out + p["conv_b"]
 
 
+def _scan_chunk(xs, dt, b_mat, c_mat, a_mat, h):
+    """One chunk of the recurrence: returns (y [B, c, d_in], h after it)."""
+    decay = torch.exp(dt[..., None] * a_mat)  # [B, c, d_in, n]
+    u = (dt * xs.float())[..., None] * b_mat[:, :, None, :]
+    hs = []
+    # steps as unbind's views: the backward stacks their gradients once,
+    # where an index a step would add a zeroed chunk a step
+    for u_t, decay_t in zip(u.unbind(1), decay.unbind(1)):
+        h = torch.addcmul(u_t, decay_t, h)  # decay . h + u
+        hs.append(h)
+    return (torch.stack(hs, 1) * c_mat[:, :, None, :]).sum(-1), h
+
+
 def _scan(xs, dt, b_mat, c_mat, a_mat, h: Optional[torch.Tensor] = None):
     """The recurrence over S, fp32: returns (y [B, S, d_in], h_S).  ``h``
-    is the state before step 0 (zeros when None)."""
+    is the state before step 0 (zeros when None).  Each chunk runs under
+    ``checkpoint`` when ``chunk_remat(S)``."""
     bsz, s, d_in = xs.shape
     n = a_mat.shape[1]
     if h is None:
         h = torch.zeros((bsz, d_in, n), dtype=torch.float32,
                         device=xs.device)
+    run = (partial(checkpoint, _scan_chunk, use_reentrant=False)
+           if chunk_remat(s) else _scan_chunk)
     ys = []
     for lo in range(0, s, SCAN_CHUNK):
-        hi = min(lo + SCAN_CHUNK, s)
-        decay = torch.exp(dt[:, lo:hi, :, None] * a_mat)  # [B, c, d_in, n]
-        u = ((dt[:, lo:hi] * xs[:, lo:hi].float())[..., None]
-             * b_mat[:, lo:hi, None, :])
-        hs = []
-        for i in range(hi - lo):
-            h = torch.addcmul(u[:, i], decay[:, i], h)  # decay . h + u
-            hs.append(h)
-        ys.append((torch.stack(hs, 1) * c_mat[:, lo:hi, None, :]).sum(-1))
+        part = [t[:, lo:lo + SCAN_CHUNK] for t in (xs, dt, b_mat, c_mat)]
+        y, h = run(*part, a_mat, h)
+        ys.append(y)
     return torch.cat(ys, 1) if len(ys) > 1 else ys[0], h
 
 

@@ -174,6 +174,23 @@ def test_checkpoint_v2_roundtrip(tmp_path):
     assert blob < (tree["p"]["w"].nbytes + tree["m"]["w"].nbytes) * 0.8
 
 
+def test_raw_keys_are_written_raw(tmp_path):
+    """``raw=("p",)`` (a training state's weights: ``save_train_state``):
+    the fp32 leaves under ``p`` are written raw and come back bit for bit,
+    ``m`` compresses as before, and the reference restores both."""
+    tree = _v2_tree(np.random.default_rng(6))
+    path = ckpt.save_checkpoint(str(tmp_path), 2, tree, compress=True,
+                                device="cpu", raw=("p",))
+    leaves = _manifest(path)["leaves"]
+    assert "codec" not in leaves["['p']['w']"]
+    assert leaves["['m']['w']"]["codec"] == "fptc_state"
+    for got in (ckpt.restore_latest(str(tmp_path), tree, device="cpu")[1],
+                ref_ckpt.restore_latest(str(tmp_path), tree)[1]):
+        np.testing.assert_array_equal(np.asarray(got["p"]["w"]),
+                                      tree["p"]["w"])
+        assert _rel(got["m"]["w"], tree["m"]["w"]) < REL_RMS
+
+
 def test_checkpoint_v2_crc_detects_state_corruption(tmp_path):
     tree = {"m": _smooth(np.random.default_rng(4), (256, 64))}
     path = ckpt.save_checkpoint(str(tmp_path), 1, tree, compress=True,

@@ -1691,10 +1691,10 @@ TRAIN_LOSS_BOUND = 2.0 ** -8
 TRAIN_CHANGE_BOUND = 2.0 ** -2
 
 
-def _train_arm(dev, steps=3, seed=0, arch="granite_8b"):
+def _train_arm(dev, steps=3, seed=0, arch="granite_8b", seq=64):
     """The smoke ``arch`` drawn on the CPU from ``seed``, trained ``steps``
-    steps on ``dev`` on seeded token batches: the losses, the grad norms
-    and each weight's change (on the CPU, fp32)."""
+    steps on ``dev`` on seeded 2 x ``seq`` token batches: the losses, the
+    grad norms and each weight's change (on the CPU, fp32)."""
     from repro_torch.configs import get_smoke
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.distributed.optimizer import AdamW, AdamWConfig
@@ -1709,7 +1709,7 @@ def _train_arm(dev, steps=3, seed=0, arch="granite_8b"):
              for n, p in model.named_parameters()}
     ts = make_train_step(model, AdamW(AdamWConfig(
         base_lr=1e-3, warmup=1, total_steps=20)), dev)
-    pipe = TokenPipeline(cfg.vocab_size, 2, 64, seed=seed)
+    pipe = TokenPipeline(cfg.vocab_size, 2, seq, seed=seed)
     st, losses, norms = ts.init(), [], []
     for i in range(steps):
         st, met = ts.step_fn(st, make_batch(cfg, pipe, i))
@@ -1720,12 +1720,12 @@ def _train_arm(dev, steps=3, seed=0, arch="granite_8b"):
                            for n, p in model.named_parameters()}
 
 
-def _hold_card_to_cpu(arch, cuda):
+def _hold_card_to_cpu(arch, cuda, seq=64):
     """Three train steps of the smoke ``arch`` from one draw of weights, on
     the card and on the CPU: each loss within ``TRAIN_LOSS_BOUND``, the
     weights' change within ``TRAIN_CHANGE_BOUND``."""
-    lc, _, dc = _train_arm("cpu", arch=arch)
-    lg, _, dg = _train_arm(cuda, arch=arch)
+    lc, _, dc = _train_arm("cpu", arch=arch, seq=seq)
+    lg, _, dg = _train_arm(cuda, arch=arch, seq=seq)
     for g, c in zip(lg, lc):
         assert abs(g - c) <= TRAIN_LOSS_BOUND * abs(c), (lg, lc)
     num = sum(float(torch.sum((dg[n] - dc[n]) ** 2)) for n in dc)
@@ -1744,6 +1744,15 @@ def test_moe_mla_train_steps_on_card_match_cpu(cuda):
     the experts' gathers and of the MLA projections on the card tracks the
     CPU's (``_hold_card_to_cpu``)."""
     _hold_card_to_cpu("deepseek_v3_671b", cuda)
+
+
+@pytest.mark.parametrize("arch", ["hymba_15b", "rwkv6_3b"])
+def test_scan_train_steps_on_card_match_cpu(cuda, arch):
+    """The smoke hymba (the SSM scan beside attention) and rwkv6-3b (the
+    wkv recurrence) over 2 x 256 tokens, so that each scan takes its
+    chunked path, a checkpoint per chunk of 128 steps, on both sides
+    (``_hold_card_to_cpu``)."""
+    _hold_card_to_cpu(arch, cuda, seq=256)
 
 
 def test_train_resume_through_a_compressed_checkpoint_on_card(

@@ -4,22 +4,28 @@ the CPU: its log lines, its checkpoints and resumes, and its refusals.
 A run of 4 steps that checkpoints every 2, relaunched to 6, resumes from
 step 4 and ends bit for bit where one uninterrupted 6-step run ends
 (weights, m and v); relaunched from a compressed checkpoint it resumes and
-stays finite.  The MoE + MLA (deepseek-v3) and encoder-decoder (whisper)
-smoke models train, checkpoint compressed and resume the same way.
-Multi-device flags and the families the port serves but does not train
-yet (the hybrid, RWKV) raise ``NotImplementedError`` naming the ROADMAP
-item; with no device and no card it raises.  The reference's
+stays finite.  The MoE + MLA (deepseek-v3), encoder-decoder (whisper),
+hybrid SSM (hymba) and RWKV smoke models train, checkpoint compressed and
+resume the same way; hymba also over 256 tokens, where its scan
+checkpoints each chunk.  A compressed checkpoint writes every weight raw,
+a fp32 one of 4096 elements too.  Multi-device flags raise
+``NotImplementedError`` naming the ROADMAP item; with no device and no
+card it raises.  The reference's
 ``launch.train`` fails on the installed JAX (R4), so nothing here runs
 it.
 """
 import json
+import math
 import os
 
 import pytest
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import get_smoke
+from repro_torch.core.tree import tree_leaves
+from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.launch import train
+from repro_torch.models.convert import train_state_tree
 
 BASE = ["--arch", "granite-8b", "--smoke", "--device", "cpu", "--batch",
         "2", "--seq", "16", "--log-every", "1"]
@@ -81,54 +87,98 @@ def test_relaunch_from_a_compressed_checkpoint(tmp_path, capsys):
     assert int(st.step) == 6
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-tiny"])
-def test_family_relaunch_from_a_compressed_checkpoint(arch, tmp_path,
-                                                      capsys):
-    """The MoE + MLA and encoder-decoder smoke models (whisper fed zero
-    frames): 4 steps with a compressed checkpoint every 2, then a relaunch
-    to 6 that resumes from step 4 with finite losses.  deepseek-v3's
-    expert stacks ``[L, E, d, f]`` and their m and v are in the
-    checkpoint, m and v compressed."""
-    argv = ["--arch", arch, "--ckpt-dir", str(tmp_path), "--ckpt-every",
-            "2", "--ckpt-compress"]
+def compressed_relaunch(capsys, tmp_path, *argv):
+    """4 steps with a compressed checkpoint every 2, then a relaunch to 6
+    that resumes from step 4 with finite losses: the checkpoint's manifest
+    leaves."""
+    argv = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "2",
+            "--ckpt-compress", *argv]
     _, _, first, _ = run(capsys, "--steps", "4", *argv)
     with open(tmp_path / "step_000000000004" / "manifest.json") as f:
         leaves = json.load(f)["leaves"]
-    if arch == "deepseek-v3-671b":
-        for part in ("params", "m", "v"):
-            entry = leaves[f"['{part}']['group1']['ffn']['wi']"]
-            assert len(entry["shape"]) == 4 and entry["shape"][1] == 8
-            assert ("codec" in entry) == (part != "params"), entry
     _, st, losses, out = run(capsys, "--steps", "6", *argv)
     assert out.splitlines()[0] == "resumed from step 4"
     assert out.splitlines()[1].startswith("step     4 loss ")
     assert len(first) == 4 and len(losses) == 2
     assert all(l == l and l < 20 for l in first + losses)
     assert int(st.step) == 6
+    return leaves
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-tiny",
+                                  "hymba-15b", "rwkv6-3b"])
+def test_family_relaunch_from_a_compressed_checkpoint(arch, tmp_path,
+                                                      capsys):
+    """The MoE + MLA, encoder-decoder, hybrid SSM and RWKV smoke models
+    (whisper fed zero frames; ``compressed_relaunch``).  deepseek-v3's
+    expert stacks ``[L, E, d, f]`` and their m and v are in the
+    checkpoint, m and v compressed; RWKV's flat ``layers`` stack is
+    stacked on its layer axis."""
+    leaves = compressed_relaunch(capsys, tmp_path, "--arch", arch)
+    if arch == "deepseek-v3-671b":
+        for part in ("params", "m", "v"):
+            entry = leaves[f"['{part}']['group1']['ffn']['wi']"]
+            assert len(entry["shape"]) == 4 and entry["shape"][1] == 8
+            assert ("codec" in entry) == (part != "params"), entry
+    if arch == "rwkv6-3b":
+        cfg = get_smoke(arch)
+        for part in ("params", "m", "v"):
+            entry = leaves[f"['{part}']['layers']['tm']['u']"]
+            assert entry["shape"] == [cfg.num_layers, cfg.d_model
+                                      // cfg.rwkv_head_size,
+                                      cfg.rwkv_head_size], entry
+
+
+def test_hybrid_relaunch_over_checkpointed_chunks(tmp_path, capsys):
+    """The smoke hymba over 2 x 256 tokens (its scan in two checkpointed
+    chunks), relaunched from a compressed checkpoint: the fp32 SSM leaves
+    (``A_log``, ``D``, ``dt_bias``) and their m and v are in the
+    manifest, each in fp32 at its stacked shape."""
+    cfg = get_smoke("hymba-15b")
+    leaves = compressed_relaunch(capsys, tmp_path, "--arch", "hymba-15b",
+                                 "--seq", "256")
+    d_in, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    shapes = {"A_log": [cfg.num_layers, d_in, n],
+              "D": [cfg.num_layers, d_in], "dt_bias": [cfg.num_layers, d_in]}
+    for part in ("params", "m", "v"):
+        for name, shape in shapes.items():
+            entry = leaves[f"['{part}']['group0']['ssm']['{name}']"]
+            assert entry["dtype"] == "float32" and entry["shape"] == shape
+
+
+def test_compressed_checkpoint_writes_the_weights_raw(tmp_path, capsys,
+                                                     monkeypatch):
+    """A fp32 weight that reaches the codec's 4096 elements (the smoke
+    hymba with the full model's SSM state N 16: ``A_log`` [2, 128, 16])
+    is written raw by ``--ckpt-compress`` and restores bit for bit, as
+    every weight does, while its m and v are compressed."""
+    cfg = get_smoke("hymba-15b").replace(ssm_state=16)
+    monkeypatch.setattr(train, "get_smoke", lambda arch: cfg)
+    model, st, _, _ = run(capsys, "--arch", "hymba-15b", "--steps", "2",
+                          "--ckpt-dir", str(tmp_path), "--ckpt-every", "2",
+                          "--ckpt-compress")
+    with open(tmp_path / "step_000000000002" / "manifest.json") as f:
+        leaves = json.load(f)["leaves"]
+    a_log = "['{}']['group0']['ssm']['A_log']"
+    entry = leaves[a_log.format("params")]
+    assert entry["dtype"] == "float32" and math.prod(entry["shape"]) >= 4096
+    assert [k for k, e in leaves.items()
+            if k.startswith("['params']") and "codec" in e] == []
+    for part in ("m", "v"):
+        assert leaves[a_log.format(part)]["codec"] == "fptc_state"
+    want = train_state_tree(model, st)
+    _, got = ckpt.restore_latest(str(tmp_path), want, device="cpu")
+    for a, b in zip(tree_leaves(got["params"]), tree_leaves(want["params"])):
+        assert torch.equal(torch.as_tensor(a), b)
 
 
 @pytest.mark.parametrize("argv,match", [
     (["--data", "2"], "ROADMAP queue 1, item 6"),
     (["--model-par", "2"], "ROADMAP queue 1, item 6"),
-    (["--arch", "hymba-15b"], r"item 6 \(M10c training"),
-    (["--arch", "rwkv6-3b"], r"item 6 \(M10c training"),
-    (["--arch", "rwkv6_3b"], r"item 6 \(M10c training"),  # module name
 ])
 def test_refusals(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         train.main(BASE + ["--steps", "1"] + argv)
-
-
-@pytest.mark.parametrize("arch", ["hymba-15b", "rwkv6-3b"])
-def test_untrained_families_name_their_item(arch):
-    """The hybrid's and RWKV's refusals name the queue item that trains
-    them (6b-ii), and the other families are not refused."""
-    with pytest.raises(NotImplementedError, match=r"6b-ii: the hybrid SSM "
-                       r"and RWKV backward"):
-        train.main(BASE + ["--steps", "1", "--arch", arch])
-    for other in ("deepseek-v3-671b", "llama4-scout-17b-a16e",
-                  "whisper-tiny", "granite-8b"):
-        assert train.untrained(get_arch(other)) == ""
 
 
 def test_no_card_means_an_error(monkeypatch):

@@ -268,7 +268,8 @@ def port_grads(model, b, remat=True):
 def is_stack(head: str) -> bool:
     """Whether a top-level key of the reference's tree is a stack of
     layers (its leaves ``[L, ...]``, one port module a layer)."""
-    return head.startswith("group") or head in ("encoder", "decoder")
+    return head.startswith("group") or head in ("encoder", "decoder",
+                                                 "layers")
 
 
 def stacked(by_name, tree_path, layers):
@@ -317,9 +318,9 @@ def bias_leaves_held(pairs) -> None:
                     <= GRAD_BOUND * np.linalg.norm(f32(want))), bk
 
 
-@pytest.mark.parametrize("arch", IN_SLICE + FAMILIES)
-def test_loss_and_gradients(arch):
-    loss, rl, g, rg = grads_both(arch)
+def held_to_reference(arch: str, loss, rl, g, rg) -> None:
+    """The port's loss within ``LOSS_BOUND`` and every gradient leaf within
+    ``GRAD_BOUND`` of the reference's, each leaf in its own dtype."""
     assert loss.dtype == torch.float32 and loss.shape == ()
     assert abs(float(loss) - float(rl)) <= LOSS_BOUND * abs(float(rl))
     pairs = {name: (got, want) for name, got, want in leaf_pairs(g, rg)}
@@ -331,6 +332,11 @@ def test_loss_and_gradients(arch):
         assert str(got.dtype) == f"torch.{want.dtype}", name  # bf16; routers f32
         if name not in ZERO_GRAD:
             assert rel_l2(got, want) <= GRAD_BOUND, name
+
+
+@pytest.mark.parametrize("arch", IN_SLICE + FAMILIES)
+def test_loss_and_gradients(arch):
+    held_to_reference(arch, *grads_both(arch))
 
 
 @pytest.mark.parametrize("arch", ["granite_8b", "gemma2_27b",
@@ -390,8 +396,9 @@ def trajectories(arch: str, steps: int = 3):
     return port_out, ref_out, named, p, params
 
 
-@pytest.mark.parametrize("arch", TRAJECTORY)
-def test_three_step_trajectory(arch):
+def trajectory_held(arch: str) -> None:
+    """``trajectories(arch)``: each step's loss within ``TRAJ_LOSS_BOUND``,
+    the parameters' change within ``TRAJ_CHANGE_BOUND``."""
     port_out, ref_out, named, final, initial = trajectories(arch)
     for (pl, _), (rl, _) in zip(port_out, ref_out):
         assert abs(pl - rl) <= TRAJ_LOSS_BOUND * abs(rl), (port_out, ref_out)
@@ -406,6 +413,11 @@ def test_three_step_trajectory(arch):
     dp, dr = np.concatenate(d_port), np.concatenate(d_ref)
     change = float(np.linalg.norm(dp - dr) / np.linalg.norm(dr))
     assert change <= TRAJ_CHANGE_BOUND, (change, flips)
+
+
+@pytest.mark.parametrize("arch", TRAJECTORY)
+def test_three_step_trajectory(arch):
+    trajectory_held(arch)
 
 
 def test_memorizes_one_batch():

@@ -8,9 +8,9 @@ steps' losses, by the rule that brings the restored Adam state back.
 granite-8b at full width (``--layers`` of its 36; ``--smoke``: the smoke
 configuration), batch 2 x ``--seq`` from ``TokenPipeline``, AdamW at
 ``chip_smoke.TRAIN_OPT``.  Run A takes 6 steps from the seed's weights,
-and again (the card's determinism).  Run B takes steps 0-1, saves
-``train_state_tree`` with ``compress=True``, restores it, and resumes at
-step 2 under each rule for the restored m and v:
+and again (the card's determinism).  Run B takes steps 0-1, saves its
+state with ``save_train_state(compress=True)``, restores it, and resumes
+at step 2 under each rule for the restored m and v:
 
   exact       m and v as they were before the save (a raw checkpoint);
   project     ``AdamW.project``: v at least ``(m / C)**2`` (the port's);
@@ -57,7 +57,12 @@ def main(argv=None) -> dict:
     from repro_torch.distributed.train import make_train_step
     from repro_torch.launch.train import make_batch
     from repro_torch.models import build_model
-    from repro_torch.models.convert import train_state_tree, _copy, _unstacked
+    from repro_torch.models.convert import (
+        _copy,
+        _unstacked,
+        save_train_state,
+        train_state_tree,
+    )
     from repro_torch.serving.engine import resolve_device
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -93,8 +98,7 @@ def main(argv=None) -> dict:
              for n, p in model.named_parameters()}
     tmp = tempfile.mkdtemp(prefix="fptc_resume_")
     try:
-        ckpt.save_checkpoint(tmp, 2, train_state_tree(model, st),
-                             compress=True, device=dev)
+        save_train_state(tmp, 2, model, st, compress=True, device=dev)
         step, got = ckpt.restore_latest(tmp, train_state_tree(model, st),
                                         device=dev)
     finally:
