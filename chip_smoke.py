@@ -352,13 +352,40 @@ digests below must then match).  Phases, one JSON line each:
      on the card (``smoke_card_vs_cpu``), so both sides take the chunked
      path.
 
+ 18. mesh_train — (``mesh_train_phase()``; skipped when the driven port
+     has no ``repro_torch.launch.mesh``) the multi-device layer's ``pod``
+     and ``data`` axes on two spawned ranks of the one card, both on
+     ``cuda:0`` in a gloo group (NCCL takes one rank a device; gloo moves
+     CUDA tensors itself, ``MT_WIRE``), TF32 and bf16 reduced-precision
+     reductions off, granite-8b's width cut to 2 layers (phase 14's
+     cell), a global batch of 2 x 4096 from ``TokenPipeline``, one row a
+     rank.  (a) In the parent first, the one-process oracle
+     (``pod_oracle``: each replica's gradients in turn, ``replica_sum``
+     on the stacked tree of the reference's leaves, ``AdamW.update``),
+     freed; then ``pod`` 2, ``truncate_int8``, 3 steps on the ranks
+     (``mesh_pod_run``): losses,
+     every weight and every residual bit for bit the oracle's (sha256 a
+     leaf); the wire bytes a step against f32, the compressor's and its
+     collectives' ms, step ms against ``train_bound``, peak memory.  (b)
+     FSDP over ``data`` 2, 4 steps (``mesh_fsdp_run``): the losses (steps
+     1-3) and every step's grad norm within ``LM_CARD_CPU_TOL`` of phase
+     14's run A, each rank's parameters, m and v about half the state;
+     after step 1 the state gathered whole and saved compressed by rank
+     0, every K4 call held at once to its plain version.  (c) In the
+     parent, a one-rank group and mesh (``mesh_resume``):
+     ``restore_latest`` (K1 and ``lut_idct`` held), ``remesh``,
+     ``load_train_state``, steps 2-3; step 3 within ``TRAIN_RESUME_TOL``
+     of (b)'s.  A failed rank fails the phase.
+
 Then the ``{"kernels": [...]}`` line (K5's and K3's entries also carry
 the LM path's launches, ``lm_launches``, and the families phase's,
 ``families_launches``; the four checkpoint kernels' the
 train phase's, ``train_launches`` and ``train_max_abs_err``, the
 families train phase's, ``families_train_launches`` and
-``families_train_max_abs_err``, and the scan train phase's,
-``scan_train_launches`` and ``scan_train_max_abs_err``), and last
+``families_train_max_abs_err``, the scan train phase's,
+``scan_train_launches`` and ``scan_train_max_abs_err``, and the mesh
+train phase's, ``mesh_train_launches`` and ``mesh_train_max_abs_err``),
+and last
 ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
 the last line.
 """
@@ -709,13 +736,14 @@ def same_result(got, want) -> bool:
             and got.shape == want.shape and got.tobytes() == want.tobytes())
 
 
-def served_vs_plain(name: str, calls, plain) -> dict:
+def served_vs_plain(name: str, calls, plain, min_flips: int = 0) -> dict:
     """One path kernel's calls from a serve run, each ``(args, kwargs,
     output)``, against its plain version on the same inputs, by the check
     phase's rules: ``lut_idct`` within ``REL_TOL``, ``encode_levels`` and
     its gather arm by the flip rule over all the calls' levels outside the
-    deadzone class (a cell in ``DEADZONE`` on both sides within 2 levels),
-    rows that agree equal in every output, K1 and the pack exactly."""
+    deadzone class (a cell in ``DEADZONE`` on both sides within 2 levels;
+    at most ``max(min_flips, FLIP_SHARE * cells)`` flips), rows that agree
+    equal in every output, K1 and the pack exactly."""
     import torch
 
     res = {"calls": len(calls), "max_abs_err": 0.0, "ok": True}
@@ -758,7 +786,7 @@ def served_vs_plain(name: str, calls, plain) -> dict:
                 res["max_abs_err"] = float("inf")
     if name.startswith("encode_levels"):
         res.update(flips=flips, deadzone_moves=deadzone, cells=cells)
-        res["ok"] &= flips <= FLIP_SHARE * cells
+        res["ok"] &= flips <= max(min_flips, FLIP_SHARE * cells)
     return res
 
 
@@ -2096,7 +2124,9 @@ def ckpt_kernels_held(names):
     runs, where the engines call it: CUDA-event ms of the call itself
     (``first_ms``), then the call held at once against its plain version
     on the same inputs (on blocks of rows, ``row_slices``) by the serve
-    phase's rules, its ms over 2 more calls after a warm one (the launch
+    phase's rules (``encode_levels``: at most ``max(1, FLIP_SHARE *
+    cells)`` flips a call, and ``FLIP_SHARE`` of all the block's cells),
+    its ms over 2 more calls after a warm one (the launch
     counters put back), and its bytes and operations
     (``path_kernel_bound``).  Held at once, not recorded: clones of a train
     state's buckets would not fit beside it.  Yields ``{name: tally}`` and,
@@ -2109,7 +2139,8 @@ def ckpt_kernels_held(names):
     hooks = path_hooks(names)
     tally = {name: {"calls": 0, "ok": True, "max_abs_err": 0.0, "ms": 0.0,
                     "first_ms": 0.0, "bytes": 0.0, "operations": 0.0,
-                    "results": [], "by_call": []} for name in names}
+                    "flips": 0, "cells": 0, "results": [], "by_call": []}
+             for name in names}
     tally["check_s"] = 0.0
 
     def holder(fn, name, plain):
@@ -2123,7 +2154,7 @@ def ckpt_kernels_held(names):
             t0 = time.perf_counter()
             kwp = {k: v for k, v in kw.items() if k != "rw"}
             res = served_vs_plain(name, row_slices(
-                name, [(args, kwp, out)]), plain)
+                name, [(args, kwp, out)]), plain, min_flips=1)
             nb, ops_ = path_kernel_bound(name, args, kwp)
             first_ms = start.elapsed_time(stop)
             counts = dict(ops.LAUNCHES)  # the timing's launches are not
@@ -2133,6 +2164,8 @@ def ckpt_kernels_held(names):
             t["calls"] += 1
             t["ok"] &= res["ok"]
             t["max_abs_err"] = max(t["max_abs_err"], res["max_abs_err"])
+            t["flips"] += res.get("flips", 0)
+            t["cells"] += res.get("cells", 0)
             t["results"].append(res)
             t["ms"] += ms
             t["bytes"] += nb
@@ -2154,6 +2187,9 @@ def ckpt_kernels_held(names):
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+    for name in names:
+        t = tally[name]
+        t["ok"] &= t["flips"] <= FLIP_SHARE * t["cells"]
 
 
 def train_batches(cfg, b: int, s: int, seed: int, n: int, device) -> list:
@@ -3494,6 +3530,550 @@ def scan_train_phase(smi: str, seed: int) -> dict:
             "seconds": time.perf_counter() - t_phase}
 
 
+# -- 18. mesh_train: two ranks on the one card, pod-compressed and FSDP ------
+# granite-8b at full width, 2 layers (phase 14's cell), a global batch of 2
+# x 4096; one row a rank
+MT_POD_STEPS, MT_FSDP_STEPS, MT_SAVE_AFTER = 3, 4, 1
+MT_MODE = "truncate_int8"
+MT_TIMEOUT_S = 900  # a rank's collectives' and the parent's wait
+MT_DEVICE = "cuda"  # every rank's, the one card
+MT_WIRE = ("gloo's own CUDA path: ProcessGroupGloo stages CUDA tensors "
+           "through host memory itself; the port makes no host copy")
+
+
+def _mesh_setup(port: int, rank: int, world: int):
+    """This process's gloo group (``world`` ranks on 127.0.0.1, every one
+    on ``cuda:0``) and phase 14's precision settings."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    if MT_DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MT_TIMEOUT_S))
+
+
+def _mesh_rank(rank: int, port: int, src: str, jobs, q) -> None:
+    """A spawned rank of phase 18: runs the named jobs of this module in
+    order and sends ``(rank, error, results)`` (host values only)."""
+    import traceback
+
+    try:
+        sys.path.insert(0, src)
+        import torch.distributed as dist
+
+        _mesh_setup(port, rank, 2)
+        try:
+            out = [globals()[name](**kw) for name, kw in jobs]
+        finally:
+            dist.destroy_process_group()
+        q.put((rank, None, out))
+    except BaseException:  # noqa: BLE001 - the parent fails the phase
+        q.put((rank, traceback.format_exc(), None))
+
+
+def mesh_ranks(src: str, jobs) -> list:
+    """Two spawned ranks running ``jobs``; ``[results of rank 0, of rank
+    1]``.  A failed or silent rank fails the phase; nothing is retried."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_mesh_rank, args=(r, port, src, jobs, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        for _ in procs:
+            rank, err, out = q.get(timeout=MT_TIMEOUT_S)
+            if err:
+                errors.append(f"rank {rank}: {err}")
+            else:
+                got[rank] = out
+    except queue.Empty:
+        errors.append(f"ranks {sorted({0, 1} - set(got))} sent nothing in "
+                      f"{MT_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(not errors, "phase 18's ranks: " + "\n".join(errors))
+    return [got[0], got[1]]
+
+
+def _leaf_digests(tree) -> dict:
+    """sha256 of each tensor's bytes (bf16 through its bit pattern), by
+    name."""
+    import torch
+
+    return {n: digest([t.detach().view(torch.int16)
+                       if t.dtype == torch.bfloat16 else t.detach()])
+            for n, t in tree.items()}
+
+
+def _mesh_model(seed: int):
+    import torch
+
+    from repro_torch.models import build_model
+
+    cfg = family_config(TRAIN_ARCH, TRAIN_LAYERS)
+    full_width(TRAIN_ARCH, cfg)
+    return cfg, build_model(cfg, device=MT_DEVICE, generator=torch.Generator(
+        device=MT_DEVICE).manual_seed(seed))
+
+
+def pod_oracle(seed: int) -> dict:
+    """(a)'s one-process oracle on the card: each replica's gradients in
+    turn (one row of the global batch each), ``replica_sum`` on the
+    stacked tree (the reference's leaves, a stack's layers in one),
+    ``AdamW.update``; the losses and the digests of the final weights and
+    of each replica's residual."""
+    import torch
+
+    from repro_torch.distributed.compression import (
+        CompressionConfig,
+        GradCompressor,
+    )
+    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
+    from repro_torch.models.convert import stack_layers, unstack_layers
+
+    cfg, model = _mesh_model(seed)
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    opt = AdamW(AdamWConfig(**TRAIN_OPT))
+    comp = GradCompressor(CompressionConfig(mode=MT_MODE))
+    st = opt.init(params, with_residual=True, replicas=2)
+    losses = []
+    for batch in train_batches(cfg, 2, TRAIN_SEQ, seed, MT_POD_STEPS, "cpu"):
+        per, grads = [], []
+        for p in range(2):
+            loss = model.loss({k: v[p:p + 1].to(MT_DEVICE)
+                               for k, v in batch.items()})
+            per.append(loss.detach())
+            grads.append(list(torch.autograd.grad(loss,
+                                                  list(params.values()))))
+        stacked = {}
+        for i, n in enumerate(params):  # one leaf's two copies at a time
+            stacked[n] = torch.stack([grads[0][i], grads[1][i]])
+            grads[0][i] = grads[1][i] = None
+        del grads
+        tree = stack_layers(model, stacked, layer_axis=1)
+        del stacked
+        mean, res = comp.replica_sum(tree, stack_layers(
+            model, st.residual, layer_axis=1))
+        del tree
+        _, st, _ = opt.update(params, st, unstack_layers(mean, model),
+                              unstack_layers(res, model, layer_axis=1))
+        del mean, res
+        losses.append(float(torch.stack(per).mean()))
+    out = {"losses": losses, "params": _leaf_digests(params),
+           "residual": [_leaf_digests({n: r[p] for n, r in
+                                       st.residual.items()})
+                        for p in range(2)]}
+    del model, params, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_pod_run(seed: int) -> dict:
+    """(a) on a rank: ``pod`` 2, one replica a rank, ``MT_POD_STEPS``
+    steps on its row; then the compressor and its collectives timed on
+    one more backward's gradients."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed import compression as cm
+    from repro_torch.distributed.compression import CompressionConfig
+    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
+    from repro_torch.distributed.train import make_train_step
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.convert import stack_layers
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model = _mesh_model(seed)
+    bound = train_bound(model, TRAIN_SEQ, 1, TRAIN_SEQ)
+    mesh = make_local_mesh(pod=2, device_type=MT_DEVICE)
+    ts = make_train_step(model, AdamW(AdamWConfig(**TRAIN_OPT)), mesh,
+                         compression=CompressionConfig(mode=MT_MODE))
+    check(ts.compressor is not None and ts.replicas == 2 and ts.layouts
+          is None, "pod 2 did not give the pod-compressed step")
+    batches = train_batches(cfg, 2, TRAIN_SEQ, seed, MT_POD_STEPS, "cpu")
+    st, losses, step_ms = ts.init(), [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, met = ts.step_fn(st, ts.local_batch(batch))
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_steps = torch.cuda.max_memory_allocated()
+    params = dict(model.named_parameters())
+    out = {"losses": losses, "step_ms": step_ms, "params":
+           _leaf_digests(params), "residual": _leaf_digests(
+               {n: r[0] for n, r in st.residual.items()})}
+    # the compressor and its collectives, on one more backward's gradients
+    local = {k: v.to(MT_DEVICE)
+             for k, v in ts.local_batch(batches[-1]).items()}
+    loss = model.loss(local)
+    # the reference's leaves, as the step passes them
+    grads = stack_layers(model, dict(zip(params, torch.autograd.grad(
+        loss, list(params.values())))))
+    residual = stack_layers(model, st.residual, layer_axis=1)
+    del loss
+    coll = [0.0]
+
+    def synced(fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                coll[0] += time.perf_counter() - t
+        return run
+
+    saved = cm._gather, cm._pmax
+    cm._gather, cm._pmax = synced(cm._gather), synced(cm._pmax)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts.compressor.replica_sum_ranks(grads, residual,
+                                        group=mesh.get_group("pod"))
+        torch.cuda.synchronize()
+        comp_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        cm._gather, cm._pmax = saved
+    c = ts.compressor.config
+    sizes = [g.numel() for g in tree_leaves(grads)]
+    wire = sum(ts.compressor.wire_bytes(n) if n >= c.min_size else 2 * n
+               for n in sizes)
+    del grads, residual
+    out.update({
+        "compressor_ms": comp_ms - coll[0] * 1e3,
+        "collective_ms": coll[0] * 1e3,
+        "wire_bytes": wire, "f32_bytes": 4 * sum(sizes),
+        "wire_ratio": wire / (4 * sum(sizes)),
+        "bound_ms": bound["ms"], "bound_by": bound["by"],
+        "max_memory_allocated": peak_steps,
+        "max_memory_allocated_with_timing":
+            torch.cuda.max_memory_allocated(),
+        "rank": dist.get_rank()})
+    del model, params, st, ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ckpt_want(path: str) -> tuple:
+    """``(engine calls, encode buckets)`` of a compressed checkpoint's
+    manifest: K1 and ``lut_idct`` launch once a call on restore, K4 once
+    an encode bucket on save."""
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.serving import workloads as wl
+    from repro_torch.serving.engine import p2
+
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    lengths = [n for leaf in manifest["state"]["leaves"]
+               for n in leaf["lengths"]]
+    calls = wl.engine_calls(lengths)
+    buckets = sum(len({p2(-(-n // ckpt.CKPT_CODEC_CONFIG.n))
+                       for n in lengths[c]}) for c in calls)
+    return len(calls), buckets
+
+
+def _held(tally, launches: dict, names) -> dict:
+    """Each named kernel's calls, all held to their plain version, one a
+    launch; its errors, ms and bound."""
+    out = {}
+    for name in names:
+        t = tally[name]
+        ok = t["ok"]
+        check(ok and t["calls"] == launches[name] > 0,
+              f"{name} at the train state's shapes against its plain "
+              f"version: {t['calls']} calls, {launches[name]} launches, "
+              f"{t['results']}")
+        total = bound_ms(t["bytes"], t["operations"])
+        out[name] = {"launches": launches[name], "calls": t["calls"],
+                     "ok": ok, "max_abs_err": t["max_abs_err"],
+                     **({"flips": t["flips"], "cells": t["cells"]}
+                        if name == "encode_levels" else {}),
+                     "ms": t["ms"], "first_ms": t["first_ms"],
+                     "bound_ms": total[0], "bound_by": total[1]}
+    return out
+
+
+def mesh_fsdp_run(seed: int, ckpt_dir: str) -> dict:
+    """(b) on a rank: FSDP over ``data`` 2, ``MT_FSDP_STEPS`` steps on its
+    row of each global batch; after step ``MT_SAVE_AFTER`` the state
+    gathered whole and saved compressed by rank 0 (every K4 call held at
+    once to its plain version)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
+    from repro_torch.distributed.train import make_train_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.convert import save_train_state
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model = _mesh_model(seed)
+    bound = train_bound(model, TRAIN_SEQ, 1, TRAIN_SEQ)
+    whole = sum(p.numel() * (p.element_size() + 8)
+                for p in model.parameters())
+    mesh = make_local_mesh(data=2, device_type=MT_DEVICE)
+    ts = make_train_step(model, AdamW(AdamWConfig(**TRAIN_OPT)), mesh)
+    check(ts.layouts is not None, "data 2 did not give the FSDP step")
+    st = ts.init()
+    resident = (sum(p.numel() * p.element_size() for p in model.parameters())
+                + sum(t.numel() * t.element_size() for t in
+                      (*st.m.values(), *st.v.values())))
+    rank = dist.get_rank()
+    batches = train_batches(cfg, 2, TRAIN_SEQ, seed, MT_FSDP_STEPS, "cpu")
+    losses, norms, step_ms, save = [], [], [], None
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, met = ts.step_fn(st, ts.local_batch(batch))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i != MT_SAVE_AFTER:
+            continue
+        peak_steps = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        whole_p, whole_st = ts.full_state(st)
+        gather_s = time.perf_counter() - t0
+        if rank == 0:
+            ops.reset_launches()
+            with ckpt_kernels_held(CKPT_KERNELS[:2]) as held:
+                t0 = time.perf_counter()
+                path = save_train_state(ckpt_dir, i + 1, model, whole_st,
+                                        compress=True, device=MT_DEVICE,
+                                        params=whole_p)
+                save_s = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            calls, buckets = _ckpt_want(path)
+            want = {k: 0 for k in launches}
+            want.update(encode_levels=buckets, symlen_pack=buckets)
+            check(launches == want, f"(b)'s save launch counts {launches} "
+                  f"!= {want}")
+            save = {"step": i + 1, "gather_s": gather_s, "save_s": save_s,
+                    "save_check_s": held["check_s"],
+                    "save_s_less_checks": save_s - held["check_s"],
+                    "engine_calls": calls, "encode_buckets": buckets,
+                    "launches": launches,
+                    "kernels": _held(held, launches, CKPT_KERNELS[:2]),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del whole_p, whole_st
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    out = {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "resident_bytes": resident, "whole_state_bytes": whole,
+           "resident_share": resident / whole, "bound_ms": bound["ms"],
+           "bound_by": bound["by"], "max_memory_allocated": peak_steps,
+           "max_memory_allocated_after_save":
+               torch.cuda.max_memory_allocated(), "save": save, "rank": rank}
+    del model, st, ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_resume(seed: int, ckpt_dir: str, uninterrupted: list) -> dict:
+    """(c) in the parent: a one-rank gloo group and mesh, the newest
+    checkpoint restored (every K1 / ``lut_idct`` call held at once to its
+    plain version), ``remesh``-ed onto the mesh, loaded, and the steps
+    after it taken on the global batches."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed.elastic import remesh
+    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.distributed.train import make_train_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.convert import load_train_state
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    _mesh_setup(port, 0, 1)
+    try:
+        cfg, model = _mesh_model(seed)
+        mesh = make_local_mesh(data=1, device_type=MT_DEVICE)
+        opt = AdamW(AdamWConfig(**TRAIN_OPT))
+        ts = make_train_step(model, opt, mesh)
+        specs = model.param_specs()
+        like = {"params": specs, "m": specs, "v": specs}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with ckpt_kernels_held(CKPT_KERNELS[2:]) as held:
+            t0 = time.perf_counter()
+            step, host = ckpt.restore_latest(ckpt_dir, like,
+                                             device=MT_DEVICE)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        calls, _ = _ckpt_want(os.path.join(ckpt_dir, f"step_{step:012d}"))
+        want = {k: 0 for k in launches}
+        want.update(symlen_decode=calls, lut_idct=calls)
+        check(launches == want, f"(c)'s restore launch counts {launches} "
+              f"!= {want}")
+        t0 = time.perf_counter()
+        placed = remesh(host, like, ShardingPolicy(mesh))
+        del host
+        local = _tree_map(lambda d: d.to_local(), placed)
+        del placed
+        st = load_train_state(local, model, ts.init(), step, opt)
+        del local
+        place_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        batches = train_batches(cfg, 2, TRAIN_SEQ, seed, MT_FSDP_STEPS,
+                                "cpu")
+        losses = []
+        for batch in batches[step:]:
+            st, met = ts.step_fn(st, batch)
+            losses.append(float(met["loss"]))
+        del model, st, ts
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    last = uninterrupted[-1]
+    rel = abs(losses[-1] - last) / abs(last)
+    check(all(math.isfinite(x) for x in losses) and rel <= TRAIN_RESUME_TOL,
+          f"(c)'s resumed losses {losses} against (b)'s {uninterrupted}: "
+          f"step {MT_FSDP_STEPS - 1} relative {rel} > {TRAIN_RESUME_TOL}")
+    return {"step": step, "losses": losses, "uninterrupted": uninterrupted,
+            "rel": rel, "tol": TRAIN_RESUME_TOL,
+            "own_change": abs(last - uninterrupted[-2]) / abs(last),
+            "restore_s": restore_s, "restore_check_s": held["check_s"],
+            "restore_s_less_checks": restore_s - held["check_s"],
+            "remesh_load_s": place_s, "engine_calls": calls,
+            "launches": launches,
+            "kernels": _held(held, launches, CKPT_KERNELS[2:]),
+            "max_memory_allocated": peak}
+
+
+def mesh_train_phase(smi: str, seed: int, src: str, run_a: list) -> dict:
+    """Phase 18: the multi-device layer (M10d, ``pod`` and ``data``) on two
+    ranks of the one card (see the module docstring).  ``run_a``: phase
+    14's one-device ``(loss, grad_norm)`` a step on the same weights and
+    global batches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="fptc_mesh_")
+    try:
+        with exact_bf16_sums() as precision:
+            t0 = time.perf_counter()
+            oracle = pod_oracle(seed)
+            oracle_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ranks = mesh_ranks(src, [
+                ("mesh_pod_run", {"seed": seed}),
+                ("mesh_fsdp_run", {"seed": seed, "ckpt_dir": tmp})])
+            ranks_s = time.perf_counter() - t0
+            pod = [r[0] for r in ranks]
+            fsdp = [r[1] for r in ranks]
+            # (a) bit for bit
+            for r, out in enumerate(pod):
+                diff_p = sorted(n for n, d in out["params"].items()
+                                if d != oracle["params"][n])
+                diff_r = sorted(n for n, d in out["residual"].items()
+                                if d != oracle["residual"][r][n])
+                check(out["losses"] == oracle["losses"] and not diff_p
+                      and not diff_r, f"(a) rank {r} against the oracle: "
+                      f"losses {out['losses']} vs {oracle['losses']}, "
+                      f"weights differ {diff_p}, residuals differ {diff_r}")
+            # (b) against phase 14's one-device run A
+            gaps = [abs(l - a) / abs(a) for l, (a, _) in
+                    zip(fsdp[0]["losses"], run_a)]
+            check(all(out["losses"] == fsdp[0]["losses"] for out in fsdp)
+                  and max(gaps[1:]) <= LM_CARD_CPU_TOL,
+                  f"(b)'s FSDP losses {[o['losses'] for o in fsdp]} against "
+                  f"the one-device run {run_a}: gaps {gaps}")
+            # the norm's shares-weighted sum of squares across the ranks
+            norm_gaps = [abs(g - a) / abs(a) for g, (_, a) in
+                         zip(fsdp[0]["grad_norms"], run_a)]
+            check(all(out["grad_norms"] == fsdp[0]["grad_norms"]
+                      for out in fsdp)
+                  and len(norm_gaps) == MT_FSDP_STEPS
+                  and max(norm_gaps) <= LM_CARD_CPU_TOL,
+                  f"(b)'s FSDP grad norms {[o['grad_norms'] for o in fsdp]} "
+                  f"against the one-device run {run_a}: gaps {norm_gaps}")
+            check(all(0.45 <= out["resident_share"] <= 0.55 for out in fsdp),
+                  f"(b)'s ranks hold {[o['resident_share'] for o in fsdp]} "
+                  "of the state")
+            t0 = time.perf_counter()
+            resume = mesh_resume(seed, tmp, fsdp[0]["losses"])
+            resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    save = fsdp[0]["save"]
+    kernels = {**save["kernels"], **resume["kernels"]}
+    for out in pod:
+        out["params"] = out["residual"] = None
+    return {
+        "phase": "mesh_train", "nvidia_smi": smi, "arch": TRAIN_ARCH,
+        "layers": TRAIN_LAYERS, "global_batch": [2, TRAIN_SEQ],
+        "rank_batch": [1, TRAIN_SEQ], "ranks": 2, "device": "cuda:0",
+        "backend": "gloo", "wire": MT_WIRE, "precision": precision,
+        "optimizer": TRAIN_OPT,
+        "pod_compressed": {
+            "mode": MT_MODE, "steps": MT_POD_STEPS,
+            "oracle_losses": oracle["losses"], "bit_for_bit": True,
+            "ranks": pod},
+        "fsdp": {"steps": MT_FSDP_STEPS,
+                 "one_device_losses": [a for a, _ in run_a],
+                 "one_device_grad_norms": [g for _, g in run_a],
+                 "gaps": gaps, "grad_norm_gaps": norm_gaps,
+                 "tol": LM_CARD_CPU_TOL, "ranks": fsdp},
+        "resume": resume,
+        "launches": {k: v["launches"] for k, v in kernels.items()},
+        "max_abs_err": {k: v["max_abs_err"] for k, v in kernels.items()},
+        "step_ms_what": "host clock around step_fn with the card "
+        "synchronized, every step (step 0 warms); compressor_ms and "
+        "collective_ms: one more call of replica_sum_ranks, its all-gathers "
+        "and max timed with the card synchronized around each",
+        "seconds_split": {"oracle": oracle_s, "ranks": ranks_s,
+                          "resume": resume_s},
+        "seconds": time.perf_counter() - t_phase}
+
+
 def _flat(tree, prefix=""):
     """``(key, tensor)`` of a nested dict's leaves, keys sorted."""
     out = []
@@ -4701,6 +5281,17 @@ def main() -> None:
         emit({"phase": "scan_train", "skipped": "the port's launch.train "
               "does not train " + " and ".join(a for a, _, _, _ in ST_RUNS)})
 
+    # -- 18. mesh_train -----------------------------------------------------------
+    mtrain = None
+    if os.path.isfile(os.path.join(src, "repro_torch", "launch", "mesh.py")):
+        mtrain = mesh_train_phase(smi, args.seed, src,
+                                  [(a["loss"], a["grad_norm"])
+                                   for a in train["run_a"]])
+        emit(mtrain)
+    else:  # another checkout's port may predate the multi-device layer
+        emit({"phase": "mesh_train",
+              "skipped": "the port has no repro_torch.launch.mesh"})
+
     # -- the kernels line, and the last line -------------------------------------
     counts_of = {"main": launches, "encode": elaunches,
                  "transcode": tlaunches, "staged": slaunches}
@@ -4732,6 +5323,9 @@ def main() -> None:
         if strain is not None and name in CKPT_KERNELS:  # phase 17's
             entry["scan_train_launches"] = strain["launches"][name]
             entry["scan_train_max_abs_err"] = strain["max_abs_err"][name]
+        if mtrain is not None and name in CKPT_KERNELS:  # phase 18's
+            entry["mesh_train_launches"] = mtrain["launches"][name]
+            entry["mesh_train_max_abs_err"] = mtrain["max_abs_err"][name]
         kernels.append(entry)
     tc.close()
     emit({"kernels": kernels})

@@ -1,5 +1,5 @@
 """FPTC gradient compression for the slow inter-pod axis.
-Port of ``repro/distributed/compression.py``, without the collective.
+Port of ``repro/distributed/compression.py``.
 
 The paper's pipeline is transform -> quantize -> entropy-code.  Applied to a
 cross-pod gradient mean, the stages map as:
@@ -9,7 +9,8 @@ cross-pod gradient mean, the stages map as:
     domain* and moves E/N of the bytes (the shared :mod:`repro_torch.core.
     dct`).
   * **quantization**: int8 wire format with a pod-agreed scale (the max of
-    the replicas' spectra), quantize -> sum in int32 -> dequant.
+    the replicas' spectra: an ``all_reduce(MAX)`` across ranks), quantize
+    -> sum in int32 -> dequant.
     Non-linear, so it is applied around the sum, not inside it.
   * **entropy coding** cannot ride a summing collective (codewords are not
     additive); it lives in the checkpoint path (``distributed.checkpoint``).
@@ -17,12 +18,21 @@ cross-pod gradient mean, the stages map as:
 **Error feedback** keeps convergence: the compression residual is added
 back to the next step's gradient (EF-SGD), decayed by ``ef_decay``.
 
-:meth:`GradCompressor.replica_sum` is the replica-axis formulation: every
-gradient leaf carries a leading pod-replica axis and the mean over it is
-taken on the compressed representation.  The port has no sharding policy
-yet, so the reference's replication constraint is the identity here;
-``all_reduce``, which runs inside a ``shard_map`` over the pod axis, waits
-for the sharding layer.
+Three forms of the compressed mean over the pod replicas:
+
+  * :meth:`GradCompressor.replica_sum` — the replica-axis formulation in
+    one process: every gradient leaf carries a leading pod-replica axis
+    and the mean over it is taken on the compressed representation (the
+    oracle the rank form is held to);
+  * :meth:`GradCompressor.replica_sum_ranks` — the same on ranks, one
+    replica a rank (the pod-compressed train step): the wire is the
+    reference's replication constraint, an ``all_gather`` of the int8 (or
+    ``wire_dtype``) spectra followed by a local int32 sum; each rank keeps
+    its own replica's residual ``ef_decay * (g_eff - dec)``;
+  * :meth:`GradCompressor.all_reduce` — the reference's collective form
+    inside a ``shard_map`` over the pod axis: ``psum`` is
+    ``all_reduce(SUM)`` (int8 spectra summed as int32), ``pmax``
+    ``all_reduce(MAX)``; its residual is ``ef_decay * (g_eff - mean)``.
 
 Wire-byte accounting per gradient element (fp32 baseline = 4 B):
   truncate:      4 * E/N bytes as f32  (or 2 * E/N as bf16)
@@ -34,6 +44,7 @@ import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import dct as _dct
 from repro_torch.core.tree import tree_leaves, tree_unflatten
@@ -91,7 +102,114 @@ class GradCompressor:
         wins = _dct.inverse_dct(spec.to(torch.float32), c.n)
         return _dct.unwindow_signal(wins, size).reshape(shape).to(dtype)
 
+    # -- compressed cross-pod all-reduce --------------------------------
+    def _allreduce_leaf(self, g: torch.Tensor, npods: int,
+                        group) -> torch.Tensor:
+        c = self.config
+        if c.mode == "none" or g.numel() < c.min_size:
+            return _psum(g, group) / npods
+        spec, size = self._to_spectrum(g)
+        if c.mode == "truncate":
+            wire = spec.to(c.wire_dtype)
+            summed = _psum(wire, group).to(torch.float32) / npods
+        elif c.mode == "truncate_int8":
+            local_amax = spec.abs().max() + 1e-12
+            amax = _pmax(local_amax, group)  # pod-agreed scale
+            scale = amax / 127.0
+            q = torch.clamp(torch.round(spec / scale), -127, 127).to(
+                torch.int8)
+            acc = _psum(q.to(torch.int32), group)
+            summed = acc.to(torch.float32) * scale / npods
+        else:
+            raise ValueError(f"unknown compression mode {c.mode!r}")
+        return self._from_spectrum(summed, size, g.shape, g.dtype)
+
+    def all_reduce(
+        self, grads: Tree, npods: int, residual: Optional[Tree] = None,
+        group=None,
+    ) -> Tuple[Tree, Optional[Tree]]:
+        """Compressed mean-all-reduce over the ranks of ``group`` (the pod
+        axis; None: the default group), with error feedback.  Every rank
+        calls it with its own gradients (and residual).  Returns (reduced
+        grads, new residual tree or None)."""
+        leaves = tree_leaves(grads)
+        if self.config.mode == "none":
+            return tree_unflatten(grads, [_psum(g, group) / npods
+                                          for g in leaves]), residual
+        if residual is None:
+            return tree_unflatten(grads, [
+                self._allreduce_leaf(g, npods, group) for g in leaves]), None
+        pairs = []
+        for g, r in zip(leaves, _same_structure(leaves, residual)):
+            g_eff = g.to(torch.float32) + r.to(torch.float32)
+            g_hat = self._allreduce_leaf(g_eff, npods, group)
+            # residual: what THIS pod's contribution lost (local view),
+            # decayed — see CompressionConfig.ef_decay
+            new_r = (self.config.ef_decay
+                     * (g_eff - g_hat.to(torch.float32))).to(r.dtype)
+            pairs.append((g_hat.to(g.dtype), new_r))
+        return (tree_unflatten(grads, [m for m, _ in pairs]),
+                tree_unflatten(residual, [r for _, r in pairs]))
+
     # -- replica-axis formulation ----------------------------------------
+    def _replica_leaf(self, g, r, p: int, replicate, pmax):
+        """The mean over ``p`` replicas of one leaf and the new residual of
+        the replicas in ``g``.  ``g`` (and ``r``) is ``[k, ...]``: all ``p``
+        replicas in one process (``replicate`` and ``pmax`` the identity),
+        or this rank's one (``replicate`` all-gathers into ``[p, ...]``,
+        ``pmax`` takes the max across the ranks)."""
+        c = self.config
+        if c.mode == "none" or g[0].numel() < c.min_size:
+            return replicate(g).to(torch.float32).mean(dim=0).to(g.dtype), r
+        k = g.shape[0]
+        gf = g.to(torch.float32)
+        if r is not None:
+            gf = gf + r.to(torch.float32)
+        if c.mode == "replicated_f32":
+            # f32 all-gather across pods (the uncompressed baseline)
+            return replicate(gf).mean(dim=0).to(g.dtype), (
+                torch.zeros_like(r) if r is not None else None
+            )
+        wins = _dct.window_signal(gf.reshape(k, -1), c.n)  # [k, W, N]
+        # one product a replica, of the shape a rank's step takes: both
+        # forms then run the same products (bit for bit on the card too)
+        spec = torch.stack([_dct.forward_dct(w, c.e) for w in wins])
+        if c.mode == "truncate_int8":
+            amax = pmax(spec.abs().max()) + 1e-12  # pod-agreed scale
+            scale = amax / 127.0
+            q = torch.clamp(torch.round(spec / scale), -127, 127).to(
+                torch.int8)
+            # the INT8 spectra cross (an all-gather), then a local sum: a
+            # sum across ranks would move int32, 4x the bytes
+            acc = replicate(q).to(torch.int32).sum(dim=0)
+            summed = acc.to(torch.float32) * scale / p
+            spec_hat = q.to(torch.float32) * scale
+        elif c.mode == "truncate":
+            wire = spec.to(c.wire_dtype)
+            summed = replicate(wire).to(torch.float32).sum(dim=0) / p
+            spec_hat = wire.to(torch.float32)
+        else:
+            raise ValueError(f"unknown compression mode {c.mode!r}")
+        size = g[0].numel()
+        mean = _dct.inverse_dct(summed, c.n).reshape(-1)[:size].reshape(
+            g.shape[1:])
+        new_r = None
+        if r is not None:
+            dec = torch.stack([_dct.inverse_dct(s, c.n) for s in spec_hat]
+                              ).reshape(k, -1)[:, :size].reshape(g.shape)
+            new_r = (c.ef_decay * (gf - dec)).to(r.dtype)
+        return mean.to(g.dtype), new_r
+
+    def _replica_tree(self, grads, residual, one):
+        g_leaves = tree_leaves(grads)
+        if residual is None:
+            return tree_unflatten(grads, [one(g, None)[0]
+                                          for g in g_leaves]), None
+        pairs = [one(g, r) for g, r in zip(
+            g_leaves, _same_structure(g_leaves, residual))]
+        return (tree_unflatten(grads, [m for m, _ in pairs]),
+                tree_unflatten(residual, [r for _, r in pairs]))
+
     def replica_sum(
         self, grads: Tree, residual: Optional[Tree],
     ) -> Tuple[Tree, Optional[Tree]]:
@@ -103,55 +221,22 @@ class GradCompressor:
         compressed bytes.  Error feedback is per replica (residual leaves
         also [P, ...]).
         """
-        c = self.config
+        same = lambda x: x  # noqa: E731
+        return self._replica_tree(grads, residual, lambda g, r: (
+            self._replica_leaf(g, r, g.shape[0], same, same)))
 
-        def one(g, r):
-            p = g.shape[0]
-            if c.mode == "none" or g[0].numel() < c.min_size:
-                return g.to(torch.float32).mean(dim=0).to(g.dtype), r
-            gf = g.to(torch.float32)
-            if r is not None:
-                gf = gf + r.to(torch.float32)
-            if c.mode == "replicated_f32":
-                return gf.mean(dim=0).to(g.dtype), (
-                    torch.zeros_like(r) if r is not None else None
-                )
-            wins = _dct.window_signal(gf.reshape(p, -1), c.n)  # [P, W, N]
-            spec = _dct.forward_dct(wins, c.e)  # [P, W, E]
-            if c.mode == "truncate_int8":
-                amax = spec.abs().max() + 1e-12  # pod-agreed scale
-                scale = amax / 127.0
-                q = torch.clamp(torch.round(spec / scale), -127, 127).to(
-                    torch.int8)
-                acc = q.to(torch.int32).sum(dim=0)
-                summed = acc.to(torch.float32) * scale / p
-                spec_hat = q.to(torch.float32) * scale
-            elif c.mode == "truncate":
-                wire = spec.to(c.wire_dtype)
-                summed = wire.to(torch.float32).sum(dim=0) / p
-                spec_hat = wire.to(torch.float32)
-            else:
-                raise ValueError(f"unknown compression mode {c.mode!r}")
-            size = g[0].numel()
-            mean = _dct.inverse_dct(summed, c.n).reshape(-1)[:size].reshape(
-                g.shape[1:])
-            new_r = None
-            if r is not None:
-                dec = _dct.inverse_dct(spec_hat, c.n).reshape(p, -1)[
-                    :, :size].reshape(g.shape)
-                new_r = (c.ef_decay * (gf - dec)).to(r.dtype)
-            return mean.to(g.dtype), new_r
-
-        g_leaves = tree_leaves(grads)
-        if residual is None:
-            return tree_unflatten(grads, [one(g, None)[0]
-                                          for g in g_leaves]), None
-        r_leaves = tree_leaves(residual)
-        if len(g_leaves) != len(r_leaves):
-            raise ValueError("residual must have the gradients' structure")
-        pairs = [one(g, r) for g, r in zip(g_leaves, r_leaves)]
-        return (tree_unflatten(grads, [m for m, _ in pairs]),
-                tree_unflatten(residual, [r for _, r in pairs]))
+    def replica_sum_ranks(
+        self, grads: Tree, residual: Optional[Tree], group=None,
+    ) -> Tuple[Tree, Optional[Tree]]:
+        """:meth:`replica_sum` with one replica a rank of ``group`` (the
+        pod axis; None: the default group): each rank passes its own
+        gradients (leaves ``[...]``) and its slice of the residual (leaves
+        ``[1, ...]``) and gets what ``replica_sum`` gives its replica, the
+        mean and its own new residual."""
+        p = dist.get_world_size(group)
+        return self._replica_tree(grads, residual, lambda g, r: (
+            self._replica_leaf(g[None], r, p, lambda x: _gather(x, group),
+                               lambda x: _pmax(x, group))))
 
     # -- wire accounting for the roofline -------------------------------
     def wire_bytes(self, num_elems: int) -> int:
@@ -171,3 +256,31 @@ class GradCompressor:
         else:
             raise ValueError(f"unknown compression mode {c.mode!r}")
         return w * c.e * per
+
+
+def _same_structure(g_leaves, residual) -> list:
+    r_leaves = tree_leaves(residual)
+    if len(g_leaves) != len(r_leaves):
+        raise ValueError("residual must have the gradients' structure")
+    return r_leaves
+
+
+def _psum(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def _pmax(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def _gather(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (``[1, ...]``) of every rank of ``group``, stacked in rank
+    order: ``[P, ...]``."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=0)

@@ -12,6 +12,9 @@ global-norm clip are fp32 tensors there: an update never syncs the host.
 ``AdamW.update`` writes the new parameters, m and v into the given tensors
 (the reference's jitted step donates those buffers, ``donate_argnums``) and
 returns them with a new :class:`OptState` and the gradients' global norm.
+Under FSDP each rank holds blocks of the leaves (``shares=``): the update is
+elementwise on the blocks, and the global norm's sum of squares takes one
+``all_reduce`` across the ranks before the ``sqrt``.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import math
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.tree import tree_leaves, tree_unflatten
 from repro_torch.models.common import ParamSpec
@@ -142,18 +146,28 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: PyTree, state: OptState, grads: PyTree,
-               residual: Optional[PyTree] = None):
+               residual: Optional[PyTree] = None, *,
+               shares: Optional[list] = None):
         """One AdamW step: the global-norm clip (fp32), bias-corrected
         moments, decoupled weight decay added to the step before the ``lr``
         multiply.  Writes the new parameters, m and v into ``params``,
         ``state.m`` and ``state.v``; returns ``(params, OptState, gnorm)``
-        with ``gnorm`` a 0-d fp32 tensor."""
+        with ``gnorm`` a 0-d fp32 tensor.  ``shares`` (one a leaf, in
+        leaf order): the leaves are this rank's blocks, each held by a
+        ``1 / share`` of the ranks; each block's sum of squares is
+        weighted by its share and the total summed across the ranks of
+        the default group, so every element counts once."""
         c = self.config
         step = state.step + 1
         lr = cosine_schedule(step, base_lr=c.base_lr, warmup=c.warmup,
                              total=c.total_steps)
         g_leaves = tree_leaves(grads)
-        sq = sum(torch.sum(torch.square(g.float())) for g in g_leaves)
+        if shares is None:
+            sq = sum(torch.sum(torch.square(g.float())) for g in g_leaves)
+        else:
+            sq = sum(w * torch.sum(torch.square(g.float()))
+                     for w, g in zip(shares, g_leaves))
+            dist.all_reduce(sq)
         gnorm = torch.sqrt(sq)
         scale = torch.clamp(c.clip_norm / (gnorm + 1e-12), max=1.0)
         b1c = 1.0 - c.b1 ** step.float()

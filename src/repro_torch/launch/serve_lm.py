@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, get_smoke
-from repro_torch.distributed.train import make_serve_fns
+from repro_torch.distributed.train import MULTI_DEVICE, make_serve_fns
 from repro_torch.models import build_model
 from repro_torch.models.api import CROSS_KEYS, STATE_KEYS
 from repro_torch.serving.engine import resolve_device
@@ -38,8 +38,6 @@ from repro_torch.serving.workloads import KVCacheCodec
 
 __all__ = ["main", "compress_cache", "cache_blocks", "compressible"]
 
-MULTI_DEVICE = ("ROADMAP queue 1, item 6 (M10: the multi-device layer — LM "
-                "sharding)")
 
 
 def _entries(cache):

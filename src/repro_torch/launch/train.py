@@ -1,5 +1,4 @@
-"""End-to-end training driver on one device.  Port of
-``repro/launch/train.py``.
+"""End-to-end training driver.  Port of ``repro/launch/train.py``.
 
 Builds the model from ``--arch`` (the reduced ``--smoke`` configuration for
 the CPU), draws its weights layer by layer from ``--seed``, streams
@@ -13,28 +12,46 @@ relaunch.
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \
       --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir DIR [--device cpu]
 
+``--data N`` trains on N ranks started by ``torchrun``, FSDP over a
+``data`` mesh (``launch.mesh``; the process group NCCL on the card, gloo
+on the CPU):
+
+  python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch granite-8b --smoke --data 2 ...
+
+Each rank reads ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` (``--data``
+must be ``WORLD_SIZE``), draws the same weights from ``--seed``, keeps its
+block of them and of m and v, and steps on its rows of each
+``TokenPipeline`` batch.  Rank 0 logs and writes the checkpoints, the
+state gathered whole as the reference saves it; every rank restores the
+newest one and places its blocks (``elastic.remesh``), so a relaunch with
+another ``--data`` resumes.
+
 The reference's flags, plus ``--device`` (default: the card; ``cpu`` runs
 the same arithmetic on the host) and ``--seed`` (weights and data).
-``--data`` or ``--model-par`` above 1 raise ``NotImplementedError``;
-every family trains: the dense, VLM, MoE, MLA, hybrid SSM, RWKV and
-encoder-decoder families (whisper's frames are zeros, as the reference
-feeds them).  ``--compression`` is
-accepted and, on one device, leaves the step uncompressed, as the
-reference does without a pod axis.
+``--model-par`` above 1 raises ``NotImplementedError``; every family
+trains: the dense, VLM, MoE, MLA, hybrid SSM, RWKV and encoder-decoder
+families (whisper's frames are zeros, as the reference feeds them).
+``--compression`` is accepted and leaves the step uncompressed, as the
+reference does: the launcher's mesh has no pod axis.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_arch, get_smoke
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.distributed.compression import CompressionConfig
-from repro_torch.distributed.elastic import StepTimer
+from repro_torch.distributed.elastic import StepTimer, remesh
 from repro_torch.distributed.optimizer import AdamW, AdamWConfig
-from repro_torch.distributed.train import make_train_step
+from repro_torch.distributed.sharding import ShardingPolicy
+from repro_torch.distributed.train import MULTI_DEVICE, make_train_step
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import build_model
 from repro_torch.models.convert import (
     load_train_state,
@@ -44,9 +61,6 @@ from repro_torch.models.convert import (
 from repro_torch.serving.engine import resolve_device
 
 __all__ = ["main", "make_batch"]
-
-MULTI_DEVICE = ("ROADMAP queue 1, item 6 (M10d: the multi-device layer — "
-                "data and model parallelism)")
 
 
 def make_batch(cfg, pipe: TokenPipeline, step: int) -> dict:
@@ -91,56 +105,95 @@ def main(argv=None):
                     help="cuda (the default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.data != 1 or args.model_par != 1:
+    if args.model_par != 1:
         raise NotImplementedError(
-            f"--data {args.data} --model-par {args.model_par}: the port "
-            f"trains on one device; see {MULTI_DEVICE}")
+            f"--model-par {args.model_par}: the port trains data-parallel "
+            f"only; see {MULTI_DEVICE}")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.data != world:
+        raise ValueError(
+            f"--data {args.data} needs {args.data} ranks (torchrun "
+            f"--nproc-per-node {args.data}); WORLD_SIZE is {world}")
+    ranked = "WORLD_SIZE" in os.environ  # started by torchrun
+    if ranked and args.device != "cpu" and torch.cuda.is_available():
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
 
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     dev = resolve_device(args.device)
+    mesh = None
+    if ranked:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+        mesh = make_local_mesh(data=args.data, model=args.model_par,
+                               device_type=dev.type)
+    rank = dist.get_rank() if ranked else 0
+    try:
+        return _train(args, cfg, dev, mesh, rank)
+    finally:
+        if ranked:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, dev, mesh, rank: int):
     model = build_model(cfg, device=dev, generator=torch.Generator(
         device=dev).manual_seed(args.seed))
     opt = AdamW(AdamWConfig(base_lr=args.lr, warmup=10,
                             total_steps=args.steps))
-    ts = make_train_step(model, opt, dev, compression=CompressionConfig(
-        mode=args.compression))
+    ts = make_train_step(model, opt, dev if mesh is None else mesh,
+                         compression=CompressionConfig(mode=args.compression))
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch_size=args.batch,
                          seq_len=args.seq, seed=args.seed)
 
     opt_state = ts.init()
     start_step = 0
     if args.ckpt_dir:
-        restored = ckpt.restore_latest(
-            args.ckpt_dir, train_state_tree(model, opt_state), device=dev)
+        specs = model.param_specs()
+        like = (train_state_tree(model, opt_state) if mesh is None
+                else {"params": specs, "m": specs, "v": specs})
+        restored = ckpt.restore_latest(args.ckpt_dir, like, device=dev)
         if restored is not None:
             start_step, tree = restored
+            if mesh is not None:  # this rank's blocks of the host tree
+                tree = _local(remesh(tree, like,
+                                     ts.policy or ShardingPolicy(mesh)))
             opt_state = load_train_state(tree, model, opt_state, start_step,
                                          opt)
             del tree
-            print(f"resumed from step {start_step}")
+            if rank == 0:
+                print(f"resumed from step {start_step}")
 
     timer = StepTimer()
     losses = []
     for step in range(start_step, args.steps):
-        batch = make_batch(cfg, pipe, step)
+        batch = ts.local_batch(make_batch(cfg, pipe, step))
         timer.start()
         opt_state, metrics = ts.step_fn(opt_state, batch)
         loss = float(metrics["loss"])  # the log line's one host sync
         dt, straggler = timer.stop()
         losses.append(loss)
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if rank == 0 and (step % args.log_every == 0
+                          or step == args.steps - 1):
             print(
                 f"step {step:5d} loss {loss:8.4f} "
                 f"gnorm {float(metrics['grad_norm']):8.3f} "
                 f"{dt*1e3:7.1f} ms" + ("  [straggler]" if straggler else ""),
                 flush=True)
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            path = save_train_state(args.ckpt_dir, step + 1, model,
-                                    opt_state, compress=args.ckpt_compress,
-                                    device=dev)
-            print(f"checkpointed -> {path}", flush=True)
-    print("training done.")
+            params, whole = ts.full_state(opt_state)
+            if rank == 0:
+                path = save_train_state(args.ckpt_dir, step + 1, model,
+                                        whole, compress=args.ckpt_compress,
+                                        device=dev, params=params)
+                print(f"checkpointed -> {path}", flush=True)
+            del params, whole
+    if rank == 0:
+        print("training done.")
     return model, opt_state, losses
+
+
+def _local(tree):
+    """A tree of DTensors as their local tensors."""
+    return {k: _local(v) if isinstance(v, dict) else v.to_local()
+            for k, v in tree.items()}
 
 
 if __name__ == "__main__":

@@ -13,13 +13,19 @@ axis; the port keeps one module per layer, and m and v per parameter
   in its own dtype (the MoE router and the SSM's ``dt_bias``, ``A_log``
   and ``D`` are fp32; expert stacks ``[E, ...]`` stay whole per layer);
   ``opt_state_from_jax(state, model)`` turns the reference's ``OptState``
-  into the port's.
+  into the port's, the pod-compressed step's error-feedback residual
+  (``[P, ...]`` per parameter) included.
 * ``train_state_tree(model, opt_state)`` is the port's training state as
   the reference's ``{"params", "m", "v"}`` tree, the tree a training
-  checkpoint saves (so the two packages restore each other's);
+  checkpoint saves (so the two packages restore each other's; the
+  residual is not saved, as the reference's launcher saves none: a
+  restart begins with it at zero);
   ``save_train_state(directory, step, model, opt_state, ...)`` saves it,
   its weights raw; ``load_train_state(tree, model, opt_state, step,
   optimizer)`` loads such a tree (numpy arrays or tensors) back.
+* ``stack_layers(model, by_name)`` puts one tensor per parameter in the
+  reference's layout, ``unstack_layers(tree, model)`` takes it back (the
+  pod-compressed step compresses the reference's leaves).
 * ``cache_from_jax(tree, device)`` turns a reference decode cache into the
   port's.
 
@@ -37,7 +43,8 @@ from repro_torch.models.api import spec_leaves
 
 __all__ = ["to_torch", "params_from_jax", "cache_from_jax",
            "opt_state_from_jax", "train_state_tree", "save_train_state",
-           "load_train_state"]
+           "load_train_state", "param_specs_by_name", "stack_layers",
+           "unstack_layers"]
 
 # the keys of a training state whose leaves a checkpoint writes raw
 # (``save_checkpoint(raw=...)``): the weights, fp32 ones included (the
@@ -92,9 +99,11 @@ def _check_keys(tree: Mapping, specs: Mapping, where: str = "") -> None:
             _check_keys(tree[k], s, f"{where}.{k}" if where else k)
 
 
-def _unstacked(tree: Mapping, model) -> Dict[str, Any]:
+def unstack_layers(tree: Mapping, model, layer_axis: int = 0
+                   ) -> Dict[str, Any]:
     """The leaves of a reference-layout tree by port parameter name (a
-    stacked leaf's layer ``li`` is its ``[li]``)."""
+    stacked leaf's layer ``li`` is its index ``li`` on ``layer_axis``:
+    1 under the residual's leading replica axis)."""
     _check_keys(tree, model.param_specs())
     out: Dict[str, Any] = {}
     for path, names in _leaf_names(model):
@@ -105,21 +114,41 @@ def _unstacked(tree: Mapping, model) -> Dict[str, Any]:
             leaf = leaf if isinstance(leaf, torch.Tensor) else np.asarray(
                 leaf)
             for li, name in enumerate(names):
-                out[name] = leaf[li]
+                out[name] = leaf[(slice(None),) * layer_axis + (li,)]
         else:
             out[names[0]] = leaf
     return out
 
 
-def _stacked(model, by_name: Mapping[str, torch.Tensor]) -> dict:
-    """``by_name`` (one tensor per parameter) in the reference's layout."""
+def param_specs_by_name(model) -> Dict[str, Any]:
+    """Each parameter's ``ParamSpec`` by its ``named_parameters`` name: a
+    stacked leaf's spec without its ``layers`` axis."""
+    from repro_torch.models.common import ParamSpec
+
+    specs, out = model.param_specs(), {}
+    for path, names in _leaf_names(model):
+        s = specs
+        for k in path:
+            s = s[k]
+        if _in_stack(path):
+            s = ParamSpec(s.shape[1:], s.names[1:], dtype=s.dtype,
+                          init=s.init, scale=s.scale)
+        out.update((n, s) for n in names)
+    return out
+
+
+def stack_layers(model, by_name: Mapping[str, torch.Tensor],
+                 layer_axis: int = 0) -> dict:
+    """``by_name`` (one tensor per parameter) in the reference's layout, a
+    stack's layers on ``layer_axis``."""
     tree: dict = {}
     for path, names in _leaf_names(model):
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
         if _in_stack(path):
-            node[path[-1]] = torch.stack([by_name[n] for n in names])
+            node[path[-1]] = torch.stack([by_name[n] for n in names],
+                                         dim=layer_axis)
         else:
             node[path[-1]] = by_name[names[0]]
     return tree
@@ -138,7 +167,7 @@ def params_from_jax(tree: Mapping, model) -> None:
     """Load the reference's parameter tree into ``model`` in place.  A key
     in one tree and not the other raises ``KeyError``; a shape or dtype
     mismatch ``ValueError``."""
-    leaves = _unstacked(tree, model)
+    leaves = unstack_layers(tree, model)
     for name, p in model.named_parameters():
         _copy(p, leaves[name], name)
 
@@ -146,12 +175,18 @@ def params_from_jax(tree: Mapping, model) -> None:
 def opt_state_from_jax(state: Any, model):
     """The reference's ``OptState`` (its leaves as numpy arrays: ``jax.
     tree_util.tree_map(np.asarray, state)``) as the port's, m and v per
-    parameter on the model's device.  The error-feedback residual is not
-    carried (the pod-compressed mode is not ported)."""
+    parameter on the model's device, and the pod-compressed step's
+    error-feedback residual, when there is one, per parameter ``[P,
+    ...]`` (a rank of the port's step holds its replica's ``[p:p+1]``)."""
     from repro_torch.distributed.optimizer import OptState
 
     dev = model.device
-    m, v = _unstacked(state.m, model), _unstacked(state.v, model)
+    m, v = unstack_layers(state.m, model), unstack_layers(state.v, model)
+    res = None
+    if getattr(state, "residual", None) is not None:
+        r = unstack_layers(state.residual, model, layer_axis=1)
+        res = {n: to_torch(np.asarray(r[n]), dev)
+               for n, _ in model.named_parameters()}
     return OptState(
         step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
                           device=dev),
@@ -159,35 +194,39 @@ def opt_state_from_jax(state: Any, model):
            model.named_parameters()},
         v={n: to_torch(np.asarray(v[n]), dev) for n, _ in
            model.named_parameters()},
+        residual=res,
     )
 
 
 @torch.no_grad()
-def train_state_tree(model, opt_state) -> dict:
+def train_state_tree(model, opt_state, params=None) -> dict:
     """``{"params", "m", "v"}`` in the reference's layout (keys, shapes and
     dtypes), on the model's device: what a training checkpoint saves.
+    ``params`` (``{name: tensor}``) replaces the model's own weights: a
+    sharded step's gathered ones (``TrainStep.full_state``).
     Stacking a group's layers is a copy, so while the tree lives the state
     takes twice its memory (cheap at a cut depth; at full depth a save
     doubles the state's memory for its duration)."""
-    params = {n: p.detach() for n, p in model.named_parameters()}
-    return {"params": _stacked(model, params),
-            "m": _stacked(model, opt_state.m),
-            "v": _stacked(model, opt_state.v)}
+    if params is None:
+        params = {n: p.detach() for n, p in model.named_parameters()}
+    return {"params": stack_layers(model, params),
+            "m": stack_layers(model, opt_state.m),
+            "v": stack_layers(model, opt_state.v)}
 
 
 def save_train_state(directory: str, step: int, model, opt_state, *,
-                     compress: bool = False, device=None) -> str:
-    """``save_checkpoint`` of ``train_state_tree(model, opt_state)`` as
-    step ``step`` under ``directory``; returns the step's directory.  With
-    ``compress``, m and v are FPTC-compressed (encoded on ``device``, the
-    card unless ``"cpu"``) and the weights written raw, so they come back
-    bit for bit."""
+                     compress: bool = False, device=None,
+                     params=None) -> str:
+    """``save_checkpoint`` of ``train_state_tree(model, opt_state,
+    params)`` as step ``step`` under ``directory``; returns the step's
+    directory.  With ``compress``, m and v are FPTC-compressed (encoded on
+    ``device``, the card unless ``"cpu"``) and the weights written raw, so
+    they come back bit for bit."""
     from repro_torch.distributed.checkpoint import save_checkpoint
 
-    return save_checkpoint(directory, step, train_state_tree(model,
-                                                             opt_state),
-                           compress=compress, device=device,
-                           raw=_TRAIN_STATE_RAW)
+    return save_checkpoint(directory, step, train_state_tree(
+        model, opt_state, params), compress=compress, device=device,
+        raw=_TRAIN_STATE_RAW)
 
 
 def load_train_state(tree: Mapping, model, opt_state, step: int,
@@ -198,8 +237,9 @@ def load_train_state(tree: Mapping, model, opt_state, step: int,
     (``AdamW.project``: a compressed checkpoint brings v back negative in
     places; a raw one is left as it was); returns the ``OptState`` at
     ``step``."""
-    params = _unstacked(tree["params"], model)
-    m, v = _unstacked(tree["m"], model), _unstacked(tree["v"], model)
+    params = unstack_layers(tree["params"], model)
+    m = unstack_layers(tree["m"], model)
+    v = unstack_layers(tree["v"], model)
     for name, p in model.named_parameters():
         _copy(p, params[name], f"params.{name}")
         _copy(opt_state.m[name], m[name], f"m.{name}")

@@ -28,7 +28,11 @@ decode steps that wait for the card nowhere.
 LM training: the smoke granite's and the smoke deepseek-v3's (MoE + MLA)
 train steps on the card track the CPU's within the CPU trajectory bounds,
 a raw checkpoint resumes bit for bit and a compressed one through counted
-K4, K1 and ``lut_idct`` launches."""
+K4, K1 and ``lut_idct`` launches.  Two ranks on the card in a gloo group
+(``tests/_mesh_ranks.py``): the smoke granite's pod-compressed steps equal
+the one-process oracle (each replica's gradients in turn,
+``replica_sum`` on the reference's leaves, ``AdamW.update``) bit for
+bit."""
 import json
 
 import numpy as np
@@ -1812,3 +1816,51 @@ def test_train_raw_resume_on_card_is_the_uninterrupted_run(cuda, tmp_path,
         assert p.is_cuda and torch.equal(p, q), name
         assert torch.equal(st.m[name], st_once.m[name]), name
         assert torch.equal(st.v[name], st_once.v[name]), name
+
+
+def test_pod_compressed_ranks_on_card_are_the_oracle(cuda):
+    """Two ranks on the one card (gloo passes CUDA tensors), one pod
+    replica each: losses, weights and residuals bit for bit the one-process
+    oracle's on the card."""
+    import _mesh_ranks
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.compression import (
+        CompressionConfig,
+        GradCompressor,
+    )
+    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import stack_layers, unstack_layers
+
+    seed, steps, b, s, min_size = 0, 3, 2, 64, 256
+    ranks = _mesh_ranks.run_ranks(2, [("pod_steps", dict(
+        device="cuda", seed=seed, steps=steps, batch=b, seq=s,
+        min_size=min_size))])
+    cfg = get_smoke("granite_8b")
+    model = build_model(cfg, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(seed))
+    model.requires_grad_(True)
+    opt = AdamW(AdamWConfig(**_mesh_ranks.OPT))
+    comp = GradCompressor(CompressionConfig(min_size=min_size))
+    params = dict(model.named_parameters())
+    st, losses = opt.init(params, with_residual=True, replicas=2), []
+    for batch in _mesh_ranks.smoke_batches(cfg, seed, steps, b, s):
+        per, grads = [], []
+        for p in range(2):
+            loss = model.loss({k: v[p:p + 1] for k, v in batch.items()})
+            per.append(loss.detach())
+            grads.append(torch.autograd.grad(loss, list(params.values())))
+        mean, res = comp.replica_sum(stack_layers(model, {
+            n: torch.stack([g[i] for g in grads])
+            for i, n in enumerate(params)}, layer_axis=1), stack_layers(
+            model, st.residual, layer_axis=1))
+        _, st, _ = opt.update(params, st, unstack_layers(mean, model),
+                              unstack_layers(res, model, layer_axis=1))
+        losses.append(float(torch.stack(per).mean()))
+    for rank, (out,) in enumerate(ranks):
+        assert out["losses"] == losses
+        for n, p in params.items():
+            assert np.array_equal(out["params"][n], p.detach().float()
+                                  .cpu().numpy()), n
+            assert np.array_equal(out["residual"][n], st.residual[n][
+                rank:rank + 1].float().cpu().numpy()), n

@@ -8,11 +8,12 @@ stays finite.  The MoE + MLA (deepseek-v3), encoder-decoder (whisper),
 hybrid SSM (hymba) and RWKV smoke models train, checkpoint compressed and
 resume the same way; hymba also over 256 tokens, where its scan
 checkpoints each chunk.  A compressed checkpoint writes every weight raw,
-a fp32 one of 4096 elements too.  Multi-device flags raise
-``NotImplementedError`` naming the ROADMAP item; with no device and no
-card it raises.  The reference's
-``launch.train`` fails on the installed JAX (R4), so nothing here runs
-it.
+a fp32 one of 4096 elements too.  ``torchrun --nproc-per-node 2 ...
+--data 2`` trains FSDP on two gloo ranks (its losses those of one process
+on the same batches within 2**-8), checkpoints compressed, and a relaunch
+with ``--data 1`` resumes from it; ``--data 2`` under a world of 1 and
+``--model-par 2`` (naming the ROADMAP item) raise; with no device and no
+card it raises.  The reference's ``launch.train`` is not run here.
 """
 import json
 import math
@@ -27,6 +28,7 @@ from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.launch import train
 from repro_torch.models.convert import train_state_tree
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = ["--arch", "granite-8b", "--smoke", "--device", "cpu", "--batch",
         "2", "--seq", "16", "--log-every", "1"]
 
@@ -173,12 +175,52 @@ def test_compressed_checkpoint_writes_the_weights_raw(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--data", "2"], "ROADMAP queue 1, item 6"),
-    (["--model-par", "2"], "ROADMAP queue 1, item 6"),
+    (["--model-par", "2"], "ROADMAP queue 1, item 6c-ii"),
 ])
 def test_refusals(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         train.main(BASE + ["--steps", "1"] + argv)
+
+
+def test_data_needs_as_many_ranks(monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="--data 2 needs 2 ranks .* "
+                       "WORLD_SIZE is 1"):
+        train.main(BASE + ["--steps", "1", "--data", "2"])
+
+
+def test_torchrun_data_two_trains_and_resumes_on_one(tmp_path, capsys):
+    """Two ranks under ``torchrun`` (``--data 2``): rank 0's log, its
+    losses those of one process on the same global batches within 2**-8,
+    a compressed checkpoint at step 2; relaunched on one process with
+    ``--data 1``, it resumes from step 2."""
+    import subprocess
+    import sys
+
+    argv = BASE + ["--ckpt-dir", str(tmp_path), "--ckpt-every", "2",
+                   "--ckpt-compress"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("WORLD_SIZE", None)
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         *argv, "--steps", "2", "--data", "2"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = res.stdout.splitlines()
+    steps = [ln for ln in lines if ln.startswith("step ")]
+    assert len(steps) == 2  # rank 0 alone logs
+    assert f"checkpointed -> {tmp_path}/step_000000000002" in lines
+    assert lines[-1] == "training done."
+    _, _, alone, _ = run(capsys, "--steps", "2")
+    for line, want in zip(steps, alone):
+        got = float(line.split()[3])
+        assert abs(got - want) <= 2.0 ** -8 * abs(want), (steps, alone)
+    _, st, losses, out = run(capsys, *argv[len(BASE):], "--steps", "4",
+                             "--data", "1")
+    assert "resumed from step 2" in out.splitlines()
+    assert int(st.step) == 4 and len(losses) == 2
+    assert all(math.isfinite(x) for x in losses)
 
 
 def test_no_card_means_an_error(monkeypatch):
@@ -200,7 +242,6 @@ def test_compression_flag_leaves_one_device_uncompressed(capsys):
 # ---------------------------------------------------------------------------
 # The two training examples, on the CPU.
 # ---------------------------------------------------------------------------
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def example(*argv):

@@ -59,9 +59,9 @@ def main(argv=None) -> dict:
     from repro_torch.models import build_model
     from repro_torch.models.convert import (
         _copy,
-        _unstacked,
         save_train_state,
         train_state_tree,
+        unstack_layers,
     )
     from repro_torch.serving.engine import resolve_device
 
@@ -103,7 +103,8 @@ def main(argv=None) -> dict:
                                         device=dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    m_back, v_back = _unstacked(got["m"], model), _unstacked(got["v"], model)
+    m_back = unstack_layers(got["m"], model)
+    v_back = unstack_layers(got["v"], model)
     out["restored_v_negative"] = sum(int((torch.as_tensor(v) < 0).sum())
                                      for v in v_back.values())
     out["elements"] = sum(p.numel() for p in model.parameters())
