@@ -262,9 +262,10 @@ digests below must then match).  Phases, one JSON line each:
      cut to 4 layers (3 dense, 1 MoE of 256 experts, top 8, and the shared
      expert; 15.1 G parameters), batch 2 x 4096; llama4-scout at full
      width cut to 4 layers (16 experts, top 1, and the shared expert; 10.9
-     G), batch 8 x 4096; hymba-1.5b whole (32 layers), batch 8 x 2048,
-     twice its 1024-token window, so the ring wraps; rwkv6-3b whole (32
-     layers, 40 heads of 64; 3.07 G), batch 8 x 512 (the prompt cut:
+     G), batch 8 x 4096; hymba-1.5b at full width cut to 16 of its 32
+     layers, batch 8 x 2048, twice its 1024-token window, so the ring
+     wraps; rwkv6-3b at full width cut to 16 of its 32 layers (40 heads
+     of 64), batch 8 x 512 (the prompt and both depths cut:
      ``FAMILIES``); whisper-tiny whole
      (4 + 4 layers), batch 32 x 64 tokens over 1500 frames drawn N(0, 1)
      from the seed; 32 greedy tokens each.  For each model (``family_run``,
@@ -331,7 +332,7 @@ digests below must then match).  Phases, one JSON line each:
      (``family_train_run``; ``ST_RUNS``): hymba-1.5b (d 1600, 25 / 5 heads
      of 64, d_ff 5504, window 1024, Mamba d_in 3200, N 16, vocab 32001)
      and rwkv6-3b (d 2560, 40 heads of 64, d_ff 8960, vocab 65536), each
-     cut to 4 of its 32 layers, batch 2 x 2048 tokens: 16 chunks of each
+     cut to 2 of its 32 layers, batch 2 x 2048 tokens: 16 chunks of each
      scan, each chunk checkpointed (``ssm.chunk_remat``) inside its
      checkpointed layer.  For each: one batch's gradients with the layer
      and chunk remat on, on again, and both off (``grads_twice``): losses
@@ -375,7 +376,39 @@ digests below must then match).  Phases, one JSON line each:
      parent, a one-rank group and mesh (``mesh_resume``):
      ``restore_latest`` (K1 and ``lut_idct`` held), ``remesh``,
      ``load_train_state``, steps 2-3; step 3 within ``TRAIN_RESUME_TOL``
-     of (b)'s.  A failed rank fails the phase.
+     of (b)'s.  A failed rank fails the phase.  When phase 19 follows,
+     (c)'s restored state is kept on the host for it.
+
+ 19. mesh_model — (``mesh_model_phase()``; skipped when the driven port
+     has no ``repro_torch.models.moe_distributed``) the ``model`` axis
+     (tensor, sequence and expert parallelism) on ranks of the one card
+     in a gloo group, as phase 18's, TF32 and bf16 reduced-precision
+     reductions off; two sessions of card ranks (``(data 1, model 2)``
+     and ``(data 2, model 2)``) and two of CPU ranks.  (a) granite-8b's
+     width cut to 2 layers on ``(1, 2)``, the whole model drawn from the
+     seed on each rank and its block kept (``make_serve_fns(model,
+     mesh)``), 2 x 4096 prompts: the last-token logits within
+     ``LM_CONSISTENCY_TOL`` of the parent's one-device run on the same
+     weights, the consistency (``prefill(S - 1)`` + ``decode_step``)
+     within it too, each rank's KV heads through ``KVCacheCodec`` (every
+     K5 and K3 call held at once to its plain version,
+     ``kv_kernels_held``), 31 greedy steps; prefill and decode ms beside
+     ``family_bounds``, the collectives' ms, each rank's peak.  (b)
+     llama4-scout's MoE layer (1 layer) on ``(1, 2)`` and deepseek-v3's
+     first 4 layers on ``(2, 2)`` (full EP), 2 x 2048, each rank drawing
+     only its block (``build_compute_blocks``): finite logits; the
+     consistency within ``LM_CONSISTENCY_TOL`` where the model's one MoE
+     layer is its last and every row's last token kept its pairs in
+     both arms (the sharded prefill's capacity rule is not the dense
+     decode's: ROADMAP queue 3), else reported; each shard's drops and
+     experts hit; the smoke scout and deepseek-v3 served on CPU ranks
+     and on card ranks within ``LM_CARD_CPU_TOL``.  (c) phase 14's cell
+     on ``(2, 2)``, 4 steps: losses (steps 1-3) within
+     ``LM_CARD_CPU_TOL`` and grad norms within ``MODEL_AXIS_NORM_TOL`` of
+     phase 14's run A, each rank a quarter of the state; scout's MoE
+     layer's step under EP twice, bit for bit.  (d) phase 18(c)'s
+     restored state (no second restore) remeshed onto ``(1, 2)``, steps
+     2-3: step 3 within ``TRAIN_RESUME_TOL`` of 18(b)'s.
 
 Then the ``{"kernels": [...]}`` line (K5's and K3's entries also carry
 the LM path's launches, ``lm_launches``, and the families phase's,
@@ -384,8 +417,11 @@ train phase's, ``train_launches`` and ``train_max_abs_err``, the
 families train phase's, ``families_train_launches`` and
 ``families_train_max_abs_err``, the scan train phase's,
 ``scan_train_launches`` and ``scan_train_max_abs_err``, and the mesh
-train phase's, ``mesh_train_launches`` and ``mesh_train_max_abs_err``),
-and last
+train phase's, ``mesh_train_launches`` and ``mesh_train_max_abs_err``;
+K5's and K3's the model axis's, ``mesh_model_launches`` and
+``mesh_model_max_abs_err``, and K1's and ``lut_idct``'s
+``mesh_model_restore_shared_with_phase_18``: phase 19's restart takes
+the state whose restore phase 18(c) ran and held), and last
 ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
 the last line.
 """
@@ -2458,7 +2494,6 @@ def train_phase(smi: str, seed: int) -> dict:
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
     from repro_torch.distributed.train import make_train_step
     from repro_torch.models import build_model
 
@@ -2488,7 +2523,7 @@ def train_phase(smi: str, seed: int) -> dict:
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_params = sum(p.numel() for p in model.parameters())
-        opt = AdamW(AdamWConfig(**TRAIN_OPT))
+        opt = leaf_norm_adamw(TRAIN_OPT)  # step 0's leaf norms, for O2
         ts = make_train_step(model, opt)
         batches = train_batches(cfg, b, s, seed, TRAIN_STEPS + 1, "cuda")
         start = torch.cuda.Event(enable_timing=True)
@@ -2564,6 +2599,7 @@ def train_phase(smi: str, seed: int) -> dict:
         "parameters": n_params, "batch": b, "seq": s,
         "optimizer": TRAIN_OPT, "precision": precision, "init_s": init_s,
         "run_a": [{"loss": l, "grad_norm": g} for l, g in run_a],
+        "run_a_step0_leaf_norms": opt.leaf_norms,
         "step_ms": step_ms, "step_ms_what": "CUDA events around "
         "step_fn, steps 1-3 of run A (step 0 warms); loss and grad norm "
         "read after each",
@@ -2588,10 +2624,13 @@ def train_phase(smi: str, seed: int) -> dict:
 # the wkv loop, and the profiler's pass over a 2048-token prefill (138194
 # kernels) took 172 s of its run on the H100 (``families_probe.py
 # rwkv6-3b:2048``)
+# hymba-1.5b and rwkv6-3b at 16 of their 32 layers, cut from the whole
+# models to make room for phase 19 in the run's 1200 s: whole, their
+# prefills and profiled passes took 96 and 59 s of this phase
 FAMILIES = (("deepseek-v3-671b", 4, 2, 4096, 32),
             ("llama4-scout-17b-a16e", 4, 8, 4096, 32),
-            ("hymba-15b", None, 8, 2048, 32),
-            ("rwkv6-3b", None, 8, 512, 32),
+            ("hymba-15b", 16, 8, 2048, 32),
+            ("rwkv6-3b", 16, 8, 512, 32),
             ("whisper-tiny", None, 32, 64, 32))
 
 
@@ -3466,8 +3505,11 @@ def families_train_phase(smi: str, seed: int) -> dict:
 # (arch, layers kept, batch, sequence): both at full width cut to 4 of
 # their 32 layers, 2 x 2048 tokens: hymba's window twice over, 16 chunks of
 # each scan, so that the chunk remat applies
-ST_RUNS = (("hymba-15b", 4, 2, 2048),
-           ("rwkv6-3b", 4, 2, 2048))
+# 2 of their 32 layers (cut from 4 to make room for phase 19 in the
+# run's 1200 s: the steps are host-bound, their time about proportional
+# to the layers)
+ST_RUNS = (("hymba-15b", 2, 2, 2048),
+           ("rwkv6-3b", 2, 2, 2048))
 ST_RESUME = "hymba-15b"  # trained through a compressed resume (run B)
 # the profiled step's tokens a row, on the same weights: the profiler's
 # pass over a step's kernels costs far more than the step (at 2 x 512,
@@ -3541,15 +3583,15 @@ MT_WIRE = ("gloo's own CUDA path: ProcessGroupGloo stages CUDA tensors "
            "through host memory itself; the port makes no host copy")
 
 
-def _mesh_setup(port: int, rank: int, world: int):
+def _mesh_setup(port: int, rank: int, world: int, device: str = MT_DEVICE):
     """This process's gloo group (``world`` ranks on 127.0.0.1, every one
-    on ``cuda:0``) and phase 14's precision settings."""
+    on ``cuda:0``, or on the CPU) and phase 14's precision settings."""
     import datetime
 
     import torch
     import torch.distributed as dist
 
-    if MT_DEVICE == "cuda":
+    if device == "cuda":
         torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3559,18 +3601,27 @@ def _mesh_setup(port: int, rank: int, world: int):
         world_size=world, timeout=datetime.timedelta(seconds=MT_TIMEOUT_S))
 
 
-def _mesh_rank(rank: int, port: int, src: str, jobs, q) -> None:
-    """A spawned rank of phase 18: runs the named jobs of this module in
-    order and sends ``(rank, error, results)`` (host values only)."""
+def _mesh_rank(rank: int, port: int, src: str, jobs, q, world: int = 2,
+               device: str = MT_DEVICE) -> None:
+    """A spawned rank of phases 18 and 19: runs the named jobs of this
+    module in order and sends ``(rank, error, results)`` (host values
+    only)."""
     import traceback
 
     try:
         sys.path.insert(0, src)
         import torch.distributed as dist
 
-        _mesh_setup(port, rank, 2)
+        _mesh_setup(port, rank, world, device)
         try:
-            out = [globals()[name](**kw) for name, kw in jobs]
+            out = []
+            for name, kw in jobs:
+                t0 = time.perf_counter()
+                out.append(globals()[name](**kw))
+                if rank == 0:  # progress, for a run that fails later
+                    print(json.dumps({"rank_job": name, "world": world,
+                                      "seconds": time.perf_counter() - t0}),
+                          flush=True)
         finally:
             dist.destroy_process_group()
         q.put((rank, None, out))
@@ -3578,9 +3629,11 @@ def _mesh_rank(rank: int, port: int, src: str, jobs, q) -> None:
         q.put((rank, traceback.format_exc(), None))
 
 
-def mesh_ranks(src: str, jobs) -> list:
-    """Two spawned ranks running ``jobs``; ``[results of rank 0, of rank
-    1]``.  A failed or silent rank fails the phase; nothing is retried."""
+def mesh_ranks(src: str, jobs, world: int = 2, device: str = MT_DEVICE,
+               phase: str = "phase 18") -> list:
+    """``world`` spawned ranks (on ``device``) running ``jobs``;
+    ``[results of rank 0, of rank 1, ...]``.  A failed or silent rank
+    fails the phase; nothing is retried."""
     import multiprocessing as mp
     import queue
     import socket
@@ -3590,8 +3643,9 @@ def mesh_ranks(src: str, jobs) -> list:
         port = sock.getsockname()[1]
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=_mesh_rank, args=(r, port, src, jobs, q))
-             for r in range(2)]
+    procs = [ctx.Process(target=_mesh_rank,
+                         args=(r, port, src, jobs, q, world, device))
+             for r in range(world)]
     for p in procs:
         p.start()
     got, errors = {}, []
@@ -3603,16 +3657,16 @@ def mesh_ranks(src: str, jobs) -> list:
             else:
                 got[rank] = out
     except queue.Empty:
-        errors.append(f"ranks {sorted({0, 1} - set(got))} sent nothing in "
-                      f"{MT_TIMEOUT_S} s")
+        errors.append(f"ranks {sorted(set(range(world)) - set(got))} sent "
+                      f"nothing in {MT_TIMEOUT_S} s")
     finally:
         for p in procs:
             p.join(timeout=60)
             if p.is_alive():
                 p.kill()
                 p.join()
-    check(not errors, "phase 18's ranks: " + "\n".join(errors))
-    return [got[0], got[1]]
+    check(not errors, f"{phase}'s ranks: " + "\n".join(errors))
+    return [got[r] for r in range(world)]
 
 
 def _leaf_digests(tree) -> dict:
@@ -3623,6 +3677,50 @@ def _leaf_digests(tree) -> dict:
     return {n: digest([t.detach().view(torch.int16)
                        if t.dtype == torch.bfloat16 else t.detach()])
             for n, t in tree.items()}
+
+
+def leaf_norm_adamw(opt_kw: dict):
+    """AdamW at ``opt_kw`` whose first ``update`` keeps each leaf's
+    gradient norm, fp32, in ``leaf_norms`` (under FSDP, set its
+    ``layouts`` to the step's: a sharded leaf's squares are summed over
+    the ranks' blocks).  Phase 18(b) holds the FSDP step's against
+    phase 14's run A's to name the leaves behind the step-0 grad-norm
+    gap (ROADMAP O2)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
+
+    class LeafNorms(AdamW):
+        leaf_norms = None
+        layouts = None
+
+        def update(self, params, state, grads, *args, **kw):
+            if self.leaf_norms is None:
+                names = sorted(grads)
+                sq = torch.stack([grads[n].float().pow(2).sum()
+                                  for n in names])
+                if self.layouts is not None:
+                    total = sq.clone()
+                    dist.all_reduce(total)
+                    split = torch.tensor([self.layouts[n].sharded
+                                          for n in names], device=sq.device)
+                    sq = torch.where(split, total, sq)
+                self.leaf_norms = dict(zip(names, sq.sqrt().tolist()))
+            return super().update(params, state, grads, *args, **kw)
+
+    return LeafNorms(AdamWConfig(**opt_kw))
+
+
+def o2_leaves(one: dict, split: dict, top: int = 4) -> list:
+    """The ``top`` leaves whose squared gradient norms move most from
+    ``one`` (run A's step 0) to ``split`` (the FSDP step 0's), each with
+    both norms and the relative change."""
+    rows = [{"leaf": n, "one_device": a, "fsdp": split[n],
+             "rel": (split[n] - a) / a if a else None,
+             "squared_change": split[n] ** 2 - a ** 2}
+            for n, a in one.items()]
+    return sorted(rows, key=lambda r: -abs(r["squared_change"]))[:top]
 
 
 def _mesh_model(seed: int):
@@ -3828,7 +3926,6 @@ def mesh_fsdp_run(seed: int, ckpt_dir: str) -> dict:
     import torch
     import torch.distributed as dist
 
-    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
     from repro_torch.distributed.train import make_train_step
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_local_mesh
@@ -3840,8 +3937,10 @@ def mesh_fsdp_run(seed: int, ckpt_dir: str) -> dict:
     whole = sum(p.numel() * (p.element_size() + 8)
                 for p in model.parameters())
     mesh = make_local_mesh(data=2, device_type=MT_DEVICE)
-    ts = make_train_step(model, AdamW(AdamWConfig(**TRAIN_OPT)), mesh)
+    opt = leaf_norm_adamw(TRAIN_OPT)  # step 0's leaf norms, for O2
+    ts = make_train_step(model, opt, mesh)
     check(ts.layouts is not None, "data 2 did not give the FSDP step")
+    opt.layouts = ts.layouts
     st = ts.init()
     resident = (sum(p.numel() * p.element_size() for p in model.parameters())
                 + sum(t.numel() * t.element_size() for t in
@@ -3895,18 +3994,24 @@ def mesh_fsdp_run(seed: int, ckpt_dir: str) -> dict:
            "resident_share": resident / whole, "bound_ms": bound["ms"],
            "bound_by": bound["by"], "max_memory_allocated": peak_steps,
            "max_memory_allocated_after_save":
-               torch.cuda.max_memory_allocated(), "save": save, "rank": rank}
+               torch.cuda.max_memory_allocated(), "save": save, "rank": rank,
+           "step0_leaf_norms": opt.leaf_norms}
     del model, st, ts
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def mesh_resume(seed: int, ckpt_dir: str, uninterrupted: list) -> dict:
+def mesh_resume(seed: int, ckpt_dir: str, uninterrupted: list,
+                keep: dict = None) -> dict:
     """(c) in the parent: a one-rank gloo group and mesh, the newest
     checkpoint restored (every K1 / ``lut_idct`` call held at once to its
     plain version), ``remesh``-ed onto the mesh, loaded, and the steps
-    after it taken on the global batches."""
+    after it taken on the global batches.  ``keep``: a dict that gets the
+    restored host tree (on the host, as ``"tree"``, and ``"step"``) for
+    phase 19's restart onto the ``model`` axis, so the checkpoint is
+    decoded once; its ranks receive it through shared memory (a file of
+    it took 64-70 s to write)."""
     import socket
 
     import torch
@@ -3947,6 +4052,15 @@ def mesh_resume(seed: int, ckpt_dir: str, uninterrupted: list) -> dict:
         want.update(symlen_decode=calls, lut_idct=calls)
         check(launches == want, f"(c)'s restore launch counts {launches} "
               f"!= {want}")
+        keep_s = None
+        if keep is not None:
+            t0 = time.perf_counter()
+            from repro_torch.models.convert import to_torch
+
+            # raw leaves come back as numpy, decoded ones as tensors
+            keep.update(step=step, tree=_tree_map(
+                lambda t: to_torch(t).cpu(), host))
+            keep_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         placed = remesh(host, like, ShardingPolicy(mesh))
         del host
@@ -3977,17 +4091,20 @@ def mesh_resume(seed: int, ckpt_dir: str, uninterrupted: list) -> dict:
             "own_change": abs(last - uninterrupted[-2]) / abs(last),
             "restore_s": restore_s, "restore_check_s": held["check_s"],
             "restore_s_less_checks": restore_s - held["check_s"],
-            "remesh_load_s": place_s, "engine_calls": calls,
+            "remesh_load_s": place_s, "kept_for_phase_19_s": keep_s,
+            "engine_calls": calls,
             "launches": launches,
             "kernels": _held(held, launches, CKPT_KERNELS[2:]),
             "max_memory_allocated": peak}
 
 
-def mesh_train_phase(smi: str, seed: int, src: str, run_a: list) -> dict:
+def mesh_train_phase(smi: str, seed: int, src: str, run_a: list,
+                     keep: dict = None, run_a_leaves: dict = None) -> dict:
     """Phase 18: the multi-device layer (M10d, ``pod`` and ``data``) on two
     ranks of the one card (see the module docstring).  ``run_a``: phase
     14's one-device ``(loss, grad_norm)`` a step on the same weights and
-    global batches."""
+    global batches; ``run_a_leaves`` its step 0's leaf gradient norms.
+    ``keep``: see ``mesh_resume``."""
     import shutil
     import tempfile
 
@@ -4039,7 +4156,7 @@ def mesh_train_phase(smi: str, seed: int, src: str, run_a: list) -> dict:
                   f"(b)'s ranks hold {[o['resident_share'] for o in fsdp]} "
                   "of the state")
             t0 = time.perf_counter()
-            resume = mesh_resume(seed, tmp, fsdp[0]["losses"])
+            resume = mesh_resume(seed, tmp, fsdp[0]["losses"], keep)
             resume_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4061,6 +4178,9 @@ def mesh_train_phase(smi: str, seed: int, src: str, run_a: list) -> dict:
                  "one_device_losses": [a for a, _ in run_a],
                  "one_device_grad_norms": [g for _, g in run_a],
                  "gaps": gaps, "grad_norm_gaps": norm_gaps,
+                 "o2_leaves": (o2_leaves(run_a_leaves,
+                                         fsdp[0]["step0_leaf_norms"])
+                               if run_a_leaves else None),
                  "tol": LM_CARD_CPU_TOL, "ranks": fsdp},
         "resume": resume,
         "launches": {k: v["launches"] for k, v in kernels.items()},
@@ -4072,6 +4192,553 @@ def mesh_train_phase(smi: str, seed: int, src: str, run_a: list) -> dict:
         "seconds_split": {"oracle": oracle_s, "ranks": ranks_s,
                           "resume": resume_s},
         "seconds": time.perf_counter() - t_phase}
+
+
+# -- phase 19: the model axis (M10d, second half) -----------------------------
+MM_SEQ, MM_GEN = 4096, 32  # (a): granite-8b, 2 x 4096 prompts, 32 tokens
+MM_MOE = (("llama4-scout-17b-a16e", 1, (1, 2)),  # (b): model-axis EP
+          ("deepseek-v3-671b", 4, (2, 2)))  # full EP over data x model
+MM_MOE_SEQ = 2048
+MM_SMOKE_SEQ = 64
+MM_STEPS = 4  # (c): granite on (2, 2), phase 14's cell
+# (c)'s grad norms against phase 14's one-device run A, relative.  The
+# reference's own model axis moves its smoke granite's grad norm by 2.7%
+# (ROADMAP R15); the port's (2, 2) step against the reference's on the
+# CPU read 3.6e-6 to 1.5e-3 (tests/test_torch_model_axis.py); the card's
+# one-device embedding gradient is itself 2.6% from the split batch's in
+# norm (O2).  Set before the first chip call of this phase (PERF.md)
+MODEL_AXIS_NORM_TOL = 2.0 ** -5
+
+
+class _Collectives:
+    """The ``model`` axis's collectives timed with the card synchronized
+    around each (``sharding``'s four primitives), while the block runs."""
+
+    def __init__(self):
+        self.s, self.calls = 0.0, 0
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.distributed import sharding as sh
+
+        self.saved = {n: getattr(sh, n) for n in
+                      ("_gather", "_scatter", "_summed", "_exchanged")}
+
+        def timed(fn):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    self.s += time.perf_counter() - t0
+                    self.calls += 1
+            return run
+
+        for n, fn in self.saved.items():
+            setattr(sh, n, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import sharding as sh
+
+        for n, fn in self.saved.items():
+            setattr(sh, n, fn)
+
+
+def _mm_mesh(shape, device: str = MT_DEVICE):
+    from repro_torch.launch.mesh import make_local_mesh
+
+    return make_local_mesh(data=shape[0], model=shape[1], device_type=device)
+
+
+def _mm_prompts(cfg, b: int, s: int, seed: int):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s)))
+
+
+def _last_kept(model, rows: int, s: int) -> list:
+    """For each of this rank's rows whose last token this rank's MoE
+    slices routed: whether all its pairs were kept, in each MoE layer's
+    last call (``moe_stats``' ``keep`` from token ``first``)."""
+    out = []
+    for _, _, layer in model.layers():
+        st = layer.moe_stats
+        if layer.kind != "moe" or not st or "keep" not in st:
+            continue
+        keep, first = st["keep"].cpu(), st["first"]
+        for r in range(rows):
+            i = r * s + s - 1 - first
+            if 0 <= i < keep.shape[0]:
+                out.append([r, bool(keep[i].all())])
+    return out
+
+
+def mm_serve(arch: str, layers, shape, seed: int, b: int, s: int,
+             gen: int, kv: bool) -> dict:
+    """(a) and (b) on a rank: ``arch`` at full width cut to ``layers``
+    served on a ``(data, model)`` mesh of the card's ranks, each rank
+    drawing only its block of the weights (``build_compute_blocks``:
+    that block of the parent's one-device model from ``seed``).  The
+    prefill of ``b
+    x s`` prompts (warm, then timed), its last-token logits; the
+    consistency arm (``prefill(S - 1)`` + ``decode_step``); with ``kv``
+    this rank's cache blocks through ``KVCacheCodec`` (every K5 and K3
+    call held at once to its plain version, ``kv_kernels_held``);
+    ``gen - 1`` greedy steps timed; one more prefill and 4 decode steps
+    with the collectives timed; the MoE's drops."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.train import (
+        build_compute_blocks,
+        make_serve_fns,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_lm import compress_cache
+    from repro_torch.serving.workloads import KVCacheCodec
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = family_config(arch, layers)
+    full_width(arch, cfg)
+    mesh = _mm_mesh(shape)
+    t0 = time.perf_counter()
+    model = build_compute_blocks(cfg, mesh, MT_DEVICE, torch.Generator(
+        device=MT_DEVICE).manual_seed(seed))
+    prefill_fn, decode_fn = make_serve_fns(model, mesh)
+    init_s = time.perf_counter() - t0
+    for _, _, layer in model.layers():
+        if layer.kind == "moe":
+            layer.moe_stats = {}
+    rank = dist.get_rank()
+    rows = b // shape[0]
+    tokens = _mm_prompts(cfg, b, s, seed)
+    mine = tokens[(rank // shape[1]) * rows:][:rows]
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    prefill_fn({"tokens": tokens}, s + gen)  # warm
+    torch.cuda.synchronize()
+    start.record()
+    logits, cache = prefill_fn({"tokens": tokens}, s + gen)
+    stop.record()
+    stop.synchronize()
+    prefill_ms = start.elapsed_time(stop)
+    kinds = [layer.kind for _, _, layer in model.layers()]
+    drops = {"prefill": _moe_stats(model), "prefill_last_kept":
+             _last_kept(model, rows, s),
+             # one MoE layer, the last: only the last token's own pairs
+             # reach its logits
+             "moe_last_only": kinds.count("moe") == 1 and kinds[-1] == "moe"}
+    short_logits, short = prefill_fn({"tokens": tokens[:, :s - 1]}, s + gen)
+    del short_logits
+    with torch.inference_mode():
+        step_logits, _ = decode_fn(short, mine[:, s - 1:], s - 1)
+    drops["decode"] = _moe_stats(model)
+    drops["decode_last_kept"] = _last_kept(model, rows, 1)
+    del short
+    gap = rel_l2(step_logits, logits)
+    kv_out = None
+    if kv:
+        ops.reset_launches()
+        with kv_kernels_held() as held, torch.inference_mode():
+            raw, comp = compress_cache(KVCacheCodec(device=MT_DEVICE),
+                                       cache, s)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        t = held["dct_quant"]
+        check(launches == {"dct_quant": t["calls"], "idct_dequant":
+                           held["idct_dequant"]["calls"]}
+              and t["calls"] > 0 and t["flips"] == 0
+              and held["idct_dequant"]["rel_err"] <= REL_TOL,
+              f"(a)'s rank {rank}: K5/K3 on its cache blocks against their "
+              f"plain versions: {held}, launches {launches}")
+        kv_out = {"raw_bytes": raw, "compressed_bytes": comp,
+                  "launches": launches, "held": held,
+                  "cache_k_shape": list(cache["group0"]["k"].shape)}
+    tok = logits.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(gen - 1):
+        step, cache = decode_fn(cache, tok, s + i)
+        tok = step.argmax(-1, keepdim=True)
+    stop.record()
+    stop.synchronize()
+    decode_ms = start.elapsed_time(stop) / (gen - 1)
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(step).all())
+    del cache
+    with _Collectives() as coll:
+        logits2, cache = prefill_fn({"tokens": tokens}, s + 4)
+        pre_coll = (coll.s, coll.calls)
+        tok = logits2.argmax(-1, keepdim=True)
+        for i in range(4):
+            step, cache = decode_fn(cache, tok, s + i)
+            tok = step.argmax(-1, keepdim=True)
+    del cache, logits2
+    out = {"arch": arch, "layers": layers, "mesh": list(shape),
+           "rank": rank, "rows": [rows * (rank // shape[1]), rows],
+           "init_s": init_s, "prefill_ms": prefill_ms,
+           "decode_ms_per_token": decode_ms, "consistency": gap,
+           "finite": finite, "moe": drops, "kv": kv_out,
+           "collective_ms": {"prefill": pre_coll[0] * 1e3,
+                             "prefill_calls": pre_coll[1],
+                             "decode_4_steps": (coll.s - pre_coll[0]) * 1e3,
+                             "decode_calls": coll.calls - pre_coll[1]},
+           "logits": logits.float().cpu().numpy(),
+           "held_parameter_bytes": sum(p.numel() * p.element_size()
+                                       for p in model.parameters()),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del model, prefill_fn, decode_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_stats(model) -> dict:
+    return {f"{g}.{li}": {k: int(v) for k, v in layer.moe_stats.items()
+                          if k in ("dropped", "experts_hit")}
+            for g, li, layer in model.layers()
+            if layer.kind == "moe" and layer.moe_stats}
+
+
+def mm_smoke_serve(arch: str, shape, seed: int, device: str) -> dict:
+    """The smoke ``arch`` drawn on the CPU from ``seed`` and served on a
+    ``(data, model)`` mesh of ranks on ``device``: this rank's rows'
+    prefill logits (2 x ``MM_SMOKE_SEQ``) and one decode step's."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.train import make_serve_fns
+    from repro_torch.models import build_model
+
+    cfg = get_smoke(arch)
+    model = build_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
+    model.to(device)
+    prefill_fn, decode_fn = make_serve_fns(model, _mm_mesh(shape, device))
+    tokens = _mm_prompts(cfg, 2, MM_SMOKE_SEQ, seed)
+    logits, cache = prefill_fn({"tokens": tokens}, MM_SMOKE_SEQ + 1)
+    step, _ = decode_fn(cache, logits.argmax(-1, keepdim=True),
+                        MM_SMOKE_SEQ)
+    return {"prefill": logits.float().cpu().numpy(),
+            "decode": step.float().cpu().numpy()}
+
+
+def mm_train(seed: int) -> dict:
+    """(c) on a rank: phase 14's cell (granite-8b's width, 2 layers, a
+    global batch of 2 x 4096) on ``(data 2, model 2)``: ``MM_STEPS``
+    steps from the seed's weights, losses, grad norms, step ms (host
+    clock, the card synchronized), the share of the state this rank
+    holds, peak memory."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
+    from repro_torch.distributed.train import (
+        build_compute_blocks,
+        make_train_step,
+    )
+    from repro_torch.models.convert import param_specs_by_name
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = family_config(TRAIN_ARCH, TRAIN_LAYERS)
+    full_width(TRAIN_ARCH, cfg)
+    mesh = _mm_mesh((2, 2))
+    # this rank's compute blocks of phase 14's weights
+    model = build_compute_blocks(cfg, mesh, MT_DEVICE, torch.Generator(
+        device=MT_DEVICE).manual_seed(seed))
+    whole = sum(math.prod(s.shape) * (s.dtype.itemsize + 8)
+                for s in param_specs_by_name(model).values())
+    ts = make_train_step(model, AdamW(AdamWConfig(**TRAIN_OPT)), mesh)
+    st = ts.init()
+    resident = (sum(p.numel() * p.element_size() for p in model.parameters())
+                + sum(t.numel() * t.element_size() for t in
+                      (*st.m.values(), *st.v.values())))
+    losses, norms, step_ms = [], [], []
+    for batch in train_batches(cfg, 2, TRAIN_SEQ, seed, MM_STEPS, "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, met = ts.step_fn(st, ts.local_batch(batch))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "resident_share": resident / whole, "rank": dist.get_rank(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del model, st, ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mm_moe_step(seed: int) -> dict:
+    """(c), second part, on a rank: one step of llama4-scout's MoE layer
+    (full width, 1 layer, each rank drawing its block) under model-axis
+    EP on ``(data 1, model 2)``, 2 x ``MM_MOE_SEQ``, m and v in bf16 (the
+    optimizer's setting for the largest configurations: two ranks' fp32
+    moments, 17 GB each, did not fit the card beside their weights); then
+    the weights put back from the host and the same step again.  Returns
+    both losses, grad norms and the weights' digests, and the peak
+    memory."""
+    import torch
+
+    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
+    from repro_torch.distributed.train import (
+        build_compute_blocks,
+        make_train_step,
+    )
+
+    arch = MM_MOE[0][0]
+    cfg = family_config(arch, 1)
+    full_width(arch, cfg)
+    mesh = _mm_mesh((1, 2))
+    torch.cuda.reset_peak_memory_stats()
+    model = build_compute_blocks(cfg, mesh, MT_DEVICE, torch.Generator(
+        device=MT_DEVICE).manual_seed(seed))
+    ts = make_train_step(model, AdamW(AdamWConfig(
+        **TRAIN_OPT, acc_dtype=torch.bfloat16)), mesh)
+    start = {n: p.detach().to("cpu", copy=True)
+             for n, p in model.named_parameters()}
+    batch = train_batches(cfg, 2, MM_MOE_SEQ, seed, 1, "cpu")[0]
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+        st, met = ts.step_fn(ts.init(), ts.local_batch(batch))
+        runs.append({"loss": float(met["loss"]),
+                     "grad_norm": float(met["grad_norm"]),
+                     "params": _leaf_digests(dict(
+                         model.named_parameters()))})
+    peak = torch.cuda.max_memory_allocated()
+    del model, ts, st, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "runs": runs, "max_memory_allocated": peak}
+
+
+def mm_restart(seed: int, restored: dict) -> dict:
+    """(d) on a rank: phase 18(c)'s restored state (the parent's host tree,
+    in shared memory: no kernel runs here) ``remesh``-ed onto ``(data 1,
+    model 2)``, loaded, and steps 2-3 taken on the global batches."""
+    import torch
+
+    from repro_torch.distributed.elastic import remesh
+    from repro_torch.distributed.optimizer import AdamW, AdamWConfig
+    from repro_torch.distributed.train import make_train_step
+    from repro_torch.models.convert import load_train_state
+
+    cfg, model = _mesh_model(seed)
+    opt = AdamW(AdamWConfig(**TRAIN_OPT))
+    ts = make_train_step(model, opt, _mm_mesh((1, 2)))
+    t0 = time.perf_counter()
+    specs = model.param_specs()
+    like = {"params": specs, "m": specs, "v": specs}
+    placed = remesh(restored["tree"], like, ts.policy)
+    step = restored["step"]
+    st = load_train_state(_tree_map(lambda d: d.to_local(), placed), model,
+                          ts.init(), step, opt)
+    del placed
+    load_s = time.perf_counter() - t0
+    losses = []
+    for batch in train_batches(cfg, 2, TRAIN_SEQ, seed, MT_FSDP_STEPS,
+                               "cpu")[step:]:
+        st, met = ts.step_fn(st, ts.local_batch(batch))
+        losses.append(float(met["loss"]))
+    del model, st, ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step": step, "losses": losses, "load_s": load_s}
+
+
+def _one_device_logits(seed: int) -> "torch.Tensor":
+    """(a)'s one-device arm in the parent: the same weights and prompts,
+    the prefill's last-token logits."""
+    import torch
+
+    from repro_torch.distributed.train import make_serve_fns
+    from repro_torch.models import build_model
+
+    cfg = family_config(TRAIN_ARCH, TRAIN_LAYERS)
+    model = build_model(cfg, device=MT_DEVICE, generator=torch.Generator(
+        device=MT_DEVICE).manual_seed(seed))
+    prefill_fn, _ = make_serve_fns(model)
+    logits, cache = prefill_fn({"tokens": _mm_prompts(cfg, 2, MM_SEQ,
+                                                      seed)}, MM_SEQ + 1)
+    logits = logits.float().cpu()
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return logits
+
+
+def mesh_model_phase(smi: str, seed: int, src: str, run_a: list,
+                     restored: dict, uninterrupted: list) -> dict:
+    """Phase 19: the ``model`` axis (see the module docstring).  ``run_a``:
+    phase 14's one-device ``(loss, grad_norm)`` a step; ``restored``:
+    phase 18(c)'s restored state on the host (``mesh_resume``'s
+    ``keep``); ``uninterrupted``: phase 18(b)'s losses."""
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    split = {}
+    with exact_bf16_sums() as precision:
+        t0 = time.perf_counter()
+        one_device = _one_device_logits(seed)
+        split["one_device"] = time.perf_counter() - t0
+        scout, deep = MM_MOE
+        t0 = time.perf_counter()
+        two = mesh_ranks(src, [
+            ("mm_moe_step", {"seed": seed}),  # first: the most memory
+            ("mm_serve", {"arch": TRAIN_ARCH, "layers": TRAIN_LAYERS,
+                          "shape": (1, 2), "seed": seed, "b": 2,
+                          "s": MM_SEQ, "gen": MM_GEN, "kv": True}),
+            ("mm_serve", {"arch": scout[0], "layers": scout[1],
+                          "shape": scout[2], "seed": seed, "b": 2,
+                          "s": MM_MOE_SEQ, "gen": MM_GEN, "kv": False}),
+            ("mm_smoke_serve", {"arch": "llama4_scout_17b_a16e",
+                                "shape": (1, 2), "seed": seed,
+                                "device": MT_DEVICE}),
+            ("mm_restart", {"seed": seed, "restored": restored})],
+            world=2, phase="phase 19")
+        split["ranks_1x2"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        four = mesh_ranks(src, [
+            ("mm_serve", {"arch": deep[0], "layers": deep[1],
+                          "shape": deep[2], "seed": seed, "b": 2,
+                          "s": MM_MOE_SEQ, "gen": MM_GEN, "kv": False}),
+            ("mm_smoke_serve", {"arch": "deepseek_v3_671b",
+                                "shape": (2, 2), "seed": seed,
+                                "device": MT_DEVICE}),
+            ("mm_train", {"seed": seed})], world=4, phase="phase 19")
+        split["ranks_2x2"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = {arch: mesh_ranks(src, [("mm_smoke_serve", {
+            "arch": arch, "shape": shape, "seed": seed, "device": "cpu"})],
+            world=shape[0] * shape[1], device="cpu", phase="phase 19")
+            for arch, shape in (("llama4_scout_17b_a16e", (1, 2)),
+                                ("deepseek_v3_671b", (2, 2)))}
+        split["ranks_cpu"] = time.perf_counter() - t0
+
+    # (a) granite on (1, 2): the one-device logits, the consistency, K5/K3
+    dense = [r[1] for r in two]
+    for out in dense:
+        gap = rel_l2(torch.from_numpy(out["logits"]), one_device)
+        out["vs_one_device"] = gap
+        check(out["finite"] and gap <= LM_CONSISTENCY_TOL
+              and out["consistency"] <= LM_CONSISTENCY_TOL,
+              f"(a) rank {out['rank']}: logits {gap} from the one-device "
+              f"run, consistency {out['consistency']} (bound "
+              f"{LM_CONSISTENCY_TOL})")
+    # (b) the MoE families: consistency unless the last token's pairs are
+    # dropped in one arm and kept in the other (decided before the run)
+    moe = [[r[2] for r in two], [r[0] for r in four]]
+    for outs in moe:
+        # each row's last token is routed by one rank: every rank's
+        # rows, in the prefill's and the decode's arm
+        kept = [k for out in outs for arm in ("prefill_last_kept",
+                                              "decode_last_kept")
+                for _, k in out["moe"][arm]]
+        held = all(kept) and outs[0]["moe"]["moe_last_only"]
+        for out in outs:
+            out["last_token_kept_both_arms"] = all(kept)
+            out["consistency_held"] = held
+            check(out["finite"] and (not held or out["consistency"]
+                                     <= LM_CONSISTENCY_TOL),
+                  f"(b) {out['arch']} rank {out['rank']}: finite "
+                  f"{out['finite']}, consistency {out['consistency']}, "
+                  f"every last token's pairs kept in both arms {held}")
+    smoke = {}
+    for arch, card in (("llama4_scout_17b_a16e", [r[3] for r in two]),
+                       ("deepseek_v3_671b", [r[1] for r in four])):
+        gaps = [max(rel_l2(torch.from_numpy(c[k]), torch.from_numpy(
+            p[0][k])) for k in ("prefill", "decode"))
+                for c, p in zip(card, cpu[arch])]
+        smoke[arch] = {"card_vs_cpu": gaps, "tol": LM_CARD_CPU_TOL}
+        check(max(gaps) <= LM_CARD_CPU_TOL,
+              f"(b) smoke {arch} on ranks, card against CPU: {gaps}")
+    # (c) granite on (2, 2) against phase 14's run A; scout's step twice
+    train = [r[2] for r in four]
+    gaps = [abs(l - a) / abs(a) for l, (a, _) in
+            zip(train[0]["losses"], run_a)]
+    norm_gaps = [abs(g - a) / abs(a) for g, (_, a) in
+                 zip(train[0]["grad_norms"], run_a)]
+    check(all(o["losses"] == train[0]["losses"]
+              and o["grad_norms"] == train[0]["grad_norms"] for o in train)
+          and max(gaps[1:]) <= LM_CARD_CPU_TOL
+          and max(norm_gaps) <= MODEL_AXIS_NORM_TOL
+          and all(0.2 <= o["resident_share"] <= 0.3 for o in train),
+          f"(c) granite on (2, 2): losses {train[0]['losses']}, gaps {gaps}, "
+          f"norm gaps {norm_gaps}, shares "
+          f"{[o['resident_share'] for o in train]}")
+    ep = [r[0] for r in two]
+    for out in ep:
+        a, b = out["runs"]
+        check(math.isfinite(a["loss"]) and a == b,
+              f"(c) scout's MoE step under EP twice: {a['loss']} "
+              f"{b['loss']}, weights equal {a['params'] == b['params']}")
+        out["runs"] = [{k: v for k, v in run.items() if k != "params"}
+                       for run in out["runs"]]
+    # (d) the restart onto the model axis against 18(b)'s step 3
+    restart = two[0][4]
+    rel = abs(restart["losses"][-1] - uninterrupted[-1]) / abs(
+        uninterrupted[-1])
+    check(all(r[4]["losses"] == restart["losses"] for r in two)
+          and rel <= TRAIN_RESUME_TOL,
+          f"(d) the restart onto (1, 2): {restart['losses']} against "
+          f"{uninterrupted}, step 3 {rel}")
+
+    from repro_torch.models import build_model
+
+    meta = build_model(family_config(TRAIN_ARCH, TRAIN_LAYERS),
+                       device="meta")
+    bounds = {"a": family_bounds(meta, 2, MM_SEQ, MM_SEQ + MM_GEN),
+              "c": train_bound(meta, 2 * TRAIN_SEQ, 2, TRAIN_SEQ)}
+    for arch, layers, _ in MM_MOE:
+        bounds[arch] = family_bounds(build_model(family_config(
+            arch, layers), device="meta"), 2, MM_MOE_SEQ,
+            MM_MOE_SEQ + MM_GEN)
+    kv = [o["kv"] for o in dense]
+    launches = {k: sum(o["launches"].get(k, 0) for o in kv)
+                for k in ("dct_quant", "idct_dequant")}
+    errs = {"dct_quant": max(o["held"]["dct_quant"]["max_abs_err"]
+                             for o in kv),
+            "idct_dequant": max(o["held"]["idct_dequant"]["max_abs_err"]
+                                for o in kv)}
+    for out in dense + moe[0] + moe[1]:
+        out["logits"] = None
+    return {
+        "phase": "mesh_model", "nvidia_smi": smi, "device": "cuda:0",
+        "backend": "gloo", "wire": MT_WIRE, "precision": precision,
+        "dense_serve": {"arch": TRAIN_ARCH, "layers": TRAIN_LAYERS,
+                        "mesh": [1, 2], "batch": [2, MM_SEQ], "gen": MM_GEN,
+                        "tol": LM_CONSISTENCY_TOL, "ranks": dense},
+        "moe_serve": {"batch": [2, MM_MOE_SEQ], "ranks": moe,
+                      "smoke_card_vs_cpu": smoke},
+        "train": {"mesh": [2, 2], "global_batch": [2, TRAIN_SEQ],
+                  "one_device_losses": [a for a, _ in run_a],
+                  "one_device_grad_norms": [g for _, g in run_a],
+                  "gaps": gaps, "grad_norm_gaps": norm_gaps,
+                  "tol": [LM_CARD_CPU_TOL, MODEL_AXIS_NORM_TOL],
+                  "ranks": train, "moe_step_twice": ep},
+        "restart": {"mesh": [1, 2], "step": restart["step"],
+                    "losses": restart["losses"],
+                    "uninterrupted": uninterrupted, "rel": rel,
+                    "tol": TRAIN_RESUME_TOL,
+                    "load_s": [r[4]["load_s"] for r in two]},
+        "bounds": bounds, "launches": launches, "max_abs_err": errs,
+        "what": "prefill_ms: CUDA events around one warm prefill_fn on "
+        "each rank (both ranks share the card); decode_ms_per_token: "
+        f"{MM_GEN - 1} greedy steps / {MM_GEN - 1}; collective_ms: one more "
+        "prefill and 4 decode steps with the card synchronized around each "
+        "collective; step_ms: host clock around step_fn, synchronized",
+        "seconds_split": split, "seconds": time.perf_counter() - t_phase}
 
 
 def _flat(tree, prefix=""):
@@ -5282,15 +5949,28 @@ def main() -> None:
               "does not train " + " and ".join(a for a, _, _, _ in ST_RUNS)})
 
     # -- 18. mesh_train -----------------------------------------------------------
-    mtrain = None
+    mtrain = mmodel = None
+    run_a = [(a["loss"], a["grad_norm"]) for a in train["run_a"]]
+    axis = os.path.isfile(os.path.join(src, "repro_torch", "models",
+                                       "moe_distributed.py"))
+    keep = {} if axis else None  # 18(c)'s restored state, for phase 19
     if os.path.isfile(os.path.join(src, "repro_torch", "launch", "mesh.py")):
-        mtrain = mesh_train_phase(smi, args.seed, src,
-                                  [(a["loss"], a["grad_norm"])
-                                   for a in train["run_a"]])
+        mtrain = mesh_train_phase(smi, args.seed, src, run_a, keep,
+                                  train["run_a_step0_leaf_norms"])
         emit(mtrain)
     else:  # another checkout's port may predate the multi-device layer
         emit({"phase": "mesh_train",
               "skipped": "the port has no repro_torch.launch.mesh"})
+
+    # -- 19. mesh_model -----------------------------------------------------------
+    if axis and mtrain is not None:
+        mmodel = mesh_model_phase(smi, args.seed, src, run_a, keep,
+                                  mtrain["fsdp"]["ranks"][0]["losses"])
+        emit(mmodel)
+    else:  # another checkout's port may refuse model > 1
+        emit({"phase": "mesh_model", "skipped": "the port has no "
+              "repro_torch.models.moe_distributed"})
+    keep = None
 
     # -- the kernels line, and the last line -------------------------------------
     counts_of = {"main": launches, "encode": elaunches,
@@ -5326,6 +6006,13 @@ def main() -> None:
         if mtrain is not None and name in CKPT_KERNELS:  # phase 18's
             entry["mesh_train_launches"] = mtrain["launches"][name]
             entry["mesh_train_max_abs_err"] = mtrain["max_abs_err"][name]
+        if mmodel is not None and name in lm_held:  # phase 19's (a)
+            entry["mesh_model_launches"] = mmodel["launches"][name]
+            entry["mesh_model_max_abs_err"] = mmodel["max_abs_err"][name]
+        if mmodel is not None and name in CKPT_KERNELS[2:]:
+            # phase 19's restart takes the state phase 18(c) restored
+            # (its launches are phase 18's)
+            entry["mesh_model_restore_shared_with_phase_18"] = True
         kernels.append(entry)
     tc.close()
     emit({"kernels": kernels})

@@ -8,9 +8,15 @@ Two spawned processes, both on ``cuda:0``, in a gloo group on 127.0.0.1
 multi-device layer uses, and those it does not, runs once on small CUDA
 tensors (``all_reduce`` SUM in f32, bf16, int8 and int32 and MAX in f32,
 ``all_gather`` in the same dtypes, ``reduce_scatter_tensor``,
-``reduce_scatter``, ``all_gather_into_tensor``, ``broadcast``); then 256
-MB of f32 by ``all_reduce`` and by ``all_gather`` (host clock, the card
-synchronized, after one warm call); then a ``DeviceMesh`` on ``cuda``, a
+``reduce_scatter``, ``all_gather_into_tensor``, ``broadcast``,
+``all_to_all_single`` in f32 and bf16, each output checked); then 256
+MB of f32 by ``all_reduce`` and by ``all_gather``, and the model axis's
+three collectives (``all_to_all_single``, ``reduce_scatter_tensor``,
+``all_gather_into_tensor``) on bf16 buffers of 64 MB and 470 MB a rank
+(470 MB: deepseek-v3's full expert-parallel send buffer at 2 x 2048, 256
+experts x 64 slots x 7168 x 2 B, rounded up), each timed (host clock,
+the card synchronized, after one warm call) and its output checked; then
+a ``DeviceMesh`` on ``cuda``, a
 ``DTensor`` made from local shards and its ``full_tensor()``.  Each rank
 prints each step as it starts and ends, so a collective that hangs shows
 as the last ``start`` line; a 20 s group timeout turns a hung gloo
@@ -90,6 +96,18 @@ def _work(rank: int, world: int, port: int, q) -> None:
         dist.broadcast(t, 0)
         return t.tolist()
 
+    def to_all(dt):
+        def run():
+            # rank r sends world blocks, block j holding r * world + j
+            src = torch.arange(world, device="cuda").to(dt) + rank * world
+            out = torch.empty_like(src)
+            dist.all_to_all_single(out, src)
+            want = torch.arange(world, device="cuda") * world + rank
+            return bool(torch.equal(out.float(), want.float()))
+        return run
+
+    step("all_to_all_single_f32", to_all(torch.float32))
+    step("all_to_all_single_bf16", to_all(torch.bfloat16))
     step("all_reduce_max_f32", reduce_max)
     step("reduce_scatter_tensor", scatter_tensor)
     step("reduce_scatter", scatter_list)
@@ -108,6 +126,44 @@ def _work(rank: int, world: int, port: int, q) -> None:
     step("all_reduce_256MB_s", lambda: seconds(dist.all_reduce))
     step("all_gather_256MB_s", lambda: seconds(lambda t: dist.all_gather(
         [torch.empty_like(t) for _ in range(world)], t)))
+
+    def model_axis(name, mb):
+        # bf16 elements a rank: a multiple of world * 1024
+        n = (mb << 20) // 2 // (world * 1024) * (world * 1024)
+        src = torch.full((n,), float(rank + 1), dtype=torch.bfloat16,
+                         device="cuda")
+        if name == "all_to_all_single":
+            out = torch.empty_like(src)
+            fn = lambda: dist.all_to_all_single(out, src)  # noqa: E731
+            want = lambda: torch.equal(  # block j came from rank j
+                out.view(world, -1)[:, 0].float(),
+                torch.arange(1, world + 1, device="cuda").float())
+        elif name == "reduce_scatter_tensor":
+            out = torch.empty(n // world, dtype=src.dtype, device="cuda")
+            fn = lambda: dist.reduce_scatter_tensor(out, src)  # noqa: E731
+            want = lambda: bool((out == world * (world + 1) // 2).all())
+        else:
+            out = torch.empty(n * world, dtype=src.dtype, device="cuda")
+            fn = lambda: dist.all_gather_into_tensor(out, src)  # noqa: E731
+            want = lambda: torch.equal(
+                out.view(world, -1)[:, 0].float(),
+                torch.arange(1, world + 1, device="cuda").float())
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        ok = bool(want())
+        del src, out
+        torch.cuda.empty_cache()
+        return {"s": s, "bytes_a_rank": 2 * n, "ok": ok}
+
+    for mb in (64, 470):
+        for name in ("all_to_all_single", "reduce_scatter_tensor",
+                     "all_gather_into_tensor"):
+            step(f"{name}_bf16_{mb}MB",
+                 lambda name=name, mb=mb: model_axis(name, mb))
 
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Replicate, Shard

@@ -6,12 +6,13 @@ checkpoints), :mod:`~repro_torch.distributed.compression` (the gradient
 compressor: its transform, the replica-axis mean in one process and on
 ranks, and the collective ``all_reduce``),
 :mod:`~repro_torch.distributed.optimizer` (AdamW),
-:mod:`~repro_torch.distributed.sharding` (the sharding policy),
+:mod:`~repro_torch.distributed.sharding` (the sharding policy, the
+``model`` axis's collectives and ``ModelAxis``),
 :mod:`~repro_torch.distributed.train` (the train step on one device,
-pod-compressed across ranks and FSDP over ``data``; ``make_serve_fns``)
-and :mod:`~repro_torch.distributed.elastic` (``remesh``,
-``validate_mesh_for``, ``StepTimer``).  The ``model`` axis (tensor
-parallelism, the distributed MoE) is not ported.
+pod-compressed across ranks, FSDP over ``data`` with tensor, sequence and
+expert parallelism over ``model``; ``make_serve_fns`` on a device or a
+mesh) and :mod:`~repro_torch.distributed.elastic` (``remesh``,
+``validate_mesh_for``, ``StepTimer``).
 """
 from repro_torch.distributed.sharding import (
     ShardingPolicy,

@@ -24,31 +24,44 @@ it) and ``compression``:
     parameter, its slice of the reference's ``[P, ...]``); the loss
     reported is the mean over the replicas.
   * **FSDP** — any other mesh of more than one rank (``data`` > 1, or
-    ``pod`` > 1 uncompressed: the reference's ``fsdp_all``): each rank
-    holds only its policy block of every parameter and of its m and v.  A
-    layer's weights are gathered by a forward pre-hook on the layer and
-    dropped by its forward hook, so under activation checkpointing the
-    recompute gathers them again; the top-level weights (embeddings, the
-    final norm) are gathered around the loss.  The gradients come back to
-    the blocks averaged over the global batch.  The gather and its
-    gradient are one ``autograd.Function`` (``_Gather``) over
-    ``dist.all_gather`` and ``dist.all_reduce`` (the all-reduced full
-    gradient, then this rank's block), not DTensor: with gloo, which runs
-    the ranks that share one card, a DTensor's collectives on CUDA
-    tensors hung (``mesh_wire_probe.py``).  The step is the one-device
-    step on the global batch, up to reduction order.
-  * ``model`` > 1 raises :data:`MULTI_DEVICE`; so does a pod-compressed
-    mesh with ``data`` > 1.
+    ``pod`` > 1 uncompressed: the reference's ``fsdp_all``; with
+    ``model`` > 1 tensor, sequence and expert parallelism besides): each
+    rank holds only its policy block of every parameter and of its m and
+    v.  A layer's weights are gathered by a forward pre-hook on the layer
+    and dropped by its forward hook, so under activation checkpointing
+    the recompute gathers them again; the top-level weights (embeddings,
+    the final norm) are gathered around the loss.  A gather crosses the
+    data-parallel ranks only: it gives the rank its ``model`` block (the
+    layers' TP weights; a full-EP expert stack is never gathered).  The
+    gradients come back to the blocks averaged over the global batch:
+    each is summed over the ranks that compute with the same block (the
+    data-parallel ranks; every rank for a weight whole on ``model``,
+    whose ranks each saw a part of the sequence or of the heads), divided
+    by the data-parallel count, and this rank's block kept.  The gather
+    and its gradient are one ``autograd.Function`` (``_Gather``) over
+    ``dist.all_gather`` and ``dist.all_reduce``, not DTensor: with gloo,
+    which runs the ranks that share one card, a DTensor's collectives on
+    CUDA tensors hung (``mesh_wire_probe.py``).  The step is the
+    one-device step on the global batch, up to reduction order (the
+    dense MoE routes the global batch under one capacity, gathered over
+    the data-parallel ranks), except where ``model`` > 1 takes the
+    sharded MoE with its own capacity rule, as the reference's does.
+  * The hybrid, RWKV and encoder-decoder families on ``model`` > 1, and
+    a pod-compressed mesh with ``data`` > 1 or ``model`` > 1, raise
+    :data:`MULTI_DEVICE`.
 
-The mesh's data-parallel ranks are the whole process group (the ``model``
-axis is 1).  Each rank passes its own rows of the global batch
-(``TrainStep.local_batch``).
+Each rank passes its own rows of the global batch
+(``TrainStep.local_batch``: the data-parallel ranks split them; the
+``model`` ranks of one data rank take the same rows).
 
-``make_serve_fns`` gives the serving functions, run in inference mode.
+``make_serve_fns`` gives the serving functions, run in inference mode,
+on one device or on a mesh (each rank its ``model`` block of the
+weights, its rows of the batch).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -62,11 +75,14 @@ from repro_torch.distributed.compression import (
 from repro_torch.distributed.optimizer import AdamW, OptState
 from repro_torch.serving.engine import resolve_device
 
-__all__ = ["TrainStep", "make_train_step", "make_serve_fns", "MULTI_DEVICE"]
+__all__ = ["TrainStep", "make_train_step", "make_serve_fns",
+           "build_compute_blocks", "MULTI_DEVICE"]
 
-MULTI_DEVICE = ("ROADMAP queue 1, item 6c-ii (M10d, second half: the model "
-                "axis — tensor parallelism, the distributed MoE, serving on "
-                "a mesh)")
+MULTI_DEVICE = ("ROADMAP queue 1, item 6c-iii (M10d, the rest of the model "
+                "axis: the hybrid, RWKV and encoder-decoder families on it, "
+                "and the pod-compressed step with data or model above 1)")
+# the families whose layers the model axis does not split yet
+UNSPLIT_FAMILIES = ("hybrid", "ssm", "audio")
 
 
 @dataclasses.dataclass
@@ -93,15 +109,10 @@ class TrainStep:
     def local_batch(self, batch: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
         """This rank's rows of a global batch: the data-parallel ranks
-        (``pod`` major, then ``data``) split its rows evenly, in order."""
-        if self.policy is None:
-            return batch
-        n, i = dist.get_world_size(), dist.get_rank()
-        rows = next(iter(batch.values())).shape[0]
-        if rows % n:
-            raise ValueError(f"a batch of {rows} rows over {n} ranks")
-        k = rows // n
-        return {key: v[i * k:(i + 1) * k] for key, v in batch.items()}
+        (``pod`` major, then ``data``) split its rows evenly, in order;
+        the ``model`` ranks of one data rank take the same rows."""
+        return batch if self.policy is None else local_rows(self.policy,
+                                                            batch)
 
     @torch.no_grad()
     def full_state(self, opt_state: OptState
@@ -119,14 +130,58 @@ class TrainStep:
             m=whole(opt_state.m), v=whole(opt_state.v), residual=None)
 
 
-class _Layout:
-    """One parameter's blocks on the data-parallel ranks: ``slices[r]`` is
-    rank ``r``'s block of the whole ``shape``."""
+def local_rows(policy: shlib.ShardingPolicy, batch: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch on ``policy``'s mesh (see
+    ``TrainStep.local_batch``)."""
+    sizes = policy.axis_sizes
+    coord = dict(zip(sizes, policy.mesh.get_coordinate()))
+    n, i = 1, 0
+    for a in ("pod", "data"):
+        if a in sizes:
+            n *= sizes[a]
+            i = i * sizes[a] + coord[a]
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"a batch of {rows} rows over {n} ranks")
+    k = rows // n
+    return {key: v[i * k:(i + 1) * k] for key, v in batch.items()}
 
-    def __init__(self, shape, slices: List[Tuple[slice, ...]]):
+
+def _within(block: Tuple[slice, ...], outer: Tuple[slice, ...], shape
+            ) -> Tuple[slice, ...]:
+    """``block`` (absolute slices of ``shape``) relative to ``outer``."""
+    out = []
+    for b, o, n in zip(block, outer, shape):
+        b0, b1, _ = b.indices(n)
+        o0, _, _ = o.indices(n)
+        out.append(slice(b0 - o0, b1 - o0))
+    return tuple(out)
+
+
+class _Layout:
+    """One parameter's blocks on the ranks: ``slices[r]`` is rank ``r``'s
+    block of the whole ``shape``; ``compute`` this rank's block that the
+    layers compute with (its ``model`` block, whole over the
+    data-parallel axes; ``slices[rank]`` for a full-EP expert stack).
+    The compute block is gathered over ``gather_group``, and its
+    gradient summed over ``reduce_group`` (the ranks computing with the
+    same block) and divided by ``dp``, the data-parallel count."""
+
+    def __init__(self, shape, slices: List[Tuple[slice, ...]], rank: int,
+                 compute: Tuple[slice, ...], gather_group=None,
+                 reduce_group=None, dp: int = 1):
         self.shape = tuple(shape)
         self.slices = slices
         self.sharded = any(sl != slices[0] for sl in slices)
+        self.compute_shape = tuple(len(range(*c.indices(n)))
+                                   for c, n in zip(compute, shape))
+        self.own = _within(slices[rank], compute, shape)
+        self.gather_group, self.reduce_group = gather_group, reduce_group
+        self.members = ([] if gather_group is None else [
+            _within(slices[r], compute, shape)
+            for r in dist.get_process_group_ranks(gather_group)])
+        self.dp = dp
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
         """The whole tensor from every rank's block (a collective)."""
@@ -139,22 +194,70 @@ class _Layout:
             full[sl] = part
         return full
 
+    def compute(self, local: torch.Tensor) -> torch.Tensor:
+        """This rank's compute block from the data-parallel ranks' blocks
+        (a collective over ``gather_group``)."""
+        if self.gather_group is None:
+            return local
+        parts = [torch.empty_like(local) for _ in self.members]
+        dist.all_gather(parts, local.contiguous(), group=self.gather_group)
+        full = local.new_empty(self.compute_shape)
+        for sl, part in zip(self.members, parts):
+            full[sl] = part
+        return full
+
     def reduce(self, grad: torch.Tensor) -> torch.Tensor:
         """This rank's block of the ranks' mean gradient (a collective)."""
         total = grad.contiguous().clone()
-        dist.all_reduce(total)
-        return (total[self.slices[dist.get_rank()]] / len(self.slices)
-                ).contiguous()
+        if self.reduce_group is not None:
+            dist.all_reduce(total, group=self.reduce_group)
+        return (total[self.own] / self.dp).contiguous()
+
+
+def _layouts(model, policy: shlib.ShardingPolicy) -> Dict[str, _Layout]:
+    """Each parameter's ``_Layout`` on ``policy``'s mesh."""
+    from repro_torch.models.convert import param_specs_by_name
+
+    mesh = policy.mesh
+    names = list(policy.axis_sizes)
+    coords = policy.coordinates()
+    rank = dist.get_rank()
+    me = coords[rank]
+    dp_axes = tuple(a for a in ("pod", "data") if a in names)
+    dp = math.prod(policy.axis_sizes[a] for a in dp_axes)
+
+    def moved(axis: str):
+        """The ranks that differ from this one on ``axis`` alone."""
+        i = names.index(axis)
+        return [r for r, c in coords.items() if r != rank and all(
+            c[k] == me[k] for k in range(len(names)) if k != i)]
+
+    out = {}
+    for name, s in param_specs_by_name(model).items():
+        slices = {r: policy.local_slices(s.names, s.shape, c)
+                  for r, c in coords.items()}
+        comp = {r: policy.local_slices(s.names, s.shape, c, axis="model")
+                for r, c in coords.items()}
+        gather_axes = [a for a in names if any(
+            slices[r] != slices[rank] and comp[r] == comp[rank]
+            for r in moved(a))]
+        reduce_axes = [a for a in names if all(
+            comp[r] == comp[rank] for r in moved(a))]
+        out[name] = _Layout(
+            s.shape, [slices[r] for r in range(len(coords))], rank,
+            comp[rank], shlib.axis_group(mesh, gather_axes),
+            shlib.axis_group(mesh, reduce_axes), dp)
+    return out
 
 
 class _Gather(torch.autograd.Function):
-    """A block in, the whole weight out; the gradient back to the block is
-    the ranks' mean (``_Layout.reduce``)."""
+    """A block in, the rank's compute block out; the gradient back to the
+    block is the ranks' mean (``_Layout.reduce``)."""
 
     @staticmethod
     def forward(ctx, local, layout: _Layout):
         ctx.layout = layout
-        full = layout.gather(local)
+        full = layout.compute(local)
         return local.view_as(local) if full is local else full
 
     @staticmethod
@@ -179,19 +282,20 @@ class _FSDP:
         from repro_torch.models.convert import param_specs_by_name
 
         specs = param_specs_by_name(model)
-        coords = policy.coordinates()
         rank, world = dist.get_rank(), dist.get_world_size()
-        self.layouts: Dict[str, _Layout] = {}
+        self.layouts: Dict[str, _Layout] = _layouts(model, policy)
         self.shares: Dict[str, float] = {}
         self.owners: Dict[str, Tuple[torch.nn.Module, str]] = {}
         for name, p in list(model.named_parameters()):
             s = specs[name]
-            layout = _Layout(s.shape, [policy.local_slices(
-                s.names, s.shape, coords[r]) for r in range(world)])
+            layout = self.layouts[name]
             mod, leaf = _owner(model, name)
+            # a whole weight, or this rank's compute block already
+            # (``build_compute_blocks``)
+            block = (layout.own if tuple(p.shape) == layout.compute_shape
+                     else layout.slices[rank])
             mod._parameters[leaf] = torch.nn.Parameter(
-                p.detach()[layout.slices[rank]].clone(), requires_grad=True)
-            self.layouts[name] = layout
+                p.detach()[block].clone(), requires_grad=True)
             self.shares[name] = policy.sharded_count(s.names,
                                                      s.shape) / world
             self.owners[name] = (mod, leaf)
@@ -232,24 +336,41 @@ def make_train_step(model, optimizer: AdamW, mesh_or_device=None, *,
         dev = (model.device if mesh_or_device is None or mesh is not None
                else resolve_device(mesh_or_device))
         return _one_device(model, optimizer, dev)
-    policy = shlib.ShardingPolicy(mesh)
+    policy = mesh_policy(model.cfg, mesh)
     sizes = policy.axis_sizes
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a mesh with model {sizes['model']}: tensor parallelism; see "
-            f"{MULTI_DEVICE}")
     if mesh.size() != dist.get_world_size():
         raise ValueError(f"the mesh's {mesh.size()} ranks are not the "
                          f"process group's {dist.get_world_size()}")
-    model.requires_grad_(True)
     pods = sizes.get("pod", 1)
-    if pods > 1 and compression is not None and compression.mode != "none":
-        if sizes["data"] > 1:
-            raise NotImplementedError(
-                f"a pod-compressed mesh with data {sizes['data']}: one rank "
-                f"a pod replica; see {MULTI_DEVICE}")
+    compressed = (pods > 1 and compression is not None
+                  and compression.mode != "none")
+    if compressed and (sizes["data"] > 1 or sizes.get("model", 1) > 1):
+        raise NotImplementedError(
+            f"a pod-compressed mesh with data {sizes['data']}, model "
+            f"{sizes.get('model', 1)}: one rank a pod replica; see "
+            f"{MULTI_DEVICE}")
+    model.requires_grad_(True)
+    if compressed:
         return _pod_compressed(model, optimizer, mesh, compression, pods)
     return _fsdp(model, optimizer, policy)
+
+
+def mesh_policy(cfg, mesh) -> shlib.ShardingPolicy:
+    """The sharding policy of ``mesh`` for a model of ``cfg``, with its
+    ``ModelAxis`` when the mesh has more than one rank (on ``model`` 1
+    its collectives over ``model`` are no-ops, and the dense MoE routes
+    the global batch, as the reference's does); raises
+    :data:`MULTI_DEVICE` for a family the ``model`` axis does not split
+    yet."""
+    policy = shlib.ShardingPolicy(mesh)
+    m = policy.axis_sizes.get("model", 1)
+    if m > 1 and cfg.family in UNSPLIT_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a mesh with model {m}; see "
+            f"{MULTI_DEVICE}")
+    if mesh.size() > 1:
+        policy.model_axis = shlib.ModelAxis(policy)
+    return policy
 
 
 def _one_device(model, optimizer: AdamW, dev) -> TrainStep:
@@ -315,8 +436,9 @@ def _fsdp(model, optimizer: AdamW, policy: shlib.ShardingPolicy
     def step_fn(opt_state: OptState, batch):
         batch = {k: v.to(dev) for k, v in batch.items()}
         # early stop off: a recompute runs to the layer's forward hook,
-        # which drops the gathered weights
-        with set_checkpoint_early_stop(False):
+        # which drops the gathered weights (and every rank runs the same
+        # collectives)
+        with set_checkpoint_early_stop(False), shlib.activate(policy):
             fsdp.gather(fsdp.top)
             try:
                 loss = model.loss(batch)
@@ -336,23 +458,96 @@ def _fsdp(model, optimizer: AdamW, policy: shlib.ShardingPolicy
 
 def make_serve_fns(model, device=None):
     """``(prefill_fn, decode_fn)`` for ``model`` on ``device`` (None: where
-    the model lives; another device moves the model there).
+    the model lives; another device moves the model there) or on a
+    ``DeviceMesh`` of every rank of the process group.
 
     ``prefill_fn(batch, max_len)`` returns (last-token logits, cache) and
     ``decode_fn(cache, tokens, pos)`` (logits, cache), the cache written in
     place.  Inputs are moved to the device.  The cache is made in
     inference mode, so code that writes into it outside these functions
-    runs under ``torch.inference_mode()`` too."""
-    dev = model.device if device is None else resolve_device(device)
-    model.to(dev)
+    runs under ``torch.inference_mode()`` too.
+
+    On a mesh the model's weights become this rank's compute blocks in
+    place (``to_compute_blocks``: its ``model`` block of each, whole over
+    the data-parallel axes; weights drawn as blocks already,
+    ``build_compute_blocks``, stay); ``prefill_fn`` takes a global batch
+    and serves this rank's rows (``local_rows``), ``decode_fn`` this
+    rank's rows' tokens; the logits are those rows', whole over the
+    vocab; the cache holds this rank's KV heads.  Every rank calls them
+    together."""
+    mesh = device if hasattr(device, "mesh_dim_names") else None
+    if mesh is None:
+        dev = model.device if device is None else resolve_device(device)
+        model.to(dev)
+        policy = None
+    else:
+        dev = model.device
+        policy = mesh_policy(model.cfg, mesh)
+        to_compute_blocks(model, policy)
 
     @torch.inference_mode()
     def prefill_fn(batch, max_len: int):
-        return model.prefill({k: v.to(dev) for k, v in batch.items()},
-                             max_len)
+        if policy is not None:
+            batch = local_rows(policy, batch)
+        with shlib.activate(policy):
+            return model.prefill({k: v.to(dev) for k, v in batch.items()},
+                                 max_len)
 
     @torch.inference_mode()
     def decode_fn(cache, tokens, pos):
-        return model.decode_step(cache, tokens.to(dev), pos)
+        with shlib.activate(policy):
+            return model.decode_step(cache, tokens.to(dev), pos)
 
     return prefill_fn, decode_fn
+
+
+def _compute_slices(model, policy: shlib.ShardingPolicy):
+    """``{name: (spec, this rank's compute-block slices)}``."""
+    from repro_torch.models.convert import param_specs_by_name
+
+    coord = policy.mesh.get_coordinate()
+    return {n: (s, policy.local_slices(s.names, s.shape, coord,
+                                       axis="model"))
+            for n, s in param_specs_by_name(model).items()}
+
+
+@torch.no_grad()
+def to_compute_blocks(model, policy: shlib.ShardingPolicy) -> None:
+    """Each of ``model``'s whole weights replaced, in place, by this
+    rank's compute block (its ``model`` block; a full-EP expert stack's
+    own experts); a weight already of the block's shape is kept."""
+    for name, (s, sl) in _compute_slices(model, policy).items():
+        mod, leaf = _owner(model, name)
+        p = mod._parameters[leaf]
+        block = tuple(len(range(*c.indices(n))) for c, n in zip(sl, s.shape))
+        if tuple(p.shape) == block:
+            continue
+        if tuple(p.shape) != tuple(s.shape):
+            raise ValueError(f"{name}: {tuple(p.shape)} is neither the "
+                             f"whole {tuple(s.shape)} nor the block {block}")
+        mod._parameters[leaf] = torch.nn.Parameter(
+            p[sl].clone(), requires_grad=p.requires_grad)
+
+
+def build_compute_blocks(cfg, mesh, device=None,
+                         generator: Optional[torch.Generator] = None):
+    """``build_model(cfg, device, generator)`` as this rank of ``mesh``
+    computes with it: only its compute block of each weight is drawn on
+    the device (its ``model`` block, whole over the data-parallel axes;
+    a full-EP expert stack's own experts), equal to that block of the
+    whole model's weight drawn from ``generator`` (on the device; seed 0
+    when None) by ``Model.init_weights``, so that a configuration too
+    large for one device can be served or trained.  Every rank calls it
+    together."""
+    from repro_torch.models import build_model
+
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg, device="meta")
+    blocks = {n: sl for n, (_, sl) in _compute_slices(
+        model, mesh_policy(cfg, mesh)).items()}
+    model.init_weights(generator, blocks=blocks, device=dev)
+    if dev.type == "cuda":  # the whole leaves' draws
+        torch.cuda.empty_cache()
+    return model

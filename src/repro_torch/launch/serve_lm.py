@@ -19,10 +19,29 @@ SSM state and RWKV's state stay raw (RWKV has no block: the line says
 so).  Whisper's frames are zeros, as the reference feeds them.  Decode
 starts at position ``S`` (a VLM's patch prefix included) and the cache
 holds ``S + gen`` slots.
+
+``--data N --model-par M`` serves on ``N x M`` ranks started by
+``torchrun`` (the process group NCCL on the card, gloo on the CPU, as
+``launch.train`` does):
+
+  python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.serve_lm --arch granite-8b --smoke \
+      --device cpu --model-par 2 [--kv-compress]
+
+Each rank draws only its ``model`` block of the weights from ``--seed``
+(``build_compute_blocks``: that block of the one-process model's
+weights), serves with it (``make_serve_fns`` on the mesh), takes its data
+rank's rows of the prompts, and holds its KV heads of the cache:
+``--kv-compress`` compresses each rank's own ``[B, T, KV/M, hd]`` blocks
+(the whole KV heads where M does not divide them; MLA's latents whole).
+Rank 0 prints, the kv line summing every rank's bytes.  ``--model-par``
+above 1 raises ``NotImplementedError`` for the hybrid, RWKV and
+encoder-decoder families (ROADMAP item 6c-iii).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Tuple
 
@@ -30,7 +49,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, get_smoke
-from repro_torch.distributed.train import MULTI_DEVICE, make_serve_fns
+from repro_torch.distributed.train import (
+    MULTI_DEVICE,
+    UNSPLIT_FAMILIES,
+    build_compute_blocks,
+    make_serve_fns,
+)
 from repro_torch.models import build_model
 from repro_torch.models.api import CROSS_KEYS, STATE_KEYS
 from repro_torch.serving.engine import resolve_device
@@ -125,16 +149,48 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-compress", action="store_true")
     args = ap.parse_args(argv)
-    if args.data != 1 or args.model_par != 1:
-        raise NotImplementedError(
-            f"--data {args.data} --model-par {args.model_par}: the port "
-            f"serves on one device; see {MULTI_DEVICE}")
-
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
+    if args.model_par > 1 and cfg.family in UNSPLIT_FAMILIES:
+        raise NotImplementedError(
+            f"--model-par {args.model_par} for {args.arch} ({cfg.family}): "
+            f"see {MULTI_DEVICE}")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    ranks = args.data * args.model_par
+    if ranks != world:
+        raise ValueError(
+            f"--data {args.data} --model-par {args.model_par} needs {ranks} "
+            f"ranks (torchrun --nproc-per-node {ranks}); WORLD_SIZE is "
+            f"{world}")
+    ranked = "WORLD_SIZE" in os.environ  # started by torchrun
+    if ranked and args.device != "cpu" and torch.cuda.is_available():
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
     dev = resolve_device(args.device)
+    if not ranked:
+        return _serve(args, cfg, dev, None)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    try:
+        return _serve(args, cfg, dev, make_local_mesh(
+            data=args.data, model=args.model_par, device_type=dev.type))
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve(args, cfg, dev, mesh):
+    rank = 0
+    if mesh is not None:
+        import torch.distributed as dist
+
+        rank = dist.get_rank()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    model = build_model(cfg, device=dev, generator=gen)
-    prefill_fn, decode_fn = make_serve_fns(model, dev)
+    # on a mesh each rank draws only its block of the weights
+    model = (build_model(cfg, device=dev, generator=gen) if mesh is None
+             else build_compute_blocks(cfg, mesh, dev, gen))
+    prefill_fn, decode_fn = make_serve_fns(
+        model, dev if mesh is None else mesh)
 
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": torch.from_numpy(
@@ -158,9 +214,15 @@ def main(argv=None):
     if args.kv_compress:
         with torch.inference_mode():
             raw, comp = compress_cache(KVCacheCodec(device=dev), cache, s)
-        if raw:
+        if mesh is not None:  # every rank's blocks
+            import torch.distributed as dist
+
+            both = torch.tensor([raw, comp], dtype=torch.int64, device=dev)
+            dist.all_reduce(both)
+            raw, comp = (int(v) for v in both)
+        if rank == 0 and raw:
             print(f"kv cache: {raw} B -> {comp} B (ratio {comp / raw:.3f})")
-        else:
+        elif rank == 0:
             print("kv cache: nothing compressed (no token-axis block)")
 
     tok = logits.argmax(-1, keepdim=True)
@@ -174,6 +236,8 @@ def main(argv=None):
     t_decode = time.perf_counter() - t0
 
     generated = torch.cat(outs, dim=1).cpu().numpy()
+    if rank:
+        return generated
     print(f"prefill: {t_prefill*1e3:.1f} ms "
           f"({args.batch * args.prompt_len / t_prefill:.0f} tok/s)")
     print(f"decode:  {t_decode*1e3:.1f} ms "

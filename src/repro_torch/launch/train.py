@@ -19,19 +19,31 @@ on the CPU):
   python -m torch.distributed.run --nproc-per-node 2 \
       -m repro_torch.launch.train --arch granite-8b --smoke --data 2 ...
 
+``--model-par M`` adds a ``model`` axis of M ranks (tensor, sequence
+and expert parallelism: ``distributed/train.py``), so the job runs on
+``N x M`` ranks:
+
+  python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch granite-8b --smoke --data 2 \
+      --model-par 2 ...
+
 Each rank reads ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` (``--data``
-must be ``WORLD_SIZE``), draws the same weights from ``--seed``, keeps its
-block of them and of m and v, and steps on its rows of each
-``TokenPipeline`` batch.  Rank 0 logs and writes the checkpoints, the
-state gathered whole as the reference saves it; every rank restores the
-newest one and places its blocks (``elastic.remesh``), so a relaunch with
-another ``--data`` resumes.
+times ``--model-par`` must be ``WORLD_SIZE``), draws only its compute
+block of the weights from ``--seed`` (``build_compute_blocks``: that
+block of the one-process model's weights), keeps its block of them and
+of m and v, and steps on
+its data rank's rows of each ``TokenPipeline`` batch.  Rank 0 logs and
+writes the checkpoints, the state gathered whole as the reference saves
+it; every rank restores the newest one and places its blocks
+(``elastic.remesh``), so a relaunch with another ``--data`` or
+``--model-par`` resumes.
 
 The reference's flags, plus ``--device`` (default: the card; ``cpu`` runs
 the same arithmetic on the host) and ``--seed`` (weights and data).
-``--model-par`` above 1 raises ``NotImplementedError``; every family
-trains: the dense, VLM, MoE, MLA, hybrid SSM, RWKV and encoder-decoder
-families (whisper's frames are zeros, as the reference feeds them).
+Every family trains: the dense, VLM, MoE, MLA, hybrid SSM, RWKV and
+encoder-decoder families (whisper's frames are zeros, as the reference
+feeds them); ``--model-par`` above 1 raises ``NotImplementedError`` for
+the hybrid, RWKV and encoder-decoder families (ROADMAP item 6c-iii).
 ``--compression`` is accepted and leaves the step uncompressed, as the
 reference does: the launcher's mesh has no pod axis.
 """
@@ -50,7 +62,12 @@ from repro_torch.distributed.compression import CompressionConfig
 from repro_torch.distributed.elastic import StepTimer, remesh
 from repro_torch.distributed.optimizer import AdamW, AdamWConfig
 from repro_torch.distributed.sharding import ShardingPolicy
-from repro_torch.distributed.train import MULTI_DEVICE, make_train_step
+from repro_torch.distributed.train import (
+    MULTI_DEVICE,
+    UNSPLIT_FAMILIES,
+    build_compute_blocks,
+    make_train_step,
+)
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import build_model
 from repro_torch.models.convert import (
@@ -105,20 +122,23 @@ def main(argv=None):
                     help="cuda (the default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.model_par != 1:
+    cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
+    if args.model_par > 1 and cfg.family in UNSPLIT_FAMILIES:
         raise NotImplementedError(
-            f"--model-par {args.model_par}: the port trains data-parallel "
-            f"only; see {MULTI_DEVICE}")
+            f"--model-par {args.model_par} for {args.arch} ({cfg.family}): "
+            f"see {MULTI_DEVICE}")
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if args.data != world:
+    ranks = args.data * args.model_par
+    if ranks != world:
+        flags = f"--data {args.data}" + (
+            f" --model-par {args.model_par}" if args.model_par > 1 else "")
         raise ValueError(
-            f"--data {args.data} needs {args.data} ranks (torchrun "
-            f"--nproc-per-node {args.data}); WORLD_SIZE is {world}")
+            f"{flags} needs {ranks} ranks (torchrun --nproc-per-node "
+            f"{ranks}); WORLD_SIZE is {world}")
     ranked = "WORLD_SIZE" in os.environ  # started by torchrun
     if ranked and args.device != "cpu" and torch.cuda.is_available():
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
 
-    cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     dev = resolve_device(args.device)
     mesh = None
     if ranked:
@@ -134,8 +154,10 @@ def main(argv=None):
 
 
 def _train(args, cfg, dev, mesh, rank: int):
-    model = build_model(cfg, device=dev, generator=torch.Generator(
-        device=dev).manual_seed(args.seed))
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    # on a mesh each rank draws only its block of the weights
+    model = (build_model(cfg, device=dev, generator=gen) if mesh is None
+             else build_compute_blocks(cfg, mesh, dev, gen))
     opt = AdamW(AdamWConfig(base_lr=args.lr, warmup=10,
                             total_steps=args.steps))
     ts = make_train_step(model, opt, dev if mesh is None else mesh,

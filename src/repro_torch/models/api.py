@@ -29,9 +29,23 @@ cross-attention ``"ck"``/``"cv"`` ``[L, B, encoder_seq, KV, hd]``.
 ``decode_step`` writes the cache in place and returns it.  The weights are
 built without gradients (the serving path); ``model.requires_grad_(True)``
 makes them take gradients, as ``make_train_step`` does.
+
+On a mesh with a ``model`` axis (``sharding.model_axis()``; the
+transformer families) each rank holds its block of the weights
+(``transformer.py``) and of the cache (the KV heads split where the axis
+divides them; MLA's latents whole).  The embedding is vocab-parallel: a
+rank looks up the tokens of its vocab block, zero elsewhere, and the
+partial sums go onto the residual stream split over the sequence (the
+reference's ``("vocab", "embed_fsdp")`` table); a VLM's patch prefix
+rides on the first rank's part.  The logits are vocab-parallel too, and
+the loss a vocab-parallel cross-entropy (``_VocabCE``: the max, the sum
+of exponentials and the label's logit combined across the ranks), where
+the reference gathers the logits whole; the serving logits are gathered
+over the vocab.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -39,6 +53,14 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (
+    activate,
+    all_gather,
+    all_max,
+    all_reduce,
+    current_policy,
+    model_axis,
+)
 from repro_torch.models import encdec, rwkv, ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (
@@ -80,6 +102,39 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return nll.mean()
 
 
+class _VocabCE(torch.autograd.Function):
+    """Mean next-token CE in fp32 over logits split along the vocab
+    across ``group`` (``[B, S, V/m]``, this rank's block from ``start``);
+    every rank gets the loss.  Backward: this rank's block of ``(softmax
+    - onehot) / N``, times the loss's cotangent (which every rank holds
+    whole: no sum across the ranks) and ``share`` (``1/m`` when the
+    logits are whole on each of m ranks: their cotangents are summed)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, group, share):
+        logits = logits.float()
+        m = all_max(logits.amax(-1, keepdim=True), group)
+        e = torch.exp(logits - m)
+        total = all_reduce(e.sum(-1), group)
+        local = labels.long() - start
+        mine = (local >= 0) & (local < logits.shape[-1])
+        ll = torch.gather(logits, -1, local.clamp(0, logits.shape[-1] - 1)
+                          [..., None])[..., 0]
+        ll = all_reduce(torch.where(mine, ll, 0.0), group)
+        nll = m[..., 0] + torch.log(total) - ll
+        ctx.save_for_backward(e, total, local, mine)
+        ctx.share = share
+        return nll.mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, local, mine = ctx.saved_tensors
+        grad = e / total[..., None]
+        hit = torch.where(mine, local, 0)[..., None]
+        grad.scatter_add_(-1, hit, -mine[..., None].float())
+        return grad * (g * ctx.share / local.numel()), None, None, None, None
+
+
 def spec_leaves(specs: PyTree, prefix=()):
     """(path, spec) of every leaf, in the tree's key order."""
     for k, s in specs.items():
@@ -87,6 +142,18 @@ def spec_leaves(specs: PyTree, prefix=()):
             yield prefix + (k,), s
         else:
             yield from spec_leaves(s, prefix + (k,))
+
+
+def _remat(fn, *args) -> torch.Tensor:
+    """``fn(*args)`` under activation checkpointing; its recompute runs
+    under the policy active now (the backward may run on another thread,
+    where the thread-local policy, and with it the ``model`` axis, is
+    not set: autograd's device threads on the card)."""
+    policy = current_policy()
+    if policy is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
+        contextlib.nullcontext(), activate(policy)))
 
 
 def _layer_out(layer, x, sin, cos) -> torch.Tensor:
@@ -227,31 +294,66 @@ class Model(Params):
         return b
 
     @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """Draw every leaf on the model's device, each layer's from that
-        layer's own specs (``layer.specs``), so a normal matrix's fan-in
-        is its leading axis, and each expert of an ``experts`` leaf from
-        that expert's own matrix (fan-in d for ``wi``/``wg``, the expert
-        width for ``wo``; no fp32 copy of the whole stack).  The reference
+    def init_weights(self, generator: torch.Generator,
+                     blocks: Optional[Dict[str, Tuple[slice, ...]]] = None,
+                     device=None) -> None:
+        """Draw every leaf from ``generator`` (on the device), in one
+        stream: the top-level leaves, then each layer's from that layer's
+        own specs (``layer.specs``), so a normal matrix's fan-in is its
+        leading axis, and each expert of an ``experts`` leaf from that
+        expert's own matrix (fan-in d for ``wi``/``wg``, the expert width
+        for ``wo``; no fp32 copy of the whole stack).  The reference
         draws a stacked ``[L, ...]`` leaf whole, which makes its fan-in
-        the layer count L, and an expert stack's the expert count (ROADMAP
-        queue 3, R7)."""
-        dev = self.device
+        the layer count L, and an expert stack's the expert count
+        (ROADMAP queue 3, R7).
+
+        ``blocks`` (``{name: slices}``, a model built on ``meta``): each
+        weight becomes that block of its draw, on ``device``.  The stream
+        is drawn whole all the same, one leaf (or expert) at a time, and
+        the rest of it dropped, so a block equals the same slice of the
+        whole model's weight drawn from the same seed on a device of the
+        same type."""
+        dev = self.device if device is None else torch.device(device)
+
+        def draw(owner, leaf: str, name: str, s: ParamSpec) -> None:
+            sl = None if blocks is None else blocks[name]
+            if s.names[0] != "experts":
+                t = s.initializer(generator, dev, sl)
+                if blocks is None:
+                    owner._parameters[leaf].copy_(t)
+                else:
+                    owner._parameters[leaf] = nn.Parameter(
+                        t, requires_grad=False)
+                return
+            one = ParamSpec(s.shape[1:], s.names[1:], dtype=s.dtype,
+                            init=s.init, scale=s.scale)
+            lo, hi, _ = (slice(None) if sl is None else sl[0]).indices(
+                s.shape[0])
+            if blocks is None:
+                out = owner._parameters[leaf]
+            else:
+                out = torch.empty((hi - lo,) + tuple(
+                    len(range(*c.indices(n)))
+                    for c, n in zip(sl[1:], s.shape[1:])),
+                    dtype=s.dtype, device=dev)
+            for e in range(s.shape[0]):  # every expert: the stream's order
+                t = one.initializer(generator, dev,
+                                    None if sl is None else sl[1:])
+                if lo <= e < hi:
+                    out[e - lo].copy_(t)
+            if blocks is not None:
+                owner._parameters[leaf] = nn.Parameter(out,
+                                                       requires_grad=False)
+
         for name, spec in self.param_specs().items():
             if isinstance(spec, ParamSpec):
-                self[name].copy_(spec.initializer(generator, dev))
-        for _, _, layer in self.layers():
+                draw(self, name, name, spec)
+        for stack, li, layer in self.layers():
             for path, s in spec_leaves(layer.specs):
-                p = layer
-                for k in path:
-                    p = p[k]
-                if s.names[0] != "experts":
-                    p.copy_(s.initializer(generator, dev))
-                    continue
-                one = ParamSpec(s.shape[1:], s.names[1:], dtype=s.dtype,
-                                init=s.init, scale=s.scale)
-                for e in range(s.shape[0]):
-                    p[e].copy_(one.initializer(generator, dev))
+                owner = layer
+                for k in path[:-1]:
+                    owner = owner[k]
+                draw(owner, path[-1], ".".join((stack, str(li)) + path), s)
 
     def layers(self):
         """(stack name, layer index, layer) of every layer, stack by
@@ -267,6 +369,38 @@ class Model(Params):
             x = x * rounded(math.sqrt(self.cfg.d_model), x.dtype)
         return x
 
+    def _embed_parts(self, tokens: torch.Tensor):
+        """``(x, partial)``: the embedded tokens, on the ``model`` axis
+        this rank's vocab block's (zero for the others' tokens; a partial
+        sum over the ranks) when the axis divides the vocab."""
+        ax, v = model_axis(), self.cfg.vocab_size
+        if ax is None or not ax.splits(v):
+            return self._embed(tokens), False
+        start, n = ax.block(v)
+        t = tokens.to(self.device).long() - start
+        mine = ((t >= 0) & (t < n))[..., None].to(self.embed.dtype)
+        x = self.embed[t.clamp(0, n - 1)] * mine
+        if self.cfg.embed_scale:
+            x = x * rounded(math.sqrt(self.cfg.d_model), x.dtype)
+        return x, True
+
+    def _vocab_gathered(self, logits: torch.Tensor) -> torch.Tensor:
+        """Serving logits whole over the vocab on every rank."""
+        ax = model_axis()
+        if ax is None or not ax.splits(self.cfg.vocab_size):
+            return logits
+        return all_gather(logits, logits.dim() - 1, ax.group)
+
+    def _loss_of(self, logits: torch.Tensor, labels: torch.Tensor):
+        ax = model_axis()
+        if ax is None:
+            return _cross_entropy(logits, labels)
+        if ax.splits(self.cfg.vocab_size):
+            return _VocabCE.apply(logits, labels,
+                                  ax.block(self.cfg.vocab_size)[0],
+                                  ax.group, 1.0)
+        return _VocabCE.apply(logits, labels, 0, None, 1.0 / ax.size)
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = rms_norm(x, self.final_norm)
@@ -277,12 +411,26 @@ class Model(Params):
         return logits
 
     def _inputs(self, batch) -> torch.Tensor:
-        """The embedded tokens, behind the VLM's patch prefix."""
-        x = self._embed(batch["tokens"])
+        """The embedded tokens, behind the VLM's patch prefix; on the
+        ``model`` axis this rank's part of the residual stream (the
+        prefix on the first rank's partial sum)."""
+        x, partial = self._embed_parts(batch["tokens"])
+        ax = model_axis()
         if self.cfg.family == "vlm" and self.cfg.vision_prefix:
             patches = batch["patch_embeds"].to(self.device, x.dtype)
+            if partial and ax.index:
+                patches = torch.zeros_like(patches)
             x = torch.cat([patches, x], dim=1)
-        return x
+        return x if ax is None else ax.leave(x, partial)
+
+    def _sequence(self, batch) -> None:
+        """The ``model`` axis's residual layout for a full-sequence pass
+        of ``batch`` (split over the sequence when it divides)."""
+        ax = model_axis()
+        if ax is not None:
+            prefix = (self.cfg.vision_prefix if self.cfg.family == "vlm"
+                      else 0)
+            ax.set_sequence(batch["tokens"].shape[1] + prefix)
 
     def _rope(self, positions: torch.Tensor):
         cfg = self.cfg
@@ -306,17 +454,21 @@ class Model(Params):
         if self.cfg.family == "audio":
             x, _ = self._whisper_decoder(batch, remat=remat)
             return _cross_entropy(self._logits(x), labels)
+        self._sequence(batch)
         x = self._inputs(batch)
-        sin, cos = self._rope(torch.arange(x.shape[1], device=self.device))
+        ax = model_axis()
+        total = x.shape[1] * (ax.size if ax is not None and ax.seq else 1)
+        sin, cos = self._rope(torch.arange(total, device=self.device))
         for _, _, layer in self.layers():
             if remat:
-                x = checkpoint(_layer_out, layer, x, sin, cos,
-                               use_reentrant=False)
+                x = _remat(_layer_out, layer, x, sin, cos)
             else:
                 x, _ = layer(x, sin, cos)
+        if ax is not None:
+            x = ax.enter(x)
         if self.cfg.family == "vlm" and self.cfg.vision_prefix:
             x = x[:, self.cfg.vision_prefix:]
-        return _cross_entropy(self._logits(x), labels)
+        return self._loss_of(self._logits(x), labels)
 
     # -------------------------------------------------------------- serving
     def cache_specs(self, batch: int, max_len: int) -> PyTree:
@@ -350,7 +502,10 @@ class Model(Params):
             else:
                 t = (min(max_len, cfg.window) if tfm.ring_cache(cfg)
                      else max_len)
-                shape = (g.count, batch, t, cfg.num_kv_heads, cfg.head_dim)
+                kv, ax = cfg.num_kv_heads, model_axis()
+                if ax is not None and ax.splits(kv):  # this rank's heads
+                    kv //= ax.size
+                shape = (g.count, batch, t, kv, cfg.head_dim)
                 c = {kv: ParamSpec(shape, kv_names, dtype=dt, init="zeros")
                      for kv in ("k", "v")}
             if cfg.hybrid_parallel:
@@ -387,8 +542,11 @@ class Model(Params):
             return self._rwkv_prefill(batch)
         if self.cfg.family == "audio":
             return self._whisper_prefill(batch, max_len)
+        self._sequence(batch)
         x = self._inputs(batch)
-        b, s = x.shape[:2]
+        ax = model_axis()
+        b, s = x.shape[0], x.shape[1] * (
+            ax.size if ax is not None and ax.seq else 1)
         sin, cos = self._rope(torch.arange(s, device=self.device))
         cache = self.init_cache(b, max(s, max_len))
         for g, li, layer in self.layers():
@@ -403,8 +561,8 @@ class Model(Params):
                     dst.index_copy_(1, slots % dst.shape[1], t[:, lo:])
                 else:
                     dst[:, :s] = t
-        logits = self._logits(x[:, -1:, :])[:, 0]
-        return logits, cache
+        last = x[:, -1:, :] if ax is None else ax.last_token(x)
+        return self._vocab_gathered(self._logits(last)[:, 0]), cache
 
     def decode_step(self, cache, tokens: torch.Tensor, pos):
         """tokens int[B, 1]; pos an int or a 0-d integer tensor.  Returns
@@ -417,13 +575,16 @@ class Model(Params):
             pos = torch.full((), pos, dtype=torch.int64, device=self.device)
         if self.cfg.family == "audio":
             return self._whisper_decode(cache, tokens, pos)
-        x = self._embed(tokens)
+        ax = model_axis()
+        x, partial = self._embed_parts(tokens)
+        if ax is not None:
+            ax.set_sequence(None)  # one token: whole on every rank
+            x = ax.leave(x, partial)
         sin, cos = self._rope(pos.expand(tokens.shape[0], 1))
         for g, li, layer in self.layers():
             lc = {k: t[li] for k, t in cache[g].items()}
             x, _ = layer.decode(x, sin, cos, lc, pos)
-        logits = self._logits(x)[:, 0]
-        return logits, cache
+        return self._vocab_gathered(self._logits(x)[:, 0]), cache
 
     # ------------------------------------------------------------- RWKV-6
     def _rwkv_run(self, x: torch.Tensor, cache=None,

@@ -4,10 +4,13 @@ Port of ``repro/models/common.py``.
 A model's parameters follow a spec tree: nested dicts whose leaves are
 :class:`ParamSpec` (shape, dtype, init, logical dim names).  The same tree
 drives initialization and, through :class:`Params`, the ``nn.Module`` that
-holds the weights.  One device and no mesh: the reference's ``constrain``
-calls and the tensor-parallel layout branch of ``attention`` are dropped.
-``abstract_params`` is the ``meta`` device (``build_model(cfg,
-device="meta")``).
+holds the weights.  The reference's ``constrain`` calls become the
+``model`` axis's explicit collectives (``distributed/sharding.py``,
+``ModelAxis``), placed by the layers (``transformer.py``);
+``attention``'s layout branch is ``transformer.kv_layout``, whose
+sequence-split keys and values reach ``attention`` as ``kv_offset`` and
+``group``.  ``abstract_params`` is the ``meta`` device
+(``build_model(cfg, device="meta")``).
 
 The arithmetic keeps the reference's dtype steps: activations in bf16,
 norm statistics in fp32 with the scale multiplies in bf16, attention scores
@@ -75,18 +78,24 @@ class ParamSpec:
         return self.scale if self.scale is not None else 1.0 / math.sqrt(
             fan_in)
 
-    def initializer(self, generator: torch.Generator,
-                    device) -> torch.Tensor:
+    def initializer(self, generator: torch.Generator, device,
+                    block: Optional[Tuple[slice, ...]] = None
+                    ) -> torch.Tensor:
         """A drawn leaf on ``device``: zeros, ones, or a normal drawn in
         fp32 from ``generator`` (which lives on ``device``), scaled and
-        cast."""
+        cast.  ``block``: only that slice of the leaf is returned (the
+        whole is drawn, so the block's values are the whole's)."""
+        shape = self.shape if block is None else tuple(
+            len(range(*c.indices(n))) for c, n in zip(block, self.shape))
         if self.init == "zeros":
-            return torch.zeros(self.shape, dtype=self.dtype, device=device)
+            return torch.zeros(shape, dtype=self.dtype, device=device)
         if self.init == "ones":
-            return torch.ones(self.shape, dtype=self.dtype, device=device)
+            return torch.ones(shape, dtype=self.dtype, device=device)
         x = torch.randn(self.shape, generator=generator,
                         dtype=torch.float32, device=device)
-        return x.mul_(self.std).to(self.dtype)
+        if block is None:
+            return x.mul_(self.std).to(self.dtype)
+        return x[block].mul(self.std).to(self.dtype)
 
 
 def init_params(specs: PyTree, generator: torch.Generator,
@@ -259,13 +268,22 @@ def attention(
     q_chunk: int = 1024,
     q_offset: int = 0,  # absolute position of q[0] relative to k[0]
     scale: Optional[float] = None,
+    kv_offset: int = 0,  # absolute position of k[0] (a sequence block)
+    group=None,  # the ranks holding the other blocks of k and v
 ) -> torch.Tensor:
     """Chunked multi-head GQA attention.
 
     Queries go in chunks of ``q_chunk`` (then the remainder), so the fp32
     scores are at most ``[B, KV, G, q_chunk, T]``.  H must be a multiple
     of KV; heads are grouped.  The scale multiplies q in q's dtype; the
-    scores are fp32 products of the bf16 operands."""
+    scores are fp32 products of the bf16 operands.
+
+    With ``group``, k and v are this rank's block of the keys, from
+    position ``kv_offset`` (the reference's keys split over the sequence
+    on the ``model`` axis): the softmax's max and sum are taken across
+    the group, each rank's probabilities (bf16) meet its own values, and
+    the partial outputs are summed across the group (bf16), as the
+    reference's sharded softmax runs."""
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -275,7 +293,7 @@ def attention(
     scale = rounded(scale, q.dtype)
     q = q.reshape(b, s, kv, groups, d)
     kf = k.float()  # bf16 products are exact in fp32: fp32 accumulation
-    kpos = torch.arange(t, device=q.device)
+    kpos = kv_offset + torch.arange(t, device=q.device)
 
     def chunk_attn(qc: torch.Tensor, start: int) -> torch.Tensor:
         # qc: [B, C, KV, G, D]
@@ -289,6 +307,8 @@ def attention(
         if window is not None:
             mask &= kpos > qpos - window
         scores.masked_fill_(~mask, MASKED)
+        if group is not None:
+            return _split_softmax_pv(scores, v, group)
         probs = torch.softmax(scores, dim=-1)
         del scores
         return torch.einsum("bkgct,btkd->bckgd", probs.to(v.dtype), v)
@@ -297,6 +317,19 @@ def attention(
             for lo in range(0, s, q_chunk)]
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out.reshape(b, s, h, dv)
+
+
+def _split_softmax_pv(scores, v, group):
+    """Softmax over keys split across ``group`` and the PV product: the
+    row max and the sum of exponentials across the ranks, then each
+    rank's bf16 probabilities times its values, summed across them."""
+    from repro_torch.distributed.sharding import all_max, all_reduce
+
+    top = all_max(scores.amax(-1, keepdim=True), group)
+    e = torch.exp(scores - top)
+    probs = e / all_reduce(e.sum(-1, keepdim=True), group)
+    return all_reduce(torch.einsum("bkgct,btkd->bckgd", probs.to(v.dtype),
+                                   v), group)
 
 
 def decode_attention(

@@ -8,9 +8,23 @@ layer's ``window`` (0 = global) is a plain integer.  Deepseek's leading
 dense layers before its MoE stack stay a group of their own
 (``layer_groups``).  The MoE layer is the reference's single-device
 dispatch (capacity, keep and drop rule, gates) computed with index
-operations; the expert-parallel dispatch of ``moe_distributed.py`` is the
-multi-device layer's (ROADMAP queue 1, item 6, M10d).  RWKV and the
-encoder-decoder have modules of their own (``rwkv.py``, ``encdec.py``).
+operations.  RWKV and the encoder-decoder have modules of their own
+(``rwkv.py``, ``encdec.py``).
+
+On a mesh with a ``model`` axis (``sharding.model_axis()``, the train
+and serve steps of ``distributed/train.py``) each rank holds its block
+of every weight: ``wq``/``wk``/``wv``/``wi``/``wg`` split over their
+heads or ffn columns (column-parallel), ``wo`` over its rows
+(row-parallel), where the axis divides the dim; the norms, the router
+and MLA's down projections whole.  The residual stream is split over
+the sequence (sequence parallelism): a block's normed input is gathered
+to the whole sequence (``ModelAxis.enter``, the reference's bf16 gather
+point) and its output, a partial sum when ``wo`` is split, goes back by
+a reduce-scatter (``ModelAxis.leave``).  Keys and values whose heads do
+not divide the axis take the reference's layout branch
+(``kv_layout``).  The MoE takes ``moe_distributed.moe_apply_sharded``
+under the reference's rule, else the dense dispatch over this rank's
+experts, summed over the ranks.
 """
 from __future__ import annotations
 
@@ -20,6 +34,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import (
+    all_gather,
+    all_reduce,
+    axis_group,
+    model_axis,
+)
 from repro_torch.models import ssm
 from repro_torch.models.common import (
     MASKED,
@@ -86,15 +106,68 @@ def gqa_qkv(cfg: ArchConfig, p, x, sin, cos):
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
 
+def kv_branch(heads: int, kv_heads: int, ax) -> Optional[str]:
+    """The reference's attention layout on the ``model`` axis (its
+    ``attention``, ``common.py:175-195``): None when the axis divides the
+    KV heads (each rank its heads); ``"repeat"`` when it divides only the
+    query heads, which share KV heads: K and V repeated to the query
+    heads, each rank its heads; else ``"seq"``: K and V split over the
+    sequence, the softmax's statistics combined across the ranks."""
+    if ax is None or ax.splits(kv_heads):
+        return None
+    if ax.splits(heads) and heads // kv_heads > 1:
+        return "repeat"
+    return "seq"
+
+
+def kv_layout(heads: int, kv_heads: int, k, v, ax):
+    """``(k, v, kv_offset, group)`` for ``attention`` of this rank's
+    queries (its heads, or all of them) under ``kv_branch``: k and v
+    ``[B, T, KV', D]`` as computed (this rank's KV heads, or all of
+    them)."""
+    branch = kv_branch(heads, kv_heads, ax)
+    if branch == "repeat":
+        start, n = ax.block(heads)
+        g = heads // kv_heads
+        return (k.repeat_interleave(g, 2).narrow(2, start, n),
+                v.repeat_interleave(g, 2).narrow(2, start, n), 0, None)
+    if branch == "seq" and ax.seq:
+        start, n = ax.block(k.shape[1])
+        return k.narrow(1, start, n), v.narrow(1, start, n), start, ax.group
+    return k, v, 0, None
+
+
+def _decode_kv(heads: int, kv_heads: int, kc, vc, ax):
+    """This rank's query heads' K and V from a decode cache that holds
+    every KV head (the ``"repeat"`` branch); else the cache as is."""
+    if kv_branch(heads, kv_heads, ax) != "repeat":
+        return kc, vc
+    start, n = ax.block(heads)
+    idx = torch.arange(start, start + n, device=kc.device) // (
+        heads // kv_heads)
+    return kc.index_select(2, idx), vc.index_select(2, idx)
+
+
+def _leave(y, width: int):
+    """A block's output onto the residual stream (``ModelAxis.leave``):
+    a partial sum when its contracted dim, ``width`` wide, is split over
+    ``model``."""
+    ax = model_axis()
+    return y if ax is None else ax.leave(y, ax.splits(width))
+
+
 def gqa_apply_train(cfg: ArchConfig, p, x, sin, cos, window: int):
     """Full-sequence attention (training / prefill); window 0 => global.
     Returns the block's output and this layer's (k, v)."""
     q, k, v = gqa_qkv(cfg, p, x, sin, cos)
     win = _window(window, cfg.window is not None
                   or cfg.local_global_pattern is not None)
-    out = attention(q, k, v, causal=True, window=win,
-                    softcap=cfg.attn_softcap, q_chunk=1024)
-    return _merge_heads(out, p["wo"]), (k, v)
+    ka, va, offset, group = kv_layout(cfg.num_heads, cfg.num_kv_heads, k,
+                                      v, model_axis())
+    out = attention(q, ka, va, causal=True, window=win,
+                    softcap=cfg.attn_softcap, q_chunk=1024,
+                    kv_offset=offset, group=group)
+    return _leave(_merge_heads(out, p["wo"]), cfg.num_heads), (k, v)
 
 
 def gqa_apply_decode(cfg: ArchConfig, p, x, sin, cos, window: int, kc, vc,
@@ -109,14 +182,16 @@ def gqa_apply_decode(cfg: ArchConfig, p, x, sin, cos, window: int, kc, vc,
     slot = (pos % t if ring else pos).reshape(1)
     kc.index_copy_(1, slot, k)
     vc.index_copy_(1, slot, v)
+    ka, va = _decode_kv(cfg.num_heads, cfg.num_kv_heads, kc, vc,
+                        model_axis())
     if ring:
-        out = decode_attention(q, kc, vc, torch.clamp(pos + 1, max=t),
+        out = decode_attention(q, ka, va, torch.clamp(pos + 1, max=t),
                                softcap=cfg.attn_softcap)
     else:
         win = _window(window, bool(cfg.window or cfg.local_global_pattern))
-        out = decode_attention(q, kc, vc, pos + 1, softcap=cfg.attn_softcap,
+        out = decode_attention(q, ka, va, pos + 1, softcap=cfg.attn_softcap,
                                window=win)
-    return _merge_heads(out, p["wo"]), (kc, vc)
+    return _leave(_merge_heads(out, p["wo"]), cfg.num_heads), (kc, vc)
 
 
 # ---------------------------------------------------------------------------
@@ -167,9 +242,13 @@ def mla_apply_train(cfg: ArchConfig, p, x, sin, cos, window: int):
     kvx = _heads(c_kv, p["wkv_b"])
     k_nope, v = kvx[..., :nope], kvx[..., nope:]
     k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], rpe)], -1)
-    out = attention(torch.cat([q_nope, q_rope], -1), k, v, causal=True,
-                    q_chunk=1024, scale=1.0 / math.sqrt(nope + rpe))
-    return _merge_heads(out, p["wo"]), (c_kv, k_rope[:, :, 0, :])
+    q = torch.cat([q_nope, q_rope], -1)
+    h = cfg.num_heads
+    ka, va, offset, group = kv_layout(h, h, k, v, model_axis())
+    out = attention(q, ka, va, causal=True, q_chunk=1024,
+                    scale=1.0 / math.sqrt(nope + rpe), kv_offset=offset,
+                    group=group)
+    return _leave(_merge_heads(out, p["wo"]), h), (c_kv, k_rope[:, :, 0, :])
 
 
 def mla_apply_decode(cfg: ArchConfig, p, x, sin, cos, window: int, ckv_c,
@@ -194,7 +273,7 @@ def mla_apply_decode(cfg: ArchConfig, p, x, sin, cos, window: int, ckv_c,
     probs = torch.softmax(scores, dim=-1)
     out_lat = torch.einsum("bhst,btr->bshr", probs.to(ckv_c.dtype), ckv_c)
     out = torch.einsum("bshr,rhk->bshk", out_lat, wkb[..., nope:])
-    return _merge_heads(out, p["wo"]), (ckv_c, kr_c)
+    return _leave(_merge_heads(out, p["wo"]), cfg.num_heads), (ckv_c, kr_c)
 
 
 # ---------------------------------------------------------------------------
@@ -254,12 +333,16 @@ def _act(cfg: ArchConfig, x):
     return _GELU.apply(x) if needs_grad(x) else _gelu(x)
 
 
-def ffn_apply(cfg: ArchConfig, p, x):
+def ffn_apply(cfg: ArchConfig, p, x, width: Optional[int] = None):
+    """The FFN (``width``: its hidden width, ``d_ff`` by default): on the
+    ``model`` axis its ffn columns split, its output left onto the
+    residual stream (``_leave``)."""
     if cfg.gated_ffn:
         h = _act(cfg, x @ p["wg"]) * (x @ p["wi"])
     else:
         h = _act(cfg, x @ p["wi"])
-    return h @ p["wo"]  # bf16 out, as the reference's bf16 dot output
+    # bf16 out, as the reference's bf16 dot output
+    return _leave(h @ p["wo"], width or cfg.d_ff)
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +384,30 @@ def moe_apply(cfg: ArchConfig, p, x, stats: Optional[dict] = None):
     output is gathered back and summed with its bf16 gate (0 for a
     dropped pair) in fp32, rounded once.  ``stats``, when given, receives
     the 0-d device tensors ``dropped`` (pairs) and ``experts_hit``
-    (experts with a pair): no host sync."""
+    (experts with a pair): no host sync.
+
+    On the ``model`` axis (the reference's ``moe_apply``, ``transformer.
+    py:285-301``): the expert-parallel dispatch of ``moe_distributed``
+    when a policy allows it, the axis divides the experts and each of
+    the ``model`` x data-parallel shards gets 8 tokens or more; else this
+    dense dispatch over the global batch (gathered over the data-parallel
+    ranks) for this rank's experts only, summed over the ranks that hold
+    the others (``_moe_dense_mesh``)."""
+    ax = model_axis()
+    if ax is not None:
+        return _moe_mesh(cfg, p, x, stats, ax)
+    out = moe_dense(cfg, p, x, stats)
+    if cfg.moe_num_shared:
+        out = out + ffn_apply(cfg, p["shared"], x)
+    return out
+
+
+def moe_dense(cfg: ArchConfig, p, x, stats: Optional[dict] = None,
+              experts: Optional[Tuple[int, int]] = None):
+    """:func:`moe_apply`'s routed experts; ``experts`` ``(first, count)``:
+    the weights ``p`` hold only those experts, and only they are
+    computed (every other expert's output is zero), and ``stats`` also
+    gets the pairs' ``keep`` mask ``[T, k]`` (``first`` 0)."""
     b, s, d = x.shape
     ne, topk = cfg.moe_num_experts, cfg.moe_top_k
     n_tok = b * s
@@ -327,9 +433,17 @@ def moe_apply(cfg: ArchConfig, p, x, stats: Optional[dict] = None):
     src.index_copy_(0, dest, torch.arange(n_tok * topk, device=x.device)
                     // topk)
     expert_in = xf[src[:trash]].view(ne, cap, d)
+    if experts is not None:
+        expert_in = expert_in[experts[0]:experts[0] + experts[1]]
     h = _act(cfg, torch.bmm(expert_in, p["wg"])) * torch.bmm(expert_in,
                                                              p["wi"])
-    expert_out = torch.bmm(h, p["wo"]).view(trash, d)  # [E * C, d]
+    expert_out = torch.bmm(h, p["wo"])
+    if experts is not None:  # the other experts' outputs: zero
+        lo, n = experts
+        expert_out = torch.cat([expert_out.new_zeros((lo, cap, d)),
+                                expert_out, expert_out.new_zeros(
+                                    (ne - lo - n, cap, d))])
+    expert_out = expert_out.reshape(trash, d)  # [E * C, d]
 
     # combine: each pair's row with its gate; a dropped pair's gate is 0
     rows = expert_out[dest.clamp(max=trash - 1)].view(n_tok, topk, d)
@@ -337,13 +451,60 @@ def moe_apply(cfg: ArchConfig, p, x, stats: Optional[dict] = None):
     acc = rows[:, 0].float() * gates[:, 0:1]
     for j in range(1, topk):
         acc = acc + rows[:, j].float() * gates[:, j:j + 1]
-    out = acc.to(x.dtype).view(b, s, d)
     if stats is not None:
         stats["dropped"] = (~keep).sum()
         stats["experts_hit"] = (seen[-1] > 0).sum()
+        if experts is not None:  # on a mesh: every token's pairs
+            stats["keep"], stats["first"] = keep.view(n_tok, topk), 0
+    return acc.to(x.dtype).view(b, s, d)
+
+
+def expert_block(cfg: ArchConfig, ax) -> Tuple[Tuple[str, ...], int, int]:
+    """``(mesh axes, first, count)`` of the experts this rank holds: the
+    ``experts`` dim's spec entry (``("data", "model")``: whole experts,
+    full EP; ``("model",)``: model-axis EP; ``()``: every expert)."""
+    ne, d = cfg.moe_num_experts, cfg.d_model
+    eff = cfg.moe_d_ff or cfg.d_ff
+    names, shape = ("experts", "hidden", None), (ne, d, eff)
+    entry = ax.policy.spec_for(names, shape)[:1]
+    axes = () if not entry or entry[0] is None else (
+        entry[0] if isinstance(entry[0], tuple) else (entry[0],))
+    sl = ax.policy.local_slices(names, shape, ax.mesh.get_coordinate())[0]
+    lo, hi, _ = sl.indices(ne)
+    return axes, lo, hi - lo
+
+
+def _moe_mesh(cfg: ArchConfig, p, x, stats, ax):
+    from repro_torch.models import moe_distributed
+
+    b, s, _ = x.shape
+    nshards = ax.size * ax.dp
+    if (ax.policy.allow_shard_map and ax.size > 1
+            and ax.splits(cfg.moe_num_experts)
+            and (b * ax.dp * s) // nshards >= 8):  # enough tokens a shard
+        out = ax.leave(moe_distributed.moe_apply_sharded(cfg, p, x, ax,
+                                                         stats), True)
+    else:
+        out = _moe_dense_mesh(cfg, p, x, stats, ax)
     if cfg.moe_num_shared:
-        out = out + ffn_apply(cfg, p["shared"], x)
+        out = out + ffn_apply(cfg, p["shared"], x,
+                              (cfg.moe_d_ff or cfg.d_ff) * cfg.moe_num_shared)
     return out
+
+
+def _moe_dense_mesh(cfg: ArchConfig, p, x, stats, ax):
+    """The reference's dense fallback under a mesh: the routing, capacity
+    and slots of the global batch (every data-parallel rank's rows,
+    gathered), the outputs of this rank's experts, summed over the ranks
+    holding the others, this rank's rows kept."""
+    b = x.shape[0]
+    axes, lo, n = expert_block(cfg, ax)
+    xg = all_gather(x, 0, ax.dp_group)
+    y = moe_dense(cfg, p, xg, stats, experts=(lo, n))
+    if "data" in axes:  # the other data ranks' experts
+        y = all_reduce(y, axis_group(ax.mesh, ("data",)))
+    y = y.narrow(0, ax.dp_index * b, b)
+    return ax.leave(y, "model" in axes)
 
 
 # ---------------------------------------------------------------------------
@@ -378,11 +539,18 @@ def _hybrid(p, attn_out, ssm_out):
                   + rms_norm(ssm_out, p["ssm_norm"]))
 
 
+def _gather_point(h):
+    """A block's normed input gathered to the whole sequence on the
+    ``model`` axis (``ModelAxis.enter``); as is without one."""
+    ax = model_axis()
+    return h if ax is None else ax.enter(h)
+
+
 def _ffn_residual(cfg: ArchConfig, kind: str, p, x, attn_out, stats):
     if cfg.post_block_norms:
         attn_out = rms_norm(attn_out, p["ln1_post"], offset=1.0)
     x = x + attn_out
-    h = rms_norm(x, p["ln2"], offset=_norm_offset(cfg))
+    h = _gather_point(rms_norm(x, p["ln2"], offset=_norm_offset(cfg)))
     if kind == "moe":
         ffn_out = moe_apply(cfg, p["ffn"], h, stats)
     else:
@@ -398,7 +566,7 @@ def layer_apply_train(cfg: ArchConfig, kind: str, p, x, sin, cos,
     ``{"ckv", "kr"}`` over the S positions, plus the hybrid's final
     ``{"conv", "ssm"}`` state.  Prefill keeps the cache, the loss drops
     it.  ``stats``: see :func:`moe_apply`."""
-    h = rms_norm(x, p["ln1"], offset=_norm_offset(cfg))
+    h = _gather_point(rms_norm(x, p["ln1"], offset=_norm_offset(cfg)))
     attn_fn = mla_apply_train if cfg.mla else gqa_apply_train
     attn_out, kv = attn_fn(cfg, p["attn"], h, sin, cos, window)
     cache = dict(zip(("ckv", "kr") if cfg.mla else ("k", "v"), kv))

@@ -175,7 +175,10 @@ def test_compressed_checkpoint_writes_the_weights_raw(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model-par", "2"], "ROADMAP queue 1, item 6c-ii"),
+    (["--arch", "hymba-15b", "--model-par", "2"],
+     "ROADMAP queue 1, item 6c-iii"),
+    (["--arch", "rwkv6-3b", "--model-par", "2"],
+     "ROADMAP queue 1, item 6c-iii"),
 ])
 def test_refusals(argv, match):
     with pytest.raises(NotImplementedError, match=match):

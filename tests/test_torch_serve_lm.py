@@ -77,9 +77,13 @@ def test_serve_lm_as_a_module():
 def test_serve_lm_refuses_what_it_cannot_run(monkeypatch):
     with pytest.raises(ValueError, match="multiple of 16"):
         serve_lm.main(ARGS[:-3] + ["12", "--gen", "2", "--kv-compress"])
-    for flag in ("--data", "--model-par"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    for flag in ("--data", "--model-par"):  # ranks come from torchrun
+        with pytest.raises(ValueError, match="needs 2 ranks"):
             serve_lm.main(ARGS + [flag, "2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item "
+                       "6c-iii"):
+        serve_lm.main(["--arch", "hymba-15b", "--smoke", "--device", "cpu",
+                       "--model-par", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_lm.main(ARGS[:3])
